@@ -28,7 +28,7 @@
 // inside the CTA: no atomics, no CTA waits on another, and the result is
 // deterministic. A node-level kernel first computes x @ Wn and the node and
 // time part of the gate's first layer once per node and side.
-#include "common.cuh"
+#include "grad.cuh"
 
 using md::bf16;
 
@@ -190,6 +190,34 @@ __global__ void __launch_bounds__(md::kThreads) edge_pair_kernel(const EdgePairA
 }
 
 }  // namespace
+
+namespace md {
+
+// The prep kernel alone (np, gpre of both sides), for the backward entry
+// point; weights: the 28 BondFfn pointers, left then right.
+cudaError_t edge_pair_prep(const void* const* weights, const bf16* x, const float* t, float* np,
+                           float* gpre, int B, int N, int Dn, int De, int I, int G, int Do,
+                           cudaStream_t s) {
+  EdgePairArgs a = {};
+  const bf16** w = &a.side[0].wb;
+  for (int k = 0; k < 28; ++k) w[k] = static_cast<const bf16*>(weights[k]);
+  a.x = x;
+  a.t = t;
+  a.np = np;
+  a.gpre = gpre;
+  a.B = B; a.N = N; a.Dn = Dn; a.De = De; a.I = I; a.G = G; a.Do = Do;
+  const size_t smem = md::smem_bytes(md::kMaxRows, Dn + 8, 2) +
+                      md::smem_bytes(md::kMaxRows, I + 4, 4);
+  cudaError_t err = cudaFuncSetAttribute(edge_prep_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((B * N + md::kMaxRows - 1) / md::kMaxRows, 2);
+  edge_prep_kernel<<<grid, md::kThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace md
 
 extern "C" {
 

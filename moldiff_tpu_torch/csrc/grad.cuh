@@ -1,0 +1,220 @@
+// Shared pieces of the two backward pair kernels (node_block_bwd.cu,
+// edge_pair_bwd.cu): transposed-weight tile products, the float32 split
+// into two bf16 halves, the LayerNorm backward of one row held by a warp,
+// per-tile column sums, and the host launchers of the weight-gradient,
+// reduction and time kernels of grad.cu.
+//
+// Parameter gradients are sums over every pair of the batch. A CTA of the
+// pair kernels owns one tile of at most kBwdRows pairs and has no room for
+// 256 x 256 float32 accumulators, and the TPU's pattern (accumulating into
+// one output block across a sequential grid) has no counterpart on a
+// parallel grid. So the pair kernels write, per pair, the activations and
+// cotangents that the weight gradients need, and a weight-gradient kernel
+// computes each A^T B over all pairs in split-K slices, each slice into a
+// slot of its own; a reduction kernel then adds the slots in a fixed order.
+// Bias and LayerNorm gradients (column sums) are summed per tile the same
+// way. No float atomics anywhere: every result is reproducible.
+#pragma once
+
+#include "common.cuh"
+
+namespace md {
+
+constexpr int kBwdRows = 32;            // pairs (or nodes) per backward tile
+constexpr int kBwdRowTiles = kBwdRows / 16;
+
+// C[16*mt x nout] (op)= (A (+ A2)) @ W^T, W row-major [nout x k] in global
+// memory (the transpose of a weight used as x @ W). A, A2: bf16 in shared
+// memory, leading dimension lda; A2 may be null (the low half of a split
+// float32 operand). Called by every thread; the caller synchronises.
+__device__ __forceinline__ void cta_gemm_t(const bf16* A, const bf16* A2, int lda,
+                                           const bf16* W, int k, int nout, float* C, int ldc,
+                                           int mt, GemmMode mode) {
+  const int warp = threadIdx.x >> 5;
+  for (int ct = warp; ct < nout / 16; ct += kWarps) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBwdRowTiles];
+#pragma unroll
+    for (int m = 0; m < kBwdRowTiles; ++m) wmma::fill_fragment(acc[m], 0.0f);
+    for (int kk = 0; kk < k; kk += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfrag;
+      wmma::load_matrix_sync(bfrag, W + (size_t)ct * 16 * k + kk, k);
+#pragma unroll
+      for (int m = 0; m < kBwdRowTiles; ++m) {
+        if (m < mt) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> afrag;
+          wmma::load_matrix_sync(afrag, A + (size_t)m * 16 * lda + kk, lda);
+          wmma::mma_sync(acc[m], afrag, bfrag, acc[m]);
+          if (A2 != nullptr) {
+            wmma::load_matrix_sync(afrag, A2 + (size_t)m * 16 * lda + kk, lda);
+            wmma::mma_sync(acc[m], afrag, bfrag, acc[m]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < kBwdRowTiles; ++m) {
+      if (m < mt) {
+        float* cp = C + (size_t)m * 16 * ldc + ct * 16;
+        if (mode == kAdd) {
+          wmma::fragment<wmma::accumulator, 16, 16, 16, float> old;
+          wmma::load_matrix_sync(old, cp, ldc, wmma::mem_row_major);
+          for (int e = 0; e < old.num_elements; ++e) acc[m].x[e] += old.x[e];
+        }
+        wmma::store_matrix_sync(cp, acc[m], ldc, wmma::mem_row_major);
+      }
+    }
+  }
+}
+
+// Split float32 rows into bf16 hi = bf16(v) and lo = bf16(v - hi): hi + lo
+// holds v to about 2^-16 of its size, so two bf16 tensor-core products
+// stand in for one float32 product against a bf16 weight.
+__device__ __forceinline__ void split_rows(const float* F, int ldf, bf16* hi, bf16* lo, int ldb,
+                                           int rows, int width) {
+  for (int idx = threadIdx.x; idx < rows * width; idx += blockDim.x) {
+    const int r = idx / width, c = idx % width;
+    const float v = F[r * ldf + c];
+    const bf16 h = tobf(v);
+    hi[r * ldb + c] = h;
+    lo[r * ldb + c] = tobf(v - bf(h));
+  }
+}
+
+// bf16 copy of float32 rows.
+__device__ __forceinline__ void round_rows(const float* F, int ldf, bf16* out, int ldb, int rows,
+                                           int width) {
+  for (int idx = threadIdx.x; idx < rows * width; idx += blockDim.x) {
+    const int r = idx / width, c = idx % width;
+    out[r * ldb + c] = tobf(F[r * ldf + c]);
+  }
+}
+
+// LayerNorm statistics of one row held by a warp (v[q] = column lane+32q):
+// v becomes xhat = (v - mean) * inv; returns inv (pallas _ln_fwd_stats).
+__device__ __forceinline__ float warp_ln_stats(float* v, int nq) {
+  const float width = 32.0f * nq;
+  float s = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kMaxPerLane; ++q)
+    if (q < nq) s += v[q];
+  const float mean = warp_sum(s) / width;
+  float s2 = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kMaxPerLane; ++q)
+    if (q < nq) {
+      const float d = v[q] - mean;
+      s2 += d * d;
+    }
+  const float inv = rsqrtf(warp_sum(s2) / width + 1e-5f);
+#pragma unroll
+  for (int q = 0; q < kMaxPerLane; ++q)
+    if (q < nq) v[q] = (v[q] - mean) * inv;
+  return inv;
+}
+
+// LayerNorm backward of one warp-held row (pallas _ln_bwd): dy[q] becomes
+// d_h given xhat[q], inv and the LN scale.
+__device__ __forceinline__ void warp_ln_bwd(float* dy, const float* xhat, float inv, int nq,
+                                            const bf16* scale, int lane) {
+  const float width = 32.0f * nq;
+  float dxh[kMaxPerLane];
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kMaxPerLane; ++q)
+    if (q < nq) {
+      dxh[q] = dy[q] * bf(scale[lane + 32 * q]);
+      s1 += dxh[q];
+      s2 += dxh[q] * xhat[q];
+    }
+  const float m1 = warp_sum(s1) / width, m2 = warp_sum(s2) / width;
+#pragma unroll
+  for (int q = 0; q < kMaxPerLane; ++q)
+    if (q < nq) dy[q] = inv * (dxh[q] - m1 - xhat[q] * m2);
+}
+
+// Column sums of a tile, deterministic: warp w holds in acc[v][q] its sum
+// over rows w, w+8, ... of vector v at column lane+32q; the warps' sums go
+// through shared memory (part: kWarps x nv x width floats) and are added
+// in warp order, then written to out + v * stride. Called by every thread.
+template <int NV>
+__device__ __forceinline__ void flush_columns(const float (&acc)[NV][kMaxPerLane], int nq,
+                                              float* part, float* out, int stride) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int width = 32 * nq;
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int q = 0; q < kMaxPerLane; ++q)
+      if (q < nq) part[(warp * NV + v) * width + lane + 32 * q] = acc[v][q];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < NV * width; idx += blockDim.x) {
+    const int v = idx / width, c = idx % width;
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w) s += part[(w * NV + v) * width + c];
+    out[(size_t)v * stride + c] = s;
+  }
+  __syncthreads();
+}
+
+// ---- grad.cu ---------------------------------------------------------------
+
+constexpr int kMaxWgradJobs = 16;
+constexpr int kMaxReduceJobs = 32;
+
+// slots[s] = A[rows of slice s]^T @ B[rows of slice s]  ([k1 x k2] float32).
+// A: bf16 (a_f32 = 0) or float32 (a_f32 = 1), row stride lda; B: float32,
+// row stride ldb. k1, k2: multiples of 16.
+struct WgradJob {
+  const void* a;
+  const float* b;
+  float* slots;
+  int rows, k1, k2, lda, ldb, a_f32;
+};
+
+// out[i] = sum_{s < S} src[s * stride + i], i < n, s in order.
+struct ReduceJob {
+  const float* src;
+  float* out;
+  int S, n, stride;
+};
+
+// Split-K slices of a weight-gradient job over `rows` rows.
+__host__ __device__ inline int wgrad_slices(int rows) {
+  const int per = 512, most = 64;
+  const int s = (rows + per - 1) / per;
+  return s < 1 ? 1 : (s > most ? most : s);
+}
+// Floats of workspace the slots of a job need.
+size_t wgrad_slot_floats(int rows, int k1, int k2);
+cudaError_t launch_wgrad(const WgradJob* jobs, int njobs, cudaStream_t s);
+cudaError_t launch_reduce(const ReduceJob* jobs, int njobs, cudaStream_t s);
+// Per molecule b: tot = sum over its tiles_per_mol tiles of part[tile *
+// stride + c] (c < n); d_t[b] (+)= tot . wt (bf16 row); dwt[c] =
+// sum_b t[b] * tot[c]. One CTA; accumulate adds to d_t.
+cudaError_t launch_time(const float* part, int stride, int tiles_per_mol, int n, int B,
+                        const bf16* wt, const float* t, float* d_t, float* dwt, int accumulate,
+                        cudaStream_t s);
+
+// The node-level prep kernels of the forward entry points (node_block.cu,
+// edge_pair.cu), which the backward entry points reuse.
+cudaError_t node_block_prep(const void* const* weights, const bf16* x, const float* t,
+                            bf16* xn, float* gpre, int B, int N, int Dn, int De, int H,
+                            cudaStream_t s);
+cudaError_t edge_pair_prep(const void* const* weights, const bf16* x, const float* t, float* np,
+                           float* gpre, int B, int N, int Dn, int De, int I, int G, int Do,
+                           cudaStream_t s);
+
+// Carve 256-byte aligned buffers out of a workspace; with base == nullptr it
+// only counts the bytes.
+struct Carve {
+  unsigned char* base;
+  size_t off = 0;
+  template <typename T>
+  T* take(size_t count) {
+    T* p = base ? reinterpret_cast<T*>(base + off) : nullptr;
+    off += (count * sizeof(T) + 255) / 256 * 256;
+    return p;
+  }
+};
+
+}  // namespace md

@@ -26,7 +26,7 @@
 // waits on another and the result is deterministic. It moves no [N, N, H]
 // intermediate through device memory; its distance from the bound is the
 // WMMA path, the weight reloads per CTA and one CTA per SM.
-#include "common.cuh"
+#include "grad.cuh"
 
 using md::bf16;
 
@@ -204,6 +204,33 @@ __global__ void __launch_bounds__(md::kThreads) node_pair_kernel(const NodeBlock
 }
 
 }  // namespace
+
+namespace md {
+
+// The prep kernel alone (xn, gpre), for the backward entry point.
+cudaError_t node_block_prep(const void* const* weights, const bf16* x, const float* t,
+                            bf16* xn, float* gpre, int B, int N, int Dn, int De, int H,
+                            cudaStream_t s) {
+  NodeBlockArgs a = {};
+  const bf16** w = &a.we1;
+  for (int k = 0; k < 20; ++k) w[k] = static_cast<const bf16*>(weights[k]);
+  a.x = x;
+  a.t = t;
+  a.xn = xn;
+  a.gpre = gpre;
+  a.B = B; a.N = N; a.Dn = Dn; a.De = De; a.H = H;
+  const size_t smem = md::smem_bytes(md::kMaxRows, Dn + 8, 2) +
+                      md::smem_bytes(md::kMaxRows, H + 8, 2) +
+                      md::smem_bytes(md::kMaxRows, H + 4, 4);
+  cudaError_t err = cudaFuncSetAttribute(node_prep_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  node_prep_kernel<<<(B * N + md::kMaxRows - 1) / md::kMaxRows, md::kThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace md
 
 extern "C" {
 

@@ -1,4 +1,4 @@
-"""NodeEdgeNet denoiser on dense padded complete graphs, forward only
+"""NodeEdgeNet denoiser on dense padded complete graphs
 (moldiff_tpu/models/denoiser.py).
 
 Edges live in a dense ``[B, N, N, H]`` tensor where (i, j) is the directed
@@ -9,7 +9,10 @@ The port runs the JAX package's kernel path (``use_pallas`` + ``pallas_bwd``
 with ``edge_full=False``): the NodeBlock message sum, the EdgeBlock pair
 aggregate and the PosUpdate force sum go through the wrappers of
 ops/kernels.py, which launch the CUDA kernels for CUDA tensors and use
-their plain versions for CPU tensors. Everything around them (embeddings,
+their plain versions for CPU tensors. The first two are differentiable:
+their gradients run through the backward kernels (the bond predictor's
+guidance gradient); PosUpdate has no backward yet, and the models that
+are differentiated (the predictor, ``update_pos: false``) do not run it. Everything around them (embeddings,
 LayerNorms, the edge tail) is plain PyTorch in the compute dtype, as the
 JAX package leaves it to XLA. The gated blocks (``use_gate: true``, every
 committed model) are the ones with kernels; an ungated model is refused.
@@ -55,9 +58,10 @@ def compute_dtype(static: dict) -> torch.dtype:
 
 
 def node_block(p, x, edge_attr, node_time, pair_mask):
-    """NodeBlock (denoiser.py:65-145, use_pallas path): kernel message sum,
-    then centroid linear, LN, relu, out."""
-    aggr = kernels.node_block_aggregate(
+    """NodeBlock (denoiser.py:65-145, use_pallas + pallas_bwd path): kernel
+    message sum (differentiable through the backward kernel), then centroid
+    linear, LN, relu, out."""
+    aggr = kernels.node_block_aggregate_ad(
         {k: p[k] for k in ("node_net", "edge_net", "msg_net", "gate")},
         x, edge_attr, node_time, pair_mask)
     out = linear(p["centroid_lin"], x) + aggr
@@ -67,8 +71,9 @@ def node_block(p, x, edge_attr, node_time, pair_mask):
 
 def edge_block(p, h_bond, h_node, bond_time, pair_mask):
     """EdgeBlock (denoiser.py:219-253, pallas_bwd partial path): kernel pair
-    aggregate, then the node/self FFNs, LN, relu, out."""
-    t_pn, u_pn = kernels.edge_pair_aggregate(
+    aggregate (differentiable through the backward kernel), then the
+    node/self FFNs, LN, relu, out."""
+    t_pn, u_pn = kernels.edge_pair_aggregate_ad(
         {"left": p["bond_ffn_left"], "right": p["bond_ffn_right"]},
         h_bond, h_node, bond_time, pair_mask)
     h = (t_pn[:, :, None, :] + u_pn[:, None, :, :]

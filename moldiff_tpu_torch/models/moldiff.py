@@ -1,4 +1,5 @@
-"""MolDiff forward and the unguided reverse sampler (moldiff_tpu/models/moldiff.py).
+"""MolDiff forward and the reverse sampler, with bond guidance
+(moldiff_tpu/models/moldiff.py).
 
 Positions [B, N, 3] follow a Gaussian diffusion; atom types [B, N, Kn] and
 bond types on half-edges [B, E, Ke] follow categorical diffusions with the
@@ -9,13 +10,21 @@ function itself is deterministic, so one step can be checked against the
 JAX package given the same noise.
 
 Ported: ``forward`` (:178-249), ``sample`` (:425) with ``ddpm`` positions
-and ``commit`` in {"none", "nodes"}, and its step (:559). Not yet: guidance,
-respacing, DDIM, edge commit, the continuous categorical mode, the loss.
+and ``commit`` in {"none", "nodes"}, and its step (:559), with the bond
+predictor's position guidance in all eight modes (:960-1044) and its
+class-space edge guidance (:650-675). Not yet: respacing, DDIM, edge
+commit, the continuous categorical mode, the loss.
+
+Sampling runs under ``torch.no_grad()``; the guidance delta re-enables
+autograd for the predictor's forward and its gradient with respect to the
+positions (the reference's model.py:309-362 does the same), which runs
+through the backward pair kernels.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import graph_ops
@@ -26,6 +35,14 @@ from .denoiser import denoiser_static_config, node_edge_net, prepare_blocks
 from .nn import GaussianSmearing, linear, mlp
 
 COMMIT_MODES = ("none", "nodes")
+
+# drift direction per guidance mode (reference model.py:309-362: minimize
+# entropy/uncertainty/crossent scores, maximize logit scores)
+_GUIDANCE_SIGN = {
+    "entropy": -1.0, "uncertainty": -1.0, "uncertainty_bond": -1.0,
+    "entropy_bond": -1.0, "logit_bond": +1.0, "logit": +1.0,
+    "crossent": -1.0, "crossent_bond": -1.0,
+}
 
 
 class MolDiffPreds(NamedTuple):
@@ -142,11 +159,24 @@ class MolDiff:
 
     def reverse_step(self, params: dict, state: SampleState, step: int, node_mask,
                      noise: StepNoise, commit: str = "none",
-                     blocks: Optional[list] = None) -> SampleState:
+                     blocks: Optional[list] = None, bond_predictor=None,
+                     guidance: Optional[Tuple[str, float]] = None, guidance_interval: int = 1,
+                     edge_guidance: float = 0.0,
+                     edge_guidance_tmax: Optional[int] = None) -> SampleState:
         """One ancestral reverse step t = step -> step - 1 (the scan body of
-        moldiff.py:559-755, unguided, ddpm positions)."""
+        moldiff.py:559-755, ddpm positions).
+
+        ``bond_predictor``: (BondPredictor, params, blocks or None), needed by
+        ``guidance`` (mode, scale: the position drift of
+        :func:`bond_guidance_delta`, applied when ``step % guidance_interval
+        == 0``) and ``edge_guidance`` (weight of the predictor's log-probs
+        mixed into the edge v0 prediction, at timesteps below
+        ``edge_guidance_tmax`` when given)."""
         if commit not in COMMIT_MODES:
             raise ValueError(f"commit must be one of {COMMIT_MODES}, got {commit!r}")
+        edge_guidance = float(edge_guidance)
+        if (edge_guidance > 0 or guidance is not None) and bond_predictor is None:
+            raise ValueError("guidance and edge_guidance require a bond_predictor")
         node_tr, edge_tr = self.node_transition, self.edge_transition
         b = node_mask.shape[0]
         t = torch.full((b,), step, dtype=torch.long, device=node_mask.device)
@@ -177,24 +207,113 @@ class MolDiff:
             node_type_prev = torch.where(com_node >= 0, com_node, node_type_prev)
 
         log_edge_recon = torch.log_softmax(preds.pred_halfedge, dim=-1)
+        if edge_guidance > 0:
+            # class-space bond guidance (moldiff.py:650-675)
+            bp, bp_params, bp_blocks = bond_predictor
+            bp_logits = bp.forward(bp_params, state.h_node, state.pos, t, node_mask,
+                                   blocks=bp_blocks)
+            bp_logp = torch.log_softmax(bp_logits, dim=-1)
+            pad = self.num_edge_types - bp_logp.shape[-1]
+            if pad > 0:
+                # mask classes: uniform level, neither boosted nor killed
+                bp_logp = torch.nn.functional.pad(
+                    bp_logp, (0, pad), value=-float(np.log(bp_logits.shape[-1])))
+            mix = edge_guidance * bp_logp
+            if edge_guidance_tmax is not None:
+                mix = torch.where((t < int(edge_guidance_tmax))[:, None, None], mix,
+                                  torch.zeros_like(mix))
+            log_edge_recon = torch.log_softmax(log_edge_recon + mix, dim=-1)
+            preds = MolDiffPreds(preds.pred_node, preds.pred_pos, log_edge_recon)
         log_half_new = edge_tr.q_v_posterior(log_edge_recon, state.log_halfedge, t)
         half_type_prev = log_sample_categorical(log_half_new, noise.edge)
         if commit == "nodes":
             # decode reads the clamped v0 views (moldiff.py:713-717)
             preds = MolDiffPreds(log_node_recon, preds.pred_pos, log_edge_recon)
+        if guidance is not None and not float(guidance[1]) <= 0:
+            if guidance_interval <= 1 or step % guidance_interval == 0:
+                pos_prev = pos_prev + bond_guidance_delta(
+                    bond_predictor, guidance[0], float(guidance[1]), state.h_node, state.pos,
+                    t, node_mask, half_type_prev, log_half_new)
         return SampleState(pos_prev, node_tr.onehot_encode(node_type_prev),
                            edge_tr.onehot_encode(half_type_prev), log_node_new, log_half_new,
                            com_node, preds)
 
+    @torch.no_grad()
     def sample(self, params: dict, node_mask: torch.Tensor, generator: torch.Generator,
-               commit: str = "none") -> MolDiffPreds:
+               commit: str = "none", bond_predictor=None,
+               guidance: Optional[Tuple[str, float]] = None, guidance_interval: int = 1,
+               edge_guidance: float = 0.0,
+               edge_guidance_tmax: Optional[int] = None) -> MolDiffPreds:
         """Full T-step reverse chain (moldiff.py:425-540); returns the final
-        step's predictions, which decoding reads."""
+        step's predictions, which decoding reads. ``bond_predictor``:
+        (BondPredictor, params); see :meth:`reverse_step` for the rest."""
         b, n = node_mask.shape
         blocks = self.prepare(params)
+        if bond_predictor is not None:
+            bp, bp_params = bond_predictor[:2]
+            bond_predictor = (bp, bp_params, bp.prepare(bp_params))
         state = self.init_state(node_mask, self.draw_noise(b, n, generator))
         for step in range(self.num_timesteps - 1, -1, -1):
             state = self.reverse_step(params, state, step, node_mask,
                                       self.draw_noise(b, n, generator), commit=commit,
-                                      blocks=blocks)
+                                      blocks=blocks, bond_predictor=bond_predictor,
+                                      guidance=guidance, guidance_interval=guidance_interval,
+                                      edge_guidance=edge_guidance,
+                                      edge_guidance_tmax=edge_guidance_tmax)
         return state.preds
+
+
+def _guidance_score(gui_type: str, pred: torch.Tensor, halfedge_mask: torch.Tensor,
+                    halfedge_type_prev: torch.Tensor,
+                    log_halfedge_type: torch.Tensor) -> torch.Tensor:
+    """The scalar whose position gradient guides (moldiff.py:992-1041);
+    every per-half-edge term masked so padding contributes nothing."""
+    eps = 1e-12
+    k = pred.shape[-1]
+    if gui_type in ("entropy", "entropy_bond"):
+        prob = torch.softmax(pred, dim=-1)
+        score = torch.log(-(prob * torch.log(prob + eps)).sum(dim=-1))
+    elif gui_type in ("uncertainty", "uncertainty_bond"):
+        prob = torch.softmax(pred, dim=-1)
+        score = torch.log(torch.sigmoid(-torch.logsumexp(pred, dim=-1)))
+    elif gui_type in ("logit_bond", "logit"):
+        keep = ((halfedge_type_prev >= 1) & (halfedge_type_prev <= 4) if gui_type == "logit_bond"
+                else halfedge_type_prev <= 4).to(pred.dtype)
+        sel = torch.gather(pred, -1, torch.clamp(halfedge_type_prev, 0, k - 1)[..., None])[..., 0]
+        return (sel * keep * halfedge_mask).sum()
+    elif gui_type == "crossent":
+        target = torch.exp(log_halfedge_type)[..., :-1].detach()
+        ce = -(target * torch.log_softmax(pred, dim=-1)).sum(dim=-1)
+        score = torch.log(ce + eps)
+    elif gui_type == "crossent_bond":
+        target = torch.exp(log_halfedge_type)[..., 1:-1].detach()
+        ce = -(target * torch.log_softmax(pred[..., 1:], dim=-1)).sum(dim=-1)
+        score = torch.log(ce + eps)
+    else:
+        raise NotImplementedError(f"guidance type {gui_type}")
+    if gui_type.endswith("_bond") and gui_type != "crossent_bond":
+        # weight by the predicted probability of any bond (no gradient)
+        return (score * prob[..., 1:].sum(dim=-1).detach() * halfedge_mask).sum()
+    return (score * halfedge_mask).sum()
+
+
+def bond_guidance_delta(bond_predictor, gui_type: str, gui_scale: float,
+                        h_node_pert: torch.Tensor, pos_pert: torch.Tensor, t: torch.Tensor,
+                        node_mask: torch.Tensor, halfedge_type_prev: torch.Tensor,
+                        log_halfedge_type: torch.Tensor) -> torch.Tensor:
+    """delta(pos) = +-grad_pos(score) * scale for the eight reference modes
+    (moldiff.py:970-1044). ``bond_predictor``: (BondPredictor, params[,
+    blocks]). The predictor's forward and its gradient run with autograd
+    on, also inside ``torch.no_grad()``."""
+    if gui_type not in _GUIDANCE_SIGN:
+        raise NotImplementedError(f"guidance type {gui_type}")
+    bp, bp_params = bond_predictor[:2]
+    blocks = bond_predictor[2] if len(bond_predictor) > 2 else None
+    halfedge_mask = graph_ops.halfedge_mask_from_node_mask(node_mask)
+    with torch.enable_grad():
+        pos_in = pos_pert.detach().requires_grad_(True)
+        pred = bp.forward(bp_params, h_node_pert, pos_in, t, node_mask, blocks=blocks)
+        score = _guidance_score(gui_type, pred, halfedge_mask, halfedge_type_prev,
+                                log_halfedge_type)
+        grad, = torch.autograd.grad(score, pos_in)
+    return _GUIDANCE_SIGN[gui_type] * grad * gui_scale

@@ -34,6 +34,13 @@ SIGNATURES = {
     "md_node_block_forward": [_P, _I, _I, _I, _I, _I, _P, _P],
     "md_edge_pair_forward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "md_pos_update_forward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "md_node_block_backward": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "md_edge_pair_backward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+}
+# bytes of workspace a backward call needs, from its widths
+WORKSPACE_SIGNATURES = {
+    "md_node_block_backward_workspace": [_I] * 5,
+    "md_edge_pair_backward_workspace": [_I] * 7,
 }
 
 _loaded: Optional[ctypes.CDLL] = None
@@ -95,6 +102,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in WORKSPACE_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         lib.md_error_name.argtypes = [ctypes.c_int]
         lib.md_error_name.restype = ctypes.c_char_p
         _loaded = lib

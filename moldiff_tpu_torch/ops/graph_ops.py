@@ -73,3 +73,11 @@ def pair_mask_from_node_mask(node_mask: torch.Tensor) -> torch.Tensor:
     n = node_mask.shape[1]
     return pm * (1.0 - torch.eye(n, dtype=torch.float32, device=node_mask.device))
 
+
+
+def halfedge_mask_from_node_mask(node_mask: torch.Tensor) -> torch.Tensor:
+    """[B, N] -> [B, E] float32: 1 where both half-edge endpoints are real."""
+    n = node_mask.shape[1]
+    dev = str(node_mask.device)
+    m = node_mask.to(torch.float32)
+    return m[:, _index_tensor("iu", n, dev)] * m[:, _index_tensor("ju", n, dev)]

@@ -1,5 +1,5 @@
-"""The denoiser's three forward pair kernels, their wrappers and their
-plain PyTorch versions.
+"""The denoiser's pair kernels, forward and backward, their wrappers and
+their plain PyTorch versions.
 
 Each function here stands for one Pallas kernel of
 moldiff_tpu/ops/pallas_kernels.py and computes what that kernel's body
@@ -10,6 +10,17 @@ float32, biases and LayerNorm parameters read as float32):
   edge_pair_aggregate   <- _edge_pair_kernel   (EdgeBlock's two BondFFN chains
                                                 and their endpoint sums)
   pos_update            <- _pos_update_kernel  (PosUpdate force sum)
+  node_block_aggregate_bwd <- _node_block_bwd_kernel (recompute + cotangents)
+  edge_pair_aggregate_bwd  <- _edge_pair_bwd_kernel  (recompute + cotangents)
+
+The backward versions return cotangents matching the primal signature, as
+the Pallas wrappers do: (d_params, then one cotangent per input), parameter
+grads accumulated in float32 and cast to the parameter dtype at the end.
+Like the Pallas backward bodies, their recompute keeps the sigmoid and the
+message in float32 where the forward rounds them to bf16.
+:func:`node_block_aggregate_ad` and :func:`edge_pair_aggregate_ad` are the
+differentiable versions: a ``torch.autograd.Function`` whose forward is the
+forward wrapper and whose backward is the backward wrapper.
 
 A wrapper takes its plain version (``*_plain``) for tensors on the CPU,
 which is where the tests run. For CUDA tensors it launches the hand-written
@@ -19,8 +30,9 @@ its parameters to the compute dtype first, as the JAX package does), and
 float32 masks, times, relative vectors and distances.
 
 ``launch_counts`` counts the kernel launches of each wrapper, as the C
-function reports them: each call launches two kernels, a node-level prep
-kernel and the pair kernel. Nothing else changes it.
+function reports them: each forward call launches two kernels, a
+node-level prep kernel and the pair kernel; a backward call launches the
+kernels its C entry point lists. Nothing else changes it.
 """
 from __future__ import annotations
 
@@ -29,7 +41,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
-launch_counts: Dict[str, int] = {"node_block": 0, "edge_pair": 0, "pos_update": 0}
+launch_counts: Dict[str, int] = {"node_block": 0, "edge_pair": 0, "pos_update": 0,
+                                  "node_block_bwd": 0, "edge_pair_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -134,6 +147,197 @@ def pos_update_plain(params, h_node, h_edge, rel_vec, distance, edge_time, pair_
     d_safe = torch.where(mask4 > 0, distance.float()[..., None], torch.ones_like(mask4))
     force = w * rel_vec.float() * (1.0 / d_safe) * (1.0 / (d_safe + 1.0)) * mask4
     return force.sum(dim=2)
+
+
+# ---------------------------------------------------------------------------
+# plain backward versions
+# ---------------------------------------------------------------------------
+
+def _ln_stats(h: torch.Tensor, ln: dict, eps: float = 1e-5):
+    """pallas_kernels.py:_ln_fwd_stats: (LN output, xhat, 1/std), float32."""
+    mean = h.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(((h - mean) ** 2).mean(dim=-1, keepdim=True) + eps)
+    xhat = (h - mean) * inv
+    return xhat * ln["scale"].float() + ln["bias"].float(), xhat, inv
+
+
+def _ln_bwd(d_y: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor, ln: dict):
+    """pallas_kernels.py:_ln_bwd: (d_h, per-row d_scale); d_bias rows = d_y."""
+    d_xhat = d_y * ln["scale"].float()
+    m1 = d_xhat.mean(dim=-1, keepdim=True)
+    m2 = (d_xhat * xhat).mean(dim=-1, keepdim=True)
+    return inv * (d_xhat - m1 - xhat * m2), d_y * xhat
+
+
+def _dot_t(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T accumulated in float32."""
+    return a.float() @ w.float().t()
+
+
+def _wgrad(a: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """sum over rows of a[r]^T d[r] (a [..., K1], d [..., K2]) -> [K1, K2] float32."""
+    return a.reshape(-1, a.shape[-1]).float().t() @ d.reshape(-1, d.shape[-1]).float()
+
+
+def _rows(a: torch.Tensor) -> torch.Tensor:
+    return a.reshape(-1, a.shape[-1]).float().sum(dim=0)
+
+
+def _mlp_grads(dw0, db0, dscale, dbias, dw1, db1) -> dict:
+    return {"layers": [{"lin": {"w": dw0, "b": db0}, "ln": {"scale": dscale, "bias": dbias}},
+                       {"lin": {"w": dw1, "b": db1}}]}
+
+
+def _cast_like(grads, params):
+    if isinstance(grads, dict):
+        return {k: _cast_like(grads[k], params[k]) for k in grads}
+    if isinstance(grads, (list, tuple)):
+        return type(grads)(_cast_like(g, p) for g, p in zip(grads, params))
+    return grads.to(params.dtype)
+
+
+def node_block_aggregate_bwd_plain(params, x, edge_attr, node_time, pair_mask, dout):
+    """pallas_kernels.py:_node_block_bwd_kernel (as _pallas_node_block_bwd
+    wraps it) -> (d_params, dx, d_edge, d_time, d_mask)."""
+    dt = x.dtype
+    de, dn = edge_attr.shape[-1], x.shape[-1]
+    pe0, pe1 = params["edge_net"]["layers"]
+    pn0, pn1 = params["node_net"]["layers"]
+    pg0, pg1 = params["gate"]["layers"]
+    wm = params["msg_net"]["w"]
+    wg1 = pg0["lin"]["w"]
+    t = node_time.reshape(-1).float()
+
+    # forward recompute, float32 sigmoid and message
+    h1 = _dot(edge_attr, pe0["lin"]["w"]) + pe0["lin"]["b"].float()
+    ln_e, xhat_e, inv_e = _ln_stats(h1, pe0["ln"])
+    r1 = torch.relu(ln_e).to(dt)
+    h = (_dot(r1, pe1["lin"]["w"]) + pe1["lin"]["b"].float()).to(dt)
+    hn1 = _dot(x, pn0["lin"]["w"]) + pn0["lin"]["b"].float()
+    ln_n, xhat_n, inv_n = _ln_stats(hn1, pn0["ln"])
+    rn = torch.relu(ln_n).to(dt)
+    xn = (_dot(rn, pn1["lin"]["w"]) + pn1["lin"]["b"].float()).to(dt)
+    hh = h * xn[:, None, :, :]
+    msg = (_dot(hh, wm) + params["msg_net"]["b"].float()).to(dt)
+    g1 = (_dot(edge_attr, wg1[:de]) + _dot(x, wg1[de:de + dn])[:, None, :, :]
+          + _time_col(node_time) * wg1[de + dn].float() + pg0["lin"]["b"].float())
+    ln_g, xhat_g, inv_g = _ln_stats(g1, pg0["ln"])
+    rg = torch.relu(ln_g).to(dt)
+    sig = torch.sigmoid(_dot(rg, pg1["lin"]["w"]) + pg1["lin"]["b"].float())
+
+    # backward
+    dout4 = dout.float()[:, :, None, :]
+    d_gated = dout4 * pair_mask.float()[..., None]
+    msg_f = msg.float()
+    d_msg = d_gated * sig
+    d_sig = d_gated * msg_f
+    d_mask = (dout4 * (msg_f * sig)).sum(dim=-1)
+    d_hh = _dot_t(d_msg, wm)
+    d_h = d_hh * xn.float()[:, None, :, :]
+    d_xn = (d_hh * h.float()).sum(dim=1)                      # over receivers
+    d_lne = _dot_t(d_h, pe1["lin"]["w"]) * (ln_e > 0)
+    d_h1, dse_rows = _ln_bwd(d_lne, xhat_e, inv_e, pe0["ln"])
+    d_e_edge = _dot_t(d_h1.to(dt), pe0["lin"]["w"])
+    d_lnn = _dot_t(d_xn, pn1["lin"]["w"]) * (ln_n > 0)
+    d_hn1, dsn_rows = _ln_bwd(d_lnn, xhat_n, inv_n, pn0["ln"])
+    d_x_node = _dot_t(d_hn1.to(dt), pn0["lin"]["w"])
+    d_g2 = d_sig * sig * (1.0 - sig)
+    d_lng = _dot_t(d_g2.to(dt), pg1["lin"]["w"]) * (ln_g > 0)
+    d_g1, dsg_rows = _ln_bwd(d_lng, xhat_g, inv_g, pg0["ln"])
+    d_e_gate = _dot_t(d_g1.to(dt), wg1[:de])
+    s_sender = d_g1.sum(dim=1)                                # over receivers
+    d_x_gate = _dot_t(s_sender.to(dt), wg1[de:de + dn])
+    d_g1_tot = d_g1.sum(dim=(1, 2))                           # [B, H]
+    d_t = d_g1_tot @ wg1[de + dn].float()
+
+    d_params = {
+        "edge_net": _mlp_grads(_wgrad(edge_attr, d_h1), _rows(d_h1), _rows(dse_rows),
+                               _rows(d_lne), _wgrad(r1, d_h), _rows(d_h)),
+        "node_net": _mlp_grads(_wgrad(x, d_hn1), _rows(d_hn1), _rows(dsn_rows),
+                               _rows(d_lnn), _wgrad(rn, d_xn), _rows(d_xn)),
+        "msg_net": {"w": _wgrad(hh, d_msg), "b": _rows(d_msg)},
+        "gate": _mlp_grads(
+            torch.cat([_wgrad(edge_attr, d_g1), _wgrad(x, s_sender),
+                       (t[:, None] * d_g1_tot).sum(dim=0)[None]], dim=0),
+            _rows(d_g1), _rows(dsg_rows), _rows(d_lng), _wgrad(rg, d_g2), _rows(d_g2)),
+    }
+    return (_cast_like(d_params, params), (d_x_node + d_x_gate).to(dt),
+            (d_e_edge + d_e_gate).to(dt), d_t.reshape(node_time.shape).to(node_time.dtype),
+            d_mask.to(pair_mask.dtype))
+
+
+def _bond_chain_bwd(p, e, x, t, mask4, d_red, node_axis: int, dt):
+    """pallas_kernels.py:_edge_side_bwd for one gated BondFFN chain and its
+    masked endpoint sum, given the cotangent d_red broadcast to the pairs ->
+    (d_params (float32), d_e, d_x, d_time, d_mask)."""
+    de, dn = e.shape[-1], x.shape[-1]
+    expand = (lambda a: a[:, :, None]) if node_axis == 1 else (lambda a: a[:, None])
+    sum_axis = 3 - node_axis          # the axis the node features broadcast over
+    pi0, pi1 = p["inter"]["layers"]
+    pg0, pg1 = p["gate"]["layers"]
+    wb, wn, wg1 = p["bond_linear"]["w"], p["node_linear"]["w"], pg0["lin"]["w"]
+
+    bp = _dot(e, wb)
+    np_ = _dot(x, wn)
+    inter0 = bp * expand(np_)
+    h1 = _dot(inter0.to(dt), pi0["lin"]["w"]) + pi0["lin"]["b"].float()
+    ln1, xhat1, inv1 = _ln_stats(h1, pi0["ln"])
+    r1 = torch.relu(ln1).to(dt)
+    out_i = _dot(r1, pi1["lin"]["w"]) + pi1["lin"]["b"].float()
+    g1 = (_dot(e, wg1[:de]) + expand(_dot(x, wg1[de:de + dn]))
+          + _time_col(t) * wg1[de + dn].float() + pg0["lin"]["b"].float())
+    lng, xhatg, invg = _ln_stats(g1, pg0["ln"])
+    rg = torch.relu(lng).to(dt)
+    sig = torch.sigmoid(_dot(rg, pg1["lin"]["w"]) + pg1["lin"]["b"].float())
+
+    d_mask = (d_red * (out_i * sig)).sum(dim=-1)
+    d_msg = d_red * mask4
+    d_out_i = d_msg * sig
+    d_g2 = d_msg * out_i * sig * (1.0 - sig)
+    d_lng = _dot_t(d_g2.to(dt), pg1["lin"]["w"]) * (lng > 0)
+    d_g1, dsg_rows = _ln_bwd(d_lng, xhatg, invg, pg0["ln"])
+    d_e_gate = _dot_t(d_g1.to(dt), wg1[:de])
+    s_node = d_g1.sum(dim=sum_axis)
+    d_x_gate = _dot_t(s_node.to(dt), wg1[de:de + dn])
+    d_g1_tot = d_g1.sum(dim=(1, 2))
+    d_time = d_g1_tot @ wg1[de + dn].float()
+    d_ln1 = _dot_t(d_out_i.to(dt), pi1["lin"]["w"]) * (ln1 > 0)
+    d_h1, ds1_rows = _ln_bwd(d_ln1, xhat1, inv1, pi0["ln"])
+    d_inter0 = _dot_t(d_h1.to(dt), pi0["lin"]["w"])
+    d_bp = d_inter0 * expand(np_)
+    d_np = (d_inter0 * bp).sum(dim=sum_axis)
+    d_e = _dot_t(d_bp.to(dt), wb) + d_e_gate
+    d_x = d_x_gate + _dot_t(d_np.to(dt), wn)
+
+    tv = t.reshape(-1).float()
+    d_params = {
+        "bond_linear": {"w": _wgrad(e, d_bp)},
+        "node_linear": {"w": _wgrad(x, d_np)},
+        "inter": _mlp_grads(_wgrad(inter0, d_h1), _rows(d_h1), _rows(ds1_rows),
+                            _rows(d_ln1), _wgrad(r1, d_out_i), _rows(d_out_i)),
+        "gate": _mlp_grads(
+            torch.cat([_wgrad(e, d_g1), _wgrad(x, s_node),
+                       (tv[:, None] * d_g1_tot).sum(dim=0)[None]], dim=0),
+            _rows(d_g1), _rows(dsg_rows), _rows(d_lng), _wgrad(rg, d_g2), _rows(d_g2)),
+    }
+    return d_params, d_e, d_x, d_time, d_mask
+
+
+def edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask, dt_ct, du_ct):
+    """pallas_kernels.py:_edge_pair_bwd_kernel (as _pallas_edge_pair_bwd
+    wraps it): cotangents dt_ct, du_ct [B,N,Do] of (t, u) -> (d_params,
+    d_bond, d_node, d_time, d_mask). t sums over rows, so its cotangent
+    broadcasts back over rows; u's over columns."""
+    dt = h_bond.dtype
+    mask4 = pair_mask.float()[..., None]
+    left = _bond_chain_bwd(params["left"], h_bond, h_node, bond_time, mask4,
+                           dt_ct.float()[:, None, :, :], 1, dt)
+    right = _bond_chain_bwd(params["right"], h_bond, h_node, bond_time, mask4,
+                            du_ct.float()[:, :, None, :], 2, dt)
+    d_params = _cast_like({"left": left[0], "right": right[0]}, params)
+    return (d_params, (left[1] + right[1]).to(dt), (left[2] + right[2]).to(dt),
+            (left[3] + right[3]).reshape(bond_time.shape).to(bond_time.dtype),
+            (left[4] + right[4]).to(pair_mask.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -316,3 +520,172 @@ def pos_update(params, h_node, h_edge, rel_vec, distance, edge_time, pair_mask):
     build.check(lib, rc, "pos_update")
     launch_counts["pos_update"] += launched.value
     return out
+
+
+def _mlp_tree(leaves: Sequence[torch.Tensor]) -> dict:
+    w0, b0, s0, c0, w1, b1 = leaves
+    return {"layers": [{"lin": {"w": w0, "b": b0}, "ln": {"scale": s0, "bias": c0}},
+                       {"lin": {"w": w1, "b": b1}}]}
+
+
+def _node_block_leaves(p: dict) -> List[torch.Tensor]:
+    return (_mlp_leaves(p["edge_net"]) + _mlp_leaves(p["node_net"])
+            + [p["msg_net"]["w"], p["msg_net"]["b"]] + _mlp_leaves(p["gate"]))
+
+
+def _node_block_tree(leaves: Sequence[torch.Tensor]) -> dict:
+    return {"edge_net": _mlp_tree(leaves[0:6]), "node_net": _mlp_tree(leaves[6:12]),
+            "msg_net": {"w": leaves[12], "b": leaves[13]}, "gate": _mlp_tree(leaves[14:20])}
+
+
+def _bond_ffn_tree(leaves: Sequence[torch.Tensor]) -> dict:
+    return {"bond_linear": {"w": leaves[0]}, "node_linear": {"w": leaves[1]},
+            "inter": _mlp_tree(leaves[2:8]), "gate": _mlp_tree(leaves[8:14])}
+
+
+def _edge_pair_tree(leaves: Sequence[torch.Tensor]) -> dict:
+    return {"left": _bond_ffn_tree(leaves[:14]), "right": _bond_ffn_tree(leaves[14:28])}
+
+
+def _edge_pair_leaves(p: dict) -> List[torch.Tensor]:
+    return _bond_ffn_leaves(p["left"]) + _bond_ffn_leaves(p["right"])
+
+
+class _NodeBlockAggregate(torch.autograd.Function):
+    """node_block_aggregate with the NodeBlock backward kernel as its
+    gradient; saves only the inputs, the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, x, edge_attr, node_time, pair_mask, *leaves):
+        ctx.save_for_backward(x, edge_attr, node_time, pair_mask, *leaves)
+        return node_block_aggregate(_node_block_tree(leaves), x, edge_attr, node_time,
+                                    pair_mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, edge_attr, node_time, pair_mask, *leaves = ctx.saved_tensors
+        d_params, dx, d_edge, d_t, d_mask = node_block_aggregate_bwd(
+            _node_block_tree(leaves), x, edge_attr, node_time, pair_mask, dout.contiguous())
+        return (dx, d_edge, d_t, d_mask, *_node_block_leaves(d_params))
+
+
+class _EdgePairAggregate(torch.autograd.Function):
+    """edge_pair_aggregate with the EdgeBlock pair backward kernel as its
+    gradient; saves only the inputs, the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, h_bond, h_node, bond_time, pair_mask, *leaves):
+        ctx.save_for_backward(h_bond, h_node, bond_time, pair_mask, *leaves)
+        return edge_pair_aggregate(_edge_pair_tree(leaves), h_bond, h_node, bond_time,
+                                   pair_mask)
+
+    @staticmethod
+    def backward(ctx, dt_ct, du_ct):
+        h_bond, h_node, bond_time, pair_mask, *leaves = ctx.saved_tensors
+        d_params, d_bond, d_node, d_time, d_mask = edge_pair_aggregate_bwd(
+            _edge_pair_tree(leaves), h_bond, h_node, bond_time, pair_mask,
+            dt_ct.contiguous(), du_ct.contiguous())
+        return (d_bond, d_node, d_time, d_mask, *_edge_pair_leaves(d_params))
+
+
+def node_block_aggregate_ad(params, x, edge_attr, node_time, pair_mask):
+    """Differentiable node_block_aggregate (forward and backward kernels)."""
+    return _NodeBlockAggregate.apply(x, edge_attr, node_time, pair_mask,
+                                     *_node_block_leaves(params))
+
+
+def edge_pair_aggregate_ad(params, h_bond, h_node, bond_time, pair_mask):
+    """Differentiable edge_pair_aggregate (forward and backward kernels)."""
+    return _EdgePairAggregate.apply(h_bond, h_node, bond_time, pair_mask,
+                                    *_edge_pair_leaves(params))
+
+
+def _grad_buffers(shapes: List[Sequence[int]], device) -> List[torch.Tensor]:
+    return [torch.empty(tuple(s), dtype=torch.float32, device=device) for s in shapes]
+
+
+def node_block_aggregate_bwd(params, x, edge_attr, node_time, pair_mask, dout):
+    """NodeBlock backward (see node_block_aggregate_bwd_plain)."""
+    if x.device.type == "cpu":
+        return node_block_aggregate_bwd_plain(params, x, edge_attr, node_time, pair_mask, dout)
+    from . import build
+
+    dev = x.device
+    b, n, dn = x.shape
+    de = edge_attr.shape[-1]
+    h = params["msg_net"]["w"].shape[0]
+    _check_width("node_block_bwd", Dn=dn, De=de, H=h)
+    leaves = _node_block_leaves(params)
+    shapes = (_mlp_shapes(de, h, h) + _mlp_shapes(dn, h, h) + [(h, h), (h,)]
+              + _mlp_shapes(de + dn + 1, h, h))
+    _check_weights("node_block_bwd", leaves, shapes, dev)
+    _check("node_block_bwd x", x, (b, n, dn), torch.bfloat16, dev)
+    _check("node_block_bwd edge_attr", edge_attr, (b, n, n, de), torch.bfloat16, dev)
+    _check("node_block_bwd dout", dout, (b, n, h), torch.bfloat16, dev)
+    t = _check_pairs("node_block_bwd", b, n, dev, pair_mask, node_time)
+    _require_cuda("node_block_bwd", dev)
+    lib = build.library()
+    dx = torch.empty_like(x)
+    d_edge = torch.empty_like(edge_attr)
+    d_t = torch.empty((b,), dtype=torch.float32, device=dev)
+    d_mask = torch.empty((b, n, n), dtype=torch.float32, device=dev)
+    grads = _grad_buffers(shapes, dev)
+    ws = torch.empty((lib.md_node_block_backward_workspace(b, n, dn, de, h),),
+                     dtype=torch.uint8, device=dev)
+    launched = ctypes.c_int(0)
+    rc = lib.md_node_block_backward(
+        _pointers(leaves + [x, edge_attr, pair_mask, t, dout, dx, d_edge, d_t, d_mask]
+                  + grads + [ws]),
+        b, n, dn, de, h, _stream(dev), ctypes.byref(launched))
+    build.check(lib, rc, "node_block_bwd")
+    launch_counts["node_block_bwd"] += launched.value
+    d_params = _cast_like(_node_block_tree(grads), params)
+    return (d_params, dx, d_edge, d_t.reshape(node_time.shape).to(node_time.dtype),
+            d_mask.to(pair_mask.dtype))
+
+
+def edge_pair_aggregate_bwd(params, h_bond, h_node, bond_time, pair_mask, dt_ct, du_ct):
+    """EdgeBlock pair backward (see edge_pair_aggregate_bwd_plain)."""
+    if h_bond.device.type == "cpu":
+        return edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask,
+                                             dt_ct, du_ct)
+    from . import build
+
+    dev = h_bond.device
+    b, n, dn = h_node.shape
+    de = h_bond.shape[-1]
+    left = params["left"]
+    i_dim = left["bond_linear"]["w"].shape[1]
+    g = left["gate"]["layers"][0]["lin"]["w"].shape[1]
+    do = left["inter"]["layers"][1]["lin"]["w"].shape[1]
+    _check_width("edge_pair_bwd", Dn=dn, De=de, I=i_dim, G=g, Do=do)
+    if g > i_dim or do > i_dim or de > i_dim:
+        raise ValueError("edge_pair_bwd: the gate, output and edge widths must not exceed I")
+    shapes = ([(de, i_dim), (dn, i_dim)] + _mlp_shapes(i_dim, i_dim, do)
+              + _mlp_shapes(de + dn + 1, g, do))
+    leaves = _edge_pair_leaves(params)
+    _check_weights("edge_pair_bwd", leaves, shapes + shapes, dev)
+    _check("edge_pair_bwd h_bond", h_bond, (b, n, n, de), torch.bfloat16, dev)
+    _check("edge_pair_bwd h_node", h_node, (b, n, dn), torch.bfloat16, dev)
+    _check("edge_pair_bwd dt_ct", dt_ct, (b, n, do), torch.bfloat16, dev)
+    _check("edge_pair_bwd du_ct", du_ct, (b, n, do), torch.bfloat16, dev)
+    t = _check_pairs("edge_pair_bwd", b, n, dev, pair_mask, bond_time)
+    _require_cuda("edge_pair_bwd", dev)
+    lib = build.library()
+    d_bond = torch.empty_like(h_bond)
+    d_node = torch.empty_like(h_node)
+    d_time = torch.empty((b,), dtype=torch.float32, device=dev)
+    d_mask = torch.empty((b, n, n), dtype=torch.float32, device=dev)
+    grads = _grad_buffers(shapes + shapes, dev)
+    ws = torch.empty((lib.md_edge_pair_backward_workspace(b, n, dn, de, i_dim, g, do),),
+                     dtype=torch.uint8, device=dev)
+    launched = ctypes.c_int(0)
+    rc = lib.md_edge_pair_backward(
+        _pointers(leaves + [h_bond, h_node, pair_mask, t, dt_ct, du_ct, d_bond, d_node,
+                            d_time, d_mask] + grads + [ws]),
+        b, n, dn, de, i_dim, g, do, _stream(dev), ctypes.byref(launched))
+    build.check(lib, rc, "edge_pair_bwd")
+    launch_counts["edge_pair_bwd"] += launched.value
+    d_params = _cast_like(_edge_pair_tree(grads), params)
+    return (d_params, d_bond, d_node, d_time.reshape(bond_time.shape).to(bond_time.dtype),
+            d_mask.to(pair_mask.dtype))

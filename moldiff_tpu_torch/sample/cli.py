@@ -1,13 +1,18 @@
-"""Unguided sampling from a committed checkpoint (scripts/sample_drug3d.py).
+"""Sampling from a committed checkpoint, guided by a bond predictor when the
+config names one (scripts/sample_drug3d.py).
 
   python -m moldiff_tpu_torch.sample --config configs/sample/sample_flagship_v2.yml \
       [--device cuda|cpu] [--outdir outputs_torch] [--num_mols N] [--batch_size B]
+  python -m moldiff_tpu_torch.sample --config configs/sample/sample_flagship_v2_guided.yml
 
-The model config comes from the checkpoint. Writes SMILES.txt, one SDF per
-finished molecule under SDF/, and summary.json (success rate with its
-Wilson interval, throughput, accept stages, failure reasons) into
+The model configs come from the checkpoints. The config's top-level
+``bond_predictor`` names the predictor's checkpoint; ``sample.guidance``
+([mode, scale]), ``guidance_interval``, ``edge_guidance[_tmax]`` and
+``add_edge`` follow the JAX CLI. Writes SMILES.txt, one SDF per finished
+molecule under SDF/, and summary.json (success rate with its Wilson
+interval, throughput, accept stages, failure reasons) into
 ``<outdir>/<config name>_<time>/``. :func:`run` is the same path for a
-caller that already holds the ``sample`` settings as a dict.
+caller that already holds the settings as a dict.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from ..chem.sdf import write_sdf
 from ..data.featurize import featurizer_from_config
+from ..models.bond_predictor import BondPredictor
 from ..models.moldiff import MolDiff, resolve_device
 from ..utils.checkpoint import load_checkpoint
 from ..utils.config import Config
@@ -42,9 +48,19 @@ def wilson_interval(k: int, n: int, z: float = 1.959964) -> tuple:
     return (0.0 if k == 0 else mid - half, 1.0 if k == n else mid + half)
 
 
+def load_bond_predictor(checkpoint: str, featurizer, device: torch.device):
+    """(BondPredictor, params) from a predictor checkpoint; no mask edge
+    class at sample time (scripts/sample_drug3d.py:191-197)."""
+    ckpt = load_checkpoint(checkpoint, device)
+    bp = BondPredictor(Config(ckpt["config"]).model, featurizer.num_node_types,
+                       featurizer.num_bond_types + 1, device=device)
+    return bp, ckpt["params"]
+
+
 def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
-                  batch_size: Optional[int] = None):
-    """(sampler, params) for a checkpoint and the ``sample`` settings."""
+                  batch_size: Optional[int] = None, bond_predictor: Optional[str] = None):
+    """(sampler, params) for a checkpoint, the ``sample`` settings and,
+    optionally, a bond-predictor checkpoint."""
     ckpt = load_checkpoint(checkpoint, device)
     train_config = Config(ckpt["config"])
     featurizer = featurizer_from_config(train_config)
@@ -57,10 +73,22 @@ def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
         kw["size_std"] = float(sample_cfg["size_std"])
     if sample_cfg.get("buckets"):
         kw["buckets"] = tuple(int(b) for b in sample_cfg["buckets"])
+    bp = None
+    if bond_predictor:
+        bp = load_bond_predictor(bond_predictor, featurizer, device)
+    guidance = sample_cfg.get("guidance")
+    if guidance:
+        guidance = (str(guidance[0]), float(guidance[1]))
+    tmax = sample_cfg.get("edge_guidance_tmax")
     sampler = MolSampler(
         model, featurizer, batch_size=min(batch_size or sample_cfg["batch_size"], 256),
         sanitize_mode=str(sample_cfg.get("sanitize_mode") or "reference"),
-        commit=str(sample_cfg.get("commit") or "none"), **kw)
+        commit=str(sample_cfg.get("commit") or "none"), bond_predictor=bp,
+        guidance=guidance or None,
+        guidance_interval=int(sample_cfg.get("guidance_interval") or 1),
+        edge_guidance=float(sample_cfg.get("edge_guidance") or 0.0),
+        edge_guidance_tmax=None if tmax is None else int(tmax),
+        add_edge=sample_cfg.get("add_edge") or None, **kw)
     return sampler, ckpt["params"]
 
 
@@ -71,14 +99,14 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
     write the outputs and return the summary."""
     device = resolve_device(device)
     scfg = dict(config["sample"])
-    for key in ("guidance", "bond_predictor", "num_steps", "add_edge", "edge_guidance",
-                "save_traj_prob"):
-        if scfg.get(key) or config.get(key):
+    for key in ("num_steps", "save_traj_prob"):
+        if scfg.get(key):
             raise NotImplementedError(f"sample.{key} is not ported yet")
     if str(scfg.get("pos_sampler") or "ddpm") != "ddpm":
         raise NotImplementedError("only the ddpm position sampler is ported")
     torch.manual_seed(int(scfg["seed"]))
-    sampler, params = build_sampler(config["model"]["checkpoint"], scfg, device, batch_size)
+    sampler, params = build_sampler(config["model"]["checkpoint"], scfg, device, batch_size,
+                                    bond_predictor=config.get("bond_predictor"))
     num_mols = num_mols or int(scfg["num_mols"])
     generator = torch.Generator(device=device)
     generator.manual_seed(int(scfg["seed"]))
@@ -91,19 +119,23 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
         torch.cuda.synchronize(device)
     wall = time.time() - t0
     n_fin, n_fail = len(pool["finished"]), len(pool["failed"])
+    # the JAX CLI's success: finished cut to num_mols over finished + failed
+    # (scripts/sample_drug3d.py:316), the definition of its published bars
+    lo, hi = wilson_interval(n_fin, n_fin + n_fail)
     # the rate over every molecule classified: cutting 'finished' to
-    # num_mols first (as the JAX CLI's success does) biases it low by up to
-    # one batch of finished molecules
+    # num_mols first biases the rate above low by up to one batch of
+    # finished molecules, which matters at small num_mols
     k, n_all = pool["classified"]["finished"], pool["classified"]["finished"] + n_fail
-    lo, hi = wilson_interval(k, n_all)
+    lo_c, hi_c = wilson_interval(k, n_all)
     summary = {
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "num_finished": n_fin,
         "num_failed": n_fail,
         "num_classified": n_all,
-        "success_rate": k / max(n_all, 1),
+        "success_rate": n_fin / max(n_fin + n_fail, 1),
         "success_wilson95": [lo, hi],
-        "success_rate_after_cut": n_fin / max(n_fin + n_fail, 1),
+        "success_rate_classified": k / max(n_all, 1),
+        "success_wilson95_classified": [lo_c, hi_c],
         "wall_s": wall,
         "mols_per_s": n_fin / max(wall, 1e-9),
         "chains": sampler.chains,
@@ -111,6 +143,10 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
         "batch_size": sampler.batch_size,
         "commit": sampler.commit,
         "sanitize_mode": sampler.sanitize_mode,
+        "guidance": list(sampler.guidance) if sampler.guidance else None,
+        "guidance_interval": sampler.guidance_interval,
+        "edge_guidance": sampler.edge_guidance,
+        "add_edge": sampler.add_edge,
         "accept_stage_counts": dict(Counter(e.get("stage") or "unknown"
                                             for e in pool["finished"])),
         "failure_reason_counts": dict(Counter(e["reason"] for e in pool["failed"])),

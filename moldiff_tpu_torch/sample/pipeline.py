@@ -5,6 +5,10 @@
   batches of the reverse chain -> unpad -> decode -> sanitize cascade ->
   pool {finished, failed}
 
+With a bond predictor the reverse chains are guided (positions by its
+gradient, edge classes by its log-probs); ``add_edge`` re-perceives bonds
+from the final positions instead of reading the model's.
+
 Failed molecules (reconstruction error or disconnected SMILES) are kept in
 the ``failed`` pool, and generation stops once failures exceed
 ``max_failures_factor`` times the requested count. Classification runs in
@@ -12,18 +16,22 @@ this process, one molecule after another.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import time
 
 import numpy as np
 import torch
 
+from ..chem.bond_perception import mol_from_positions, mol_from_positions_ctd
 from ..chem.mol import MolError
-from ..chem.sanitize import reconstruct_from_generated
+from ..chem.sanitize import reconstruct_from_generated, sanitize
 from ..chem.smiles import mol_to_smiles
 from ..data.batching import DEFAULT_BUCKETS, node_mask_from_counts, unpad_arrays
 from ..data.featurize import GEOM_DRUG_SIZE_MEAN, GEOM_DRUG_SIZE_STD, MolFeaturizer
+
+
+ADD_EDGE_MODES = (None, "distance", "edm", "connect")
 
 
 class MolSampler:
@@ -32,7 +40,14 @@ class MolSampler:
     def __init__(self, model, featurizer: MolFeaturizer,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, batch_size: int = 128,
                  size_mean: float = GEOM_DRUG_SIZE_MEAN, size_std: float = GEOM_DRUG_SIZE_STD,
-                 sanitize_mode: str = "reference", commit: str = "none"):
+                 sanitize_mode: str = "reference", commit: str = "none",
+                 bond_predictor=None, guidance: Optional[Tuple[str, float]] = None,
+                 guidance_interval: int = 1, edge_guidance: float = 0.0,
+                 edge_guidance_tmax: Optional[int] = None, add_edge: Optional[str] = None):
+        if (guidance is not None or edge_guidance > 0) and bond_predictor is None:
+            raise ValueError("guidance and edge_guidance require a bond_predictor")
+        if add_edge not in ADD_EDGE_MODES:
+            raise ValueError(f"add_edge must be one of {ADD_EDGE_MODES}, got {add_edge!r}")
         self.model = model
         self.featurizer = featurizer
         self.buckets = tuple(sorted(buckets))
@@ -41,8 +56,22 @@ class MolSampler:
         self.size_std = size_std
         self.sanitize_mode = sanitize_mode
         self.commit = commit
+        self.bond_predictor = bond_predictor   # (BondPredictor, params) or None
+        self.guidance = guidance
+        self.guidance_interval = guidance_interval
+        self.edge_guidance = float(edge_guidance)
+        self.edge_guidance_tmax = edge_guidance_tmax
+        self.add_edge = add_edge
         self.chains = 0        # reverse chains run so far
         self.chain_s = 0.0     # wall time of those chains, device work included
+
+    def _guided_kwargs(self) -> dict:
+        if self.bond_predictor is None:
+            return {}
+        return {"bond_predictor": self.bond_predictor, "guidance": self.guidance,
+                "guidance_interval": self.guidance_interval,
+                "edge_guidance": self.edge_guidance,
+                "edge_guidance_tmax": self.edge_guidance_tmax}
 
     def draw_sizes(self, n_graphs: int, rng: np.random.Generator) -> np.ndarray:
         """Sizes ~ N(mean, std) clipped to [3, largest bucket]."""
@@ -68,7 +97,8 @@ class MolSampler:
                 node_mask = torch.from_numpy(node_mask_from_counts(counts, n_bucket)).to(
                     self.model.device)
                 t0 = time.perf_counter()
-                preds = self.model.sample(params, node_mask, generator, commit=self.commit)
+                preds = self.model.sample(params, node_mask, generator, commit=self.commit,
+                                          **self._guided_kwargs())
                 host = {k: v.float().cpu().numpy() for k, v in preds._asdict().items()}
                 self.chain_s += time.perf_counter() - t0
                 self.chains += 1
@@ -96,7 +126,8 @@ class MolSampler:
                 break
             decoded = self.sample_sizes(params, self.draw_sizes(batch_graphs, rng), generator)
             for d in decoded:
-                entry = classify_decoded(d, sanitize_mode=self.sanitize_mode)
+                entry = classify_decoded(d, add_edge=self.add_edge,
+                                         sanitize_mode=self.sanitize_mode)
                 pool[entry["pool"]].append(entry)
             if logger:
                 logger(f"pool: finished {len(pool['finished'])} | failed {len(pool['failed'])}")
@@ -105,14 +136,31 @@ class MolSampler:
         return pool
 
 
-def classify_decoded(decoded: dict, sanitize_mode: str = "reference") -> dict:
+def classify_decoded(decoded: dict, add_edge: Optional[str] = None,
+                     sanitize_mode: str = "reference") -> dict:
     """Decoded dict -> pool entry: sanitize cascade + disconnect check
-    (pipeline.py:503-568, model-predicted bonds)."""
+    (pipeline.py:503-568). ``add_edge``: None reads the model's bonds;
+    'distance' (or 'edm') perceives them from interatomic distances, and
+    'connect' by connect-the-dots with geometric bond orders."""
     stats: dict = {}
     try:
-        mol = reconstruct_from_generated(
-            decoded["element"], decoded["atom_pos"], decoded.get("bond_index"),
-            decoded.get("bond_type"), mode=sanitize_mode, stats=stats)
+        if add_edge in ("distance", "edm"):
+            # distance bonds carry no aromatic class: sanitize alone, with
+            # the acceptance sanitize_mode sets
+            mol = sanitize(mol_from_positions(decoded["element"], decoded["atom_pos"]),
+                           auto_pyrrole=(sanitize_mode != "reference"))
+            stats["stage"] = "sanitize"
+        elif add_edge == "connect":
+            perceived = mol_from_positions_ctd(decoded["element"], decoded["atom_pos"])
+            bi = np.array([[b.i for b in perceived.bonds], [b.j for b in perceived.bonds]],
+                          dtype=np.int64)
+            bt = np.array([b.order for b in perceived.bonds], dtype=np.int64)
+            mol = reconstruct_from_generated(decoded["element"], decoded["atom_pos"], bi, bt,
+                                             mode=sanitize_mode, stats=stats)
+        else:
+            mol = reconstruct_from_generated(
+                decoded["element"], decoded["atom_pos"], decoded.get("bond_index"),
+                decoded.get("bond_type"), mode=sanitize_mode, stats=stats)
     except MolError:
         return {"pool": "failed", "decoded": decoded, "reason": "recon_error"}
     try:

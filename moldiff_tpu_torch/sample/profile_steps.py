@@ -1,8 +1,10 @@
 """Where a reverse step's time goes on the card: a torch.profiler trace of a
-few sampling steps of flagship_v2 (commit: nodes) at given batch sizes.
+few sampling steps of flagship_v2 (commit: nodes) at given batch sizes,
+unguided or (``--guided``) steered by bondpred_v2 with uncertainty guidance
+at 1e-4, as configs/sample/sample_flagship_v2_guided.yml.
 
   python -m moldiff_tpu_torch.sample.profile_steps [--batch 16 128]
-      [--bucket 32 40] [--steps 5] [--out outputs_torch/profile]
+      [--bucket 32 40] [--steps 5] [--guided] [--out outputs_torch/profile]
 
 For each (batch, bucket) it runs WARMUP steps, times ``--steps`` steps with
 CUDA events, then traces as many more under torch.profiler and prints one
@@ -36,12 +38,17 @@ import numpy as np
 import torch
 
 CHECKPOINT = "ckpts/flagship_v2.ckpt"
+BOND_PREDICTOR = "ckpts/bondpred_v2.ckpt"
+GUIDANCE = ("uncertainty", 1.0e-4)
 SETTINGS = {"seed": 2023, "batch_size": 128, "size_mean": 24.923, "size_std": 5.516,
             "sanitize_mode": "reference", "commit": "nodes", "buckets": [32, 40]}
 WARMUP = 3
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# the port's kernels (csrc/*.cu): <node|edge|pos>_<prep|pair>_kernel
-PORT_KERNEL = re.compile(r"\b((?:node|edge|pos)_(?:prep|pair)_kernel)\b")
+# the port's kernels (csrc/*.cu): <node|edge|pos>_<prep|pair>_kernel, the
+# backward's <node|edge>_bwd_<pair|node>_kernel and grad.cu's three
+PORT_KERNEL = re.compile(r"\b((?:node|edge|pos)_(?:prep|pair)_kernel"
+                         r"|(?:node|edge)_bwd_(?:pair|node)_kernel"
+                         r"|wgrad_kernel|reduce_kernel|time_kernel)\b")
 
 
 def summarize_trace(events: List[dict], steps: int, step_ms: float,
@@ -86,7 +93,8 @@ def summarize_trace(events: List[dict], steps: int, step_ms: float,
 
 
 def profile(model, params, batch: int, bucket: int, steps: int, out_dir: str,
-            seed: int = 0) -> Dict[str, object]:
+            seed: int = 0, bond_predictor=None) -> Dict[str, object]:
+    """``bond_predictor``: (BondPredictor, params) for guided steps."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -99,16 +107,22 @@ def profile(model, params, batch: int, bucket: int, steps: int, out_dir: str,
     node_mask = torch.from_numpy(node_mask_from_counts(sizes, bucket)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     blocks = model.prepare(params)
+    guided = {}
+    if bond_predictor is not None:
+        bp, bp_params = bond_predictor
+        guided = {"bond_predictor": (bp, bp_params, bp.prepare(bp_params)),
+                  "guidance": GUIDANCE}
     state = model.init_state(node_mask, model.draw_noise(batch, bucket, gen))
     step = model.num_timesteps - 1
 
     def run(k: int) -> None:
         nonlocal state, step
-        for _ in range(k):
-            state = model.reverse_step(params, state, step, node_mask,
-                                       model.draw_noise(batch, bucket, gen),
-                                       commit=SETTINGS["commit"], blocks=blocks)
-            step -= 1
+        with torch.no_grad():
+            for _ in range(k):
+                state = model.reverse_step(params, state, step, node_mask,
+                                           model.draw_noise(batch, bucket, gen),
+                                           commit=SETTINGS["commit"], blocks=blocks, **guided)
+                step -= 1
 
     run(WARMUP)
     torch.cuda.synchronize(dev)
@@ -125,31 +139,38 @@ def profile(model, params, batch: int, bucket: int, steps: int, out_dir: str,
         torch.cuda.synchronize(dev)
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"trace_B{batch}_N{bucket}.json")
+    tag = "guided_" if guided else ""
+    path = os.path.join(out_dir, f"trace_{tag}B{batch}_N{bucket}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    return {"batch": batch, "bucket": bucket, "steps": steps, "step_ms": step_ms,
+    return {"guided": bool(guided), "batch": batch, "bucket": bucket, "steps": steps,
+            "step_ms": step_ms,
             "traced_step_ms": traced_ms, **summarize_trace(events, steps, step_ms)}
 
 
 def main(argv: Optional[List[str]] = None) -> List[dict]:
     from ..models.moldiff import resolve_device
-    from .cli import build_sampler
+    from .cli import build_sampler, load_bond_predictor
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[16, 128])
     ap.add_argument("--bucket", type=int, nargs="+", default=[32, 40])
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--guided", action="store_true",
+                    help="guided steps (bondpred_v2, uncertainty guidance at 1e-4)")
     ap.add_argument("--out", default=os.path.join("outputs_torch", "profile"))
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     sampler, params = build_sampler(CHECKPOINT, SETTINGS, device)
+    bond_predictor = (load_bond_predictor(BOND_PREDICTOR, sampler.featurizer, device)
+                      if args.guided else None)
     lines = []
     for batch in args.batch:
         for bucket in args.bucket:
-            line = profile(sampler.model, params, batch, bucket, args.steps, args.out)
+            line = profile(sampler.model, params, batch, bucket, args.steps, args.out,
+                           bond_predictor=bond_predictor)
             print(json.dumps(line), flush=True)
             lines.append(line)
     return lines

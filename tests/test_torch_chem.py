@@ -103,3 +103,36 @@ def test_unpad_and_masks():
     np.testing.assert_array_equal(jbat.node_mask_from_counts(counts, 8),
                                   tbat.node_mask_from_counts(counts, 8))
     assert jbat.DEFAULT_BUCKETS == tbat.DEFAULT_BUCKETS
+
+
+def _embedded_decoded(seed):
+    """A decoded dict (elements, positions) of a random molecule embedded
+    in 3D by the JAX package's synthetic generator, positions jittered."""
+    from moldiff_tpu.data.synthetic import _embed_coords, random_molecule
+
+    rng = np.random.default_rng(100 + seed)
+    mol = random_molecule(rng)
+    _embed_coords(mol, rng)
+    pos = np.array([a.pos for a in mol.atoms], np.float32)
+    pos += rng.normal(size=pos.shape).astype(np.float32) * 0.05
+    return {"element": np.array([a.z for a in mol.atoms], np.int64), "atom_pos": pos}
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_bond_perception_copy(seed):
+    """The port's copy of chem/bond_perception.py perceives the same bonds
+    (distance and connect-the-dots) and classify_decoded with add_edge gives
+    the same pool entry as the JAX package's."""
+    from moldiff_tpu.chem import bond_perception as jbp
+    from moldiff_tpu_torch.chem import bond_perception as tbp
+
+    d = _embedded_decoded(seed)
+    for fn in ("mol_from_positions", "mol_from_positions_ctd"):
+        a = getattr(jbp, fn)(d["element"], d["atom_pos"])
+        b = getattr(tbp, fn)(d["element"], d["atom_pos"])
+        assert [(x.i, x.j, x.order) for x in a.bonds] == [(x.i, x.j, x.order) for x in b.bonds]
+        assert len(a.bonds) > 0
+    for add_edge in ("distance", "connect"):
+        cj, ct = jclassify(d, add_edge=add_edge), tclassify(d, add_edge=add_edge)
+        assert (cj["pool"], cj.get("reason"), cj.get("smiles"), cj.get("stage")) == \
+            (ct["pool"], ct.get("reason"), ct.get("smiles"), ct.get("stage"))

@@ -56,9 +56,17 @@ step = model.reverse_step(ck["params"], state, 150, node_mask, model.draw_noise(
                           commit="nodes")
 assert all(bool(torch.isfinite(x).all()) for x in preds)
 assert step.pos.shape == (b, n, 3) and bool(torch.isfinite(step.pos).all())
+
+from moldiff_tpu_torch.sample.cli import load_bond_predictor
+bp, bp_params = load_bond_predictor("ckpts/demo_bondpred_4k.ckpt", feat, torch.device("cpu"))
+guided = model.reverse_step(ck["params"], state, 150, node_mask, model.draw_noise(b, n, g),
+                            commit="nodes", bond_predictor=(bp, bp_params, None),
+                            guidance=("uncertainty", 1e-4), edge_guidance=0.5)
+assert bool(torch.isfinite(guided.pos).all())
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
-print(json.dumps({"modules": names, "settings": chip_smoke.SAMPLE_SETTINGS}))
+print(json.dumps({"modules": names, "settings": chip_smoke.SAMPLE_SETTINGS,
+                  "guided": chip_smoke.GUIDED_SETTINGS}))
 """
 
 
@@ -68,8 +76,16 @@ def test_port_runs_without_jax_yaml_pandas():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("moldiff_tpu_torch.ops.kernels", "moldiff_tpu_torch.ops.build",
-                 "moldiff_tpu_torch.sample.cli", "moldiff_tpu_torch.models.moldiff"):
+                 "moldiff_tpu_torch.sample.cli", "moldiff_tpu_torch.models.moldiff",
+                 "moldiff_tpu_torch.models.bond_predictor",
+                 "moldiff_tpu_torch.chem.bond_perception"):
         assert name in out["modules"]
     # chip_smoke's sample settings are the committed YAML config's
     with open(os.path.join(REPO, "configs/sample/sample_flagship_v2.yml")) as f:
         assert out["settings"] == yaml.safe_load(f)
+    # its guided settings are the guided config's, with the model's bonds
+    # (the JAX gate's regime) in place of add_edge: distance
+    with open(os.path.join(REPO, "configs/sample/sample_flagship_v2_guided.yml")) as f:
+        guided = yaml.safe_load(f)
+    assert guided["sample"].pop("add_edge") == "distance"
+    assert out["guided"] == guided

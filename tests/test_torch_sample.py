@@ -31,6 +31,28 @@ def test_cli_run_on_cpu(tmp_path):
     assert json.loads((out / "summary.json").read_text())["num_finished"] == 1
 
 
+def test_cli_run_guided_on_cpu(tmp_path):
+    """The guided path end to end: the demo bond predictor steers positions
+    (uncertainty guidance) and bonds are perceived from distances, as the
+    guided flagship config asks; summary.json records the settings and the
+    JAX CLI's success rate beside the rate over all classified molecules."""
+    config = {"model": {"checkpoint": "ckpts/demo_synthetic_30k.ckpt"},
+              "bond_predictor": "ckpts/demo_bondpred_4k.ckpt",
+              "sample": {"seed": 2, "batch_size": 4, "num_mols": 1, "size_mean": 9.0,
+                         "size_std": 1.0, "sanitize_mode": "reference", "commit": "nodes",
+                         "add_edge": "distance", "guidance": ["uncertainty", 1.0e-4],
+                         "guidance_interval": 4, "buckets": [12]}}
+    summary = cli.run(config, device="cpu", outdir=str(tmp_path), run_name="g", log=lambda m: 0)
+    assert summary["num_finished"] == 1
+    assert summary["guidance"] == ["uncertainty", 1.0e-4] and summary["add_edge"] == "distance"
+    assert summary["success_rate"] == 1 / (1 + summary["num_failed"])
+    k = summary["num_classified"] - summary["num_failed"]
+    assert summary["success_rate_classified"] == k / summary["num_classified"]
+    lo, hi = summary["success_wilson95_classified"]
+    assert lo <= summary["success_rate_classified"] <= hi
+    assert set(summary["accept_stage_counts"]) == {"sanitize"}
+
+
 def test_cli_refuses_unported_settings(tmp_path):
     config = {"model": {"checkpoint": "ckpts/demo_synthetic_30k.ckpt"},
               "sample": {"seed": 1, "batch_size": 4, "num_mols": 1, "num_steps": 100}}
