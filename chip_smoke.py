@@ -32,16 +32,34 @@ Phases, each asserting and none catching a failure:
      steered by bondpred_v2, uncertainty guidance at 1e-4, T = 1000; each
      backward kernel's launches must equal its launches per call x 8
      predictor blocks x T x chains, each forward kernel's those of the
-     denoiser's 6 blocks plus (node_block, edge_pair) the predictor's 8.
-The last line is {"ok": true, "device": {...}}. A hang ends in a traceback
+     denoiser's 6 blocks plus (node_block, edge_pair) the predictor's 8;
+  9. training gradient check: one get_loss + backward of flagship_v2 with
+     the settings of configs/train/train_v2_cont.yml at B = 16, N = 32 with
+     the kernels against the same with the plain versions; each forward
+     kernel alone, the backward kernels alone, and the plain versions with
+     one-ulp bumps where the forward kernels differ, read beside it;
+ 10. fine-tuning: the train CLI's run() with those settings from
+     flagship_v2 (step 300000) at batch 128, two steps in each bucket (32
+     and 40) on an in-memory corpus of v2 molecules drawn at sizes inside
+     each bucket; every step's launches must equal each kernel's launches
+     per call x 6 blocks; then one eval step, one scheduler step, and the
+     checkpoint it wrote reloaded in the port;
+ 11. fine-tuning kernel checks: each of the six kernels at batch 128, N = 40
+     on the arguments of its first call in one loss and backward of a
+     corpus batch, against its plain version on every output.
+The PosUpdate backward kernel (row 9) joins phase 6 at the denoiser's
+widths (flagship_v2 block 0). The last line is {"ok": true, "device": {...}}. A hang ends in a traceback
 and a non-zero exit (faulthandler) before the budget runs out. The script
 imports only torch, numpy, the standard library and moldiff_tpu_torch.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import faulthandler
 import json
+import math
+import multiprocessing
 import os
 import re
 import statistics
@@ -98,6 +116,39 @@ GUIDED_SETTINGS = {
         "buckets": [32, 40],
     },
 }
+# configs/train/train_v2_cont.yml, kept in the package so that
+# profile_steps --train runs the same settings (a CPU test holds it equal
+# to the YAML file); a copy of this script without the package stops in main()
+try:
+    from moldiff_tpu_torch.train.settings import TRAIN_V2_CONT as TRAIN_SETTINGS
+except ImportError:
+    TRAIN_SETTINGS = None
+# the fine-tuning phase: steps per bucket; the in-memory corpus holds
+# TRAIN_MOLS_PER_BUCKET molecules of each bucket (one batch each per epoch)
+TRAIN_STEPS_PER_BUCKET = 2
+TRAIN_MOLS_PER_BUCKET = 130
+# the training loss and gradient (6 blocks forward and backward in bf16)
+# with kernels against them with plain versions: the loss to 1e-3
+# relative and the global gradient norm to 2 %. A forward kernel's bf16
+# output differs from plain by one ulp at a small share of its elements
+# (float32 summation order), and a gradient that sums relu- and
+# LayerNorm-gated terms (a decoder's first layer) can move by a quarter of
+# its scale from that. The phase measures this witness: the plain forwards
+# with one ulp added at random elements, as many as the kernels differ in.
+# Each leaf is held to TRAIN_LEAF_MAX_FRAC of its scale and to
+# TRAIN_WITNESS_RATIO x the witness's largest leaf move, and the whole
+# gradient to the JAX package's aggregate rule for its bf16 kernels: the
+# mean over leaves of the kernels' error against the float32 plain
+# gradient within 1.5x that of the bf16 plain gradient. The backward
+# kernels alone (forward plain, so no gate flips) are held to
+# TRAIN_BWD_LEAF_MAX_FRAC of every leaf's scale: a few bf16 ulps (2^-8).
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_NORM_RTOL = 2e-2
+TRAIN_LEAF_MAX_FRAC = 0.5
+TRAIN_MEAN_ERR_RATIO = 1.5
+TRAIN_WITNESS_RATIO = 2.0
+TRAIN_BWD_LEAF_MAX_FRAC = 0.05
+TRAIN_WITNESS_SEEDS = (0, 1, 2)
 # the guidance delta (8 predictor blocks forward and backward in bf16) with
 # kernels against it with plain versions: one-ulp bf16 differences grow
 # through the blocks and their gradients, so the bound is on the largest
@@ -116,9 +167,11 @@ KERNELS = {
                        "moldiff_tpu/ops/pallas_kernels.py:657"),
     "edge_pair_bwd": ("moldiff_tpu_torch/csrc/edge_pair_bwd.cu",
                       "moldiff_tpu/ops/pallas_kernels.py:1157"),
+    "pos_update_bwd": ("moldiff_tpu_torch/csrc/pos_update_bwd.cu",
+                       "moldiff_tpu/ops/pallas_kernels.py:1918"),
 }
 FORWARD_KERNELS = ("node_block", "edge_pair", "pos_update")
-BACKWARD_KERNELS = ("node_block_bwd", "edge_pair_bwd")
+BACKWARD_KERNELS = ("node_block_bwd", "edge_pair_bwd", "pos_update_bwd")
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes these fused "
                 "MLP-gate-sum chains")
 
@@ -199,12 +252,15 @@ def work(name: str, blk: dict, b: int, n: int) -> tuple:
     dl = el["node_linear"]["w"].shape[0]
     dn = pb["left_lin_edge"]["layers"][0]["lin"]["w"].shape[0]
     g = el["gate"]["layers"][0]["lin"]["w"].shape[1]
-    flops = (pairs * (2 * de * i + 2 * dl * i + 2 * i * i + 2 * i + 2 * de * g
-                      + 2 * dl * g + 2 * g + dl)
-             + nodes * 2 * (2 * dn * dl + 2 * dl * dl))
+    per_pair = 2 * de * i + 2 * dl * i + 2 * i * i + 2 * i + 2 * de * g + 2 * dl * g + 2 * g
+    per_node = 2 * (2 * dn * dl + 2 * dl * dl)
     weights = _numel(pb)
     io = pairs * (2 * de + 12 + 4 + 4) + nodes * (2 * dn + 12) + 4 * b
-    return flops, io + 2 * weights
+    if name == "pos_update":
+        return pairs * (per_pair + dl) + nodes * per_node, io + 2 * weights
+    # the recompute, the input-gradient and the weight-gradient products
+    flops = pairs * (3 * per_pair + dl) + nodes * 3 * per_node
+    return flops, 2 * io + nodes * 2 * dn + 6 * weights
 
 
 def kernel_inputs(b: int, n: int, seed: int, device):
@@ -361,17 +417,38 @@ def backward_calls(blk: dict, b: int, n: int, seed: int, device):
     }
 
 
-def check_backward(blk: dict, device) -> dict:
+def pos_backward_calls(blk: dict, b: int, n: int, seed: int, device):
+    """pos_update_bwd (kernel call, plain call) on seeded inputs, cotangent
+    and masks at the denoiser's widths."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels as K
+
+    inp = kernel_inputs(b, n, seed, device)
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    ct = torch.randn((b, n, 3), generator=g).to(device)
+    args = (blk["pos_block"], inp["x"], inp["e"], inp["rel"], inp["dist"], inp["t"],
+            inp["pair_mask"], ct)
+    return {"pos_update_bwd": (lambda: K.pos_update_bwd(*args),
+                               lambda: K.pos_update_bwd_plain(*args))}
+
+
+def check_backward(blk: dict, pos_blk: dict, device) -> dict:
     """Phase 6: each backward kernel against its plain version on every
-    output, B = 16, N = 32 and 40; times at both, the N = 32 ones kept."""
+    output, B = 16, N = 32 and 40; times at both, the N = 32 ones kept.
+    NodeBlock and EdgeBlock at the predictor's widths (``blk``), PosUpdate
+    at the denoiser's (``pos_blk``)."""
     import torch
 
     from moldiff_tpu_torch.ops import kernels
 
     results = {}
     for n in (32, 40):
-        for name, (kern, plain) in backward_calls(blk, 16, n, seed=100 + n,
-                                                  device=device).items():
+        calls = [(name, c, blk) for name, c in backward_calls(blk, 16, n, seed=100 + n,
+                                                              device=device).items()]
+        calls += [(name, c, pos_blk) for name, c in pos_backward_calls(
+            pos_blk, 16, n, seed=200 + n, device=device).items()]
+        for name, (kern, plain), wblk in calls:
             before = kernels.launch_counts[name]
             got = kern()
             per_call = kernels.launch_counts[name] - before
@@ -379,7 +456,7 @@ def check_backward(blk: dict, device) -> dict:
             err = compare(f"{name} N={n}", got, plain())
             ms = median_ms(kern, warmup=3, iters=20)
             plain_ms = median_ms(plain, warmup=1, iters=3)
-            flops, nbytes = work(name, blk, 16, n)
+            flops, nbytes = work(name, wblk, 16, n)
             t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
             say(f"kernel {name} B=16 N={n}: max_abs_err {err:.6g} ms {ms:.4f} "
                 f"plain_ms {plain_ms:.4f} bound_ms {max(t_ops, t_bytes):.5f} "
@@ -431,6 +508,315 @@ def check_gradient(model, bp, bp_params, device) -> None:
     say(f"gradient: guidance delta {tuple(got.shape)}: max |kernels - plain| / max |plain| "
         f"= {frac:.3g}")
     assert frac <= GRAD_MAX_FRAC, f"guidance delta: {frac} > {GRAD_MAX_FRAC}"
+
+
+def _corpus_chunk(args: tuple) -> list:
+    from moldiff_tpu_torch.data.dataset import generate_records
+
+    seed, sizes = args
+    return generate_records(len(sizes), seed, "v2", n_atoms=sizes)
+
+
+def start_corpus(pool, seed: int = 2026):
+    """Phase 10's corpus, made in worker processes while the kernels build:
+    TRAIN_MOLS_PER_BUCKET v2 molecules at sizes drawn in 20..32 and as many
+    in 33..38 (the largest size the v2 generator draws), so that each
+    bucket fills one batch of 128 per epoch. A corpus of the configuration's
+    size distribution would need about 3,000 molecules for as many batches
+    of the larger bucket."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sizes = np.concatenate([rng.integers(20, 33, TRAIN_MOLS_PER_BUCKET),
+                            rng.integers(33, 39, TRAIN_MOLS_PER_BUCKET)])
+    rng.shuffle(sizes)
+    chunks = np.array_split(sizes, 8)
+    return [pool.submit(_corpus_chunk, (seed + k, list(map(int, c))))
+            for k, c in enumerate(chunks)]
+
+
+def collect_corpus(futures) -> dict:
+    recs = [r for f in futures for r in f.result(timeout=300)]
+    for k, r in enumerate(recs):
+        r["molid"] = f"smoke{k:05d}"
+    return {"train": recs, "val": recs[:16], "test": []}
+
+
+def train_batch(records: list, b: int, n: int, device) -> dict:
+    """The first b records of at most n atoms as one padded batch on the card."""
+    import numpy as np
+
+    from moldiff_tpu_torch.data.batching import pad_mols
+    from moldiff_tpu_torch.data.featurize import featurizer_from_config
+    from moldiff_tpu_torch.data.loader import featurize_record
+    from moldiff_tpu_torch.train.trainer import batch_to_device
+    from moldiff_tpu_torch.utils.config import Config
+
+    feat = featurizer_from_config(Config(TRAIN_SETTINGS))
+    rng = np.random.default_rng(0)
+    mols = [featurize_record(r, feat, rng) for r in records if len(r["element"]) <= n][:b]
+    assert len(mols) == b
+    return batch_to_device(pad_mols(mols, n_max=n), device)
+
+
+FORWARD_FUNCTIONS = {"node_block": "node_block_aggregate", "edge_pair": "edge_pair_aggregate",
+                     "pos_update": "pos_update"}
+KERNEL_FUNCTIONS = dict(FORWARD_FUNCTIONS, node_block_bwd="node_block_aggregate_bwd",
+                        edge_pair_bwd="edge_pair_aggregate_bwd", pos_update_bwd="pos_update_bwd")
+
+
+def _outputs(out) -> list:
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _int_view(x):
+    import torch
+
+    return x.contiguous().view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[x.dtype])
+
+
+def ulp_witness(kern, plain, gen, shares: list):
+    """A forward function that returns the plain version's outputs with one
+    ulp added (a random sign) at a random share of their nonzero elements:
+    the share where ``kern`` differs from ``plain`` on the same inputs.
+    Appends (that share, the part of those elements one ulp apart, the
+    largest difference over the output's largest value) to ``shares``."""
+    import torch
+
+    def call(*args):
+        got, want = _outputs(kern(*args)), _outputs(plain(*args))
+        out = []
+        for a, w in zip(got, want):
+            nz = w != 0
+            differ = int((a != w).sum())
+            one_ulp = ((_int_view(a).int() - _int_view(w).int()).abs() == 1) & (
+                a.sign() == w.sign()) & nz
+            shares.append((differ / max(int(nz.sum()), 1), int(one_ulp.sum()) / max(differ, 1),
+                           float((a - w).abs().max() / w.abs().max())))
+            share = shares[-1][0]
+            pick = (torch.rand(w.shape, generator=gen, device=w.device) < share) & nz
+            sign = torch.where(torch.rand(w.shape, generator=gen, device=w.device) < 0.5, -1, 1)
+            bumped = (_int_view(w) + sign.to(_int_view(w).dtype)).view(w.dtype)
+            out.append(torch.where(pick, bumped, w))
+        return tuple(out) if len(out) > 1 else out[0]
+
+    return call
+
+
+def check_train_gradient(params, records: list, device, b: int = 16, n: int = 32) -> dict:
+    """Phase 9: the training loss and every parameter gradient of
+    flagship_v2 at B = b, N = n, kernels against plain versions, both
+    bf16, with the plain versions at float32 as the ground truth; each
+    forward kernel alone, the backward kernels alone, and the one-ulp
+    witness against plain."""
+    import copy
+
+    import torch
+
+    from moldiff_tpu_torch.models.moldiff import MolDiff
+    from moldiff_tpu_torch.ops import kernels as K
+    from moldiff_tpu_torch.train.optim import global_norm, tree_leaves, tree_unflatten
+
+    def tree_map_paths(tree, path=""):
+        if isinstance(tree, dict):
+            return {k: tree_map_paths(v, f"{path}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [tree_map_paths(v, f"{path}/{k}") for k, v in enumerate(tree)]
+        return path
+
+    cfg32 = copy.deepcopy(TRAIN_SETTINGS["model"])
+    cfg32["denoiser"]["dtype"] = "float32"
+    model = MolDiff(TRAIN_SETTINGS["model"], 8, 6, device=device)
+    model32 = MolDiff(cfg32, 8, 6, device=device)
+    batch = train_batch(records, b, n, device)
+    noise = model.draw_loss_noise(b, n, torch.Generator(device=device).manual_seed(9))
+    kern = {name: getattr(K, fn) for name, fn in KERNEL_FUNCTIONS.items()}
+    plain = {name: getattr(K, fn + "_plain") for name, fn in KERNEL_FUNCTIONS.items()}
+
+    def loss_and_grads(m, use: dict):
+        """use: kernel name -> the function its wrapper's name stands for."""
+        for name, fn in KERNEL_FUNCTIONS.items():
+            setattr(K, fn, use[name])
+        try:
+            leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+            loss, _ = m.get_loss(tree_unflatten(params, leaves), batch["node_type"],
+                                 batch["pos"], batch["halfedge_type"], batch["node_mask"], noise)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            for name, fn in KERNEL_FUNCTIONS.items():
+                setattr(K, fn, kern[name])
+        return float(loss.detach()), grads
+
+    before = dict(K.launch_counts)
+    loss_k, grads_k = loss_and_grads(model, kern)
+    launched = {k: K.launch_counts[k] - before[k] for k in before}
+    loss_p, grads_p = loss_and_grads(model, plain)
+    loss_t, grads_t = loss_and_grads(model32, plain)
+    _, grads_b = loss_and_grads(model, dict(plain, **{k: kern[k] for k in BACKWARD_KERNELS}))
+    alone = {name: loss_and_grads(model, dict(plain, **{name: kern[name]}))[1]
+             for name in FORWARD_KERNELS}
+    witness, shares = [], {name: [] for name in FORWARD_KERNELS}
+    for seed in TRAIN_WITNESS_SEEDS:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        bumped = {name: ulp_witness(kern[name], plain[name], gen, shares[name])
+                  for name in FORWARD_KERNELS}
+        witness.append(loss_and_grads(model, dict(plain, **bumped))[1])
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in launched.values()), launched
+
+    paths = tree_leaves(tree_map_paths(params))
+    scale = lambda x: float(x.abs().max().clamp(min=1e-30))
+    frac = lambda grads: [float((a - w).abs().max()) / scale(w) for a, w in zip(grads, grads_p)]
+    worst = lambda fr: max(zip(fr, paths))
+    differ, bwd = frac(grads_k), frac(grads_b)
+    for path, a in zip(paths, grads_k):
+        assert bool(torch.isfinite(a).all()), path
+    err_k = [float((a - t).abs().max()) / scale(t) for a, t in zip(grads_k, grads_t)]
+    err_p = [float((w - t).abs().max()) / scale(t) for w, t in zip(grads_p, grads_t)]
+    norm_k, norm_p = float(global_norm(list(grads_k))), float(global_norm(list(grads_p)))
+    mean_k, mean_p = statistics.mean(err_k), statistics.mean(err_p)
+    top = worst(differ)
+    at_top = lambda fr: fr[paths.index(top[1])]
+    say(f"train gradient B={b} N={n}: loss kernels {loss_k:.6f} plain {loss_p:.6f} float32 "
+        f"{loss_t:.6f}; grad norm kernels {norm_k:.6f} plain {norm_p:.6f}; mean error against "
+        f"float32: kernels {mean_k:.4g}, plain {mean_p:.4g}; launches {launched}")
+    say(f"  |kernels - plain| / scale over {len(differ)} leaves: median "
+        f"{statistics.median(differ):.3g}, largest {top[0]:.3g} ({top[1]})")
+    for name, grads in alone.items():
+        fr = frac(grads)
+        say(f"  the {name} forward kernel alone: median {statistics.median(fr):.3g}, largest "
+            f"{worst(fr)[0]:.3g} ({worst(fr)[1]}), on {top[1]} {at_top(fr):.3g}")
+    for name, sh in shares.items():
+        say(f"  {name}: the kernel differs from plain at a share of at most "
+            f"{max(s[0] for s in sh):.3g} of an output's nonzero elements, at least "
+            f"{min(s[1] for s in sh):.3g} of them by one ulp, by at most {max(s[2] for s in sh):.3g} "
+            f"of the output's largest value")
+    for seed, grads in zip(TRAIN_WITNESS_SEEDS, witness):
+        fr = frac(grads)
+        say(f"  one-ulp witness, seed {seed}: median {statistics.median(fr):.3g}, largest "
+            f"{worst(fr)[0]:.3g} ({worst(fr)[1]}), on {top[1]} {at_top(fr):.3g}")
+    pos_bwd = max((f, p) for f, p in zip(bwd, paths) if "/pos_block/" in p)
+    say(f"  the backward kernels alone: median {statistics.median(bwd):.3g}, largest "
+        f"{worst(bwd)[0]:.3g} ({worst(bwd)[1]}), largest pos_block leaf {pos_bwd[0]:.3g} "
+        f"({pos_bwd[1]})")
+    assert abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p), (loss_k, loss_p)
+    assert abs(norm_k - norm_p) <= TRAIN_NORM_RTOL * norm_p, (norm_k, norm_p)
+    assert top[0] <= TRAIN_LEAF_MAX_FRAC, top
+    # the kernels move no leaf further than TRAIN_WITNESS_RATIO x the
+    # witness's largest move in this run: their differences are its kind
+    assert top[0] <= TRAIN_WITNESS_RATIO * max(worst(frac(g))[0] for g in witness), top
+    assert mean_k <= TRAIN_MEAN_ERR_RATIO * mean_p, (mean_k, mean_p)
+    assert worst(bwd)[0] <= TRAIN_BWD_LEAF_MAX_FRAC, worst(bwd)
+    return {"loss": [loss_k, loss_p, loss_t], "grad_norm": [norm_k, norm_p],
+            "leaf_max_frac": top[0], "mean_err": [mean_k, mean_p], "bwd_max": worst(bwd)[0],
+            "witness_max": [worst(frac(g))[0] for g in witness]}
+
+
+def check_train_kernels(params, records: list, results: dict, device) -> None:
+    """Phase 11: each of the six kernels at the fine-tuning shape (batch 128,
+    the larger bucket) on a batch of the fine-tune corpus: the arguments of
+    its first call in one get_loss + backward through the kernels, replayed
+    through the kernel and its plain version and compared with compare();
+    times by CUDA events."""
+    import torch
+
+    from moldiff_tpu_torch.models.moldiff import MolDiff
+    from moldiff_tpu_torch.ops import kernels as K
+    from moldiff_tpu_torch.train.optim import tree_leaves, tree_unflatten
+
+    b, n = TRAIN_SETTINGS["train"]["batch_size"], max(TRAIN_SETTINGS["train"]["buckets"])
+    model = MolDiff(TRAIN_SETTINGS["model"], 8, 6, device=device)
+    batch = train_batch(records, b, n, device)
+    noise = model.draw_loss_noise(b, n, torch.Generator(device=device).manual_seed(5))
+    kern = {name: getattr(K, fn) for name, fn in KERNEL_FUNCTIONS.items()}
+    captured = {}
+
+    def recorder(name):
+        def call(*args):
+            captured.setdefault(name, args)
+            return kern[name](*args)
+        return call
+
+    for name, fn in KERNEL_FUNCTIONS.items():
+        setattr(K, fn, recorder(name))
+    try:
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss, _ = model.get_loss(tree_unflatten(params, leaves), batch["node_type"], batch["pos"],
+                                 batch["halfedge_type"], batch["node_mask"], noise)
+        torch.autograd.grad(loss, leaves)
+    finally:
+        for name, fn in KERNEL_FUNCTIONS.items():
+            setattr(K, fn, kern[name])
+    blk0 = model.prepare(params)[0]
+    assert sorted(captured) == sorted(KERNELS), sorted(captured)
+    torch.set_grad_enabled(False)
+    for name, fn in KERNEL_FUNCTIONS.items():
+        args, plain = captured[name], getattr(K, fn + "_plain")
+        got = kern[name](*args)
+        torch.cuda.synchronize()
+        err = compare(f"{name} B={b} N={n}", got, plain(*args))
+        ms = median_ms(lambda: kern[name](*args), warmup=2, iters=10)
+        plain_ms = median_ms(lambda: plain(*args), warmup=1, iters=3)
+        flops, nbytes = work(name, blk0, b, n)
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        say(f"kernel {name} B={b} N={n} (a corpus batch, denoiser widths): max_abs_err {err:.6g} "
+            f"ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound:.5f} ({flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.3f} MB)")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    torch.set_grad_enabled(True)
+
+
+def fine_tune(corpus: dict, results: dict, device) -> tuple:
+    """Phase 10: the train CLI's run() from flagship_v2 at batch 128,
+    TRAIN_STEPS_PER_BUCKET steps in each bucket; launch counts set to 0
+    just before and read just after. Then one eval step, one scheduler step
+    and the written checkpoint reloaded in the port."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.train import cli as train_cli
+    from moldiff_tpu_torch.train.optim import tree_leaves
+    from moldiff_tpu_torch.train.trainer import Trainer
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
+
+    start = int(load_checkpoint_numpy(CHECKPOINT)["step"])
+    steps = 2 * TRAIN_STEPS_PER_BUCKET
+    kernels.reset_launch_counts()
+    out = train_cli.run(TRAIN_SETTINGS, CHECKPOINT, device=device,
+                        logdir=os.path.join("outputs_torch", "chip_smoke"), name="train_v2_cont",
+                        max_iters=start + steps, reset_ema=True, reset_optim=True,
+                        subsets=corpus, log=lambda m: say(f"  {m}"))
+    counts = dict(kernels.launch_counts)
+    blocks = TRAIN_SETTINGS["model"]["denoiser"]["num_blocks"]
+    per_step = {name: results[name]["per_call"] * blocks for name in KERNELS}
+    by_bucket = {}
+    for st in out["steps"]:
+        assert st["launches"] == per_step, (st["it"], st["launches"], per_step)
+        assert all(math.isfinite(st[k]) for k in ("loss", "loss_pos", "loss_node",
+                                                   "loss_edge", "loss_len", "grad_norm"))
+        by_bucket.setdefault(st["n"], []).append(st["s"])
+        say(f"  train step {st['it']} N={st['n']}: {st['s']:.4f} s loss {st['loss']:.4f} "
+            f"grad_norm {st['grad_norm']:.4f}")
+    assert sorted(by_bucket) == TRAIN_SETTINGS["train"]["buckets"], by_bucket
+    assert all(len(v) >= TRAIN_STEPS_PER_BUCKET for v in by_bucket.values()), by_bucket
+    assert counts == {k: v * len(out["steps"]) for k, v in per_step.items()}, counts
+    trainer, state = out["trainer"], out["state"]
+    batch = train_batch(corpus["val"], 16, 40, device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    vaux = trainer.eval_step(state.params, batch, trainer.draw_noise(batch, gen))
+    lr0 = state.opt_state.lr
+    state = trainer.scheduler_step(state, float(vaux["loss"]))
+    assert math.isfinite(float(vaux["loss"])) and state.opt_state.lr == lr0
+    path = out["checkpoints"][-1]
+    back = Trainer(trainer.model, TRAIN_SETTINGS["train"]).load_checkpoint(path, device)
+    assert back.step == start + steps and back.opt_state.count == steps
+    for a, b in zip(tree_leaves(back.params), tree_leaves(state.params)):
+        assert torch.equal(a, b)
+    s_step = {n: statistics.mean(v[1:] or v) for n, v in sorted(by_bucket.items())}
+    say(f"fine-tuning: {len(out['steps'])} steps at batch {TRAIN_SETTINGS['train']['batch_size']}"
+        f", s/step by bucket (first step of each left out) {s_step}, eval loss "
+        f"{float(vaux['loss']):.4f}, checkpoint {path} reloaded; launches {counts}")
+    return counts, s_step
 
 
 def run_path(cli, settings: dict, args_num_mols: int, batch_size: int, run_name: str) -> tuple:
@@ -495,6 +881,11 @@ def main() -> None:
     device = torch.device("cuda", 0)
     assert "jax" not in sys.modules and "moldiff_tpu" not in sys.modules
 
+    # phase 10's corpus, made by worker processes while the kernels build
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    corpus_jobs = start_corpus(pool)
+
     # 1. environment
     smi = nvidia_smi()
     say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
@@ -530,6 +921,7 @@ def main() -> None:
                 for name in KERNELS}
     say(f"sampling: {chains} chains x {steps} steps, launches {counts}, expected {expected}")
     assert counts == expected, (counts, expected)
+    kernels.reset_launch_counts()   # the checks below are not a main path
     assert summary["num_finished"] >= args.num_mols
     # the rate over every molecule classified: at a few molecules the JAX
     # CLI's rate (finished cut to num_mols) reads low
@@ -539,7 +931,7 @@ def main() -> None:
     # 6. the backward kernels at the predictor's widths, block-0 weights
     bp, bp_params = cli.load_bond_predictor(BOND_PREDICTOR, sampler.featurizer, device)
     bp_blk0 = bp.prepare(bp_params)[0]
-    results.update(check_backward(bp_blk0, device))
+    results.update(check_backward(bp_blk0, blk0, device))
 
     # 7. the guidance gradient, kernels against plain versions
     check_gradient(model, bp, bp_params, device)
@@ -555,18 +947,31 @@ def main() -> None:
     g_expected = {}
     for name in KERNELS:
         per_step = {"node_block": dn_blocks + bp_blocks, "edge_pair": dn_blocks + bp_blocks,
-                    "pos_update": dn_blocks}.get(name, bp_blocks)
+                    "pos_update": dn_blocks, "pos_update_bwd": 0}.get(name, bp_blocks)
         g_expected[name] = results[name]["per_call"] * per_step * steps * g_chains
     say(f"guided sampling: {g_chains} chains x {steps} steps, launches {g_counts}, "
         f"expected {g_expected}")
     assert g_counts == g_expected, (g_counts, g_expected)
+    kernels.reset_launch_counts()
     assert g_summary["num_finished"] >= args.guided_num_mols
     assert g_summary["success_rate_classified"] >= 0.25, g_summary
     report("guided sampling", g_summary, steps)
 
+    # 9. the training gradient, kernels against plain versions
+    corpus = collect_corpus(corpus_jobs)
+    pool.shutdown()
+    check_train_gradient(params, corpus["train"], device)
+    say(f"launches made by the checks (not counted below): {kernels.launch_counts}")
+
+    # 10. the training path: the train CLI's run() from flagship_v2
+    t_counts, _ = fine_tune(corpus, results, device)
+
+    # 11. the six kernels at the fine-tuning shape, against plain versions
+    check_train_kernels(params, corpus["train"], results, device)
+
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": counts[name] + g_counts[name],
+         "launches": counts[name] + g_counts[name] + t_counts[name],
          "max_abs_err": results[name]["max_abs_err"],
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"], "bound_by": results[name]["bound_by"],

@@ -1,4 +1,4 @@
-// Weight-gradient, reduction and time kernels shared by the two backward
+// Weight-gradient, reduction and time kernels shared by the backward
 // entry points (see grad.cuh for why parameter gradients take this route).
 //
 // wgrad_kernel: one CTA per (job, 64x64 output block, split-K slice). It

@@ -1,5 +1,5 @@
-// Shared pieces of the two backward pair kernels (node_block_bwd.cu,
-// edge_pair_bwd.cu): transposed-weight tile products, the float32 split
+// Shared pieces of the backward pair kernels (node_block_bwd.cu,
+// edge_pair_bwd.cu, pos_update_bwd.cu): transposed-weight tile products, the float32 split
 // into two bf16 halves, the LayerNorm backward of one row held by a warp,
 // per-tile column sums, and the host launchers of the weight-gradient,
 // reduction and time kernels of grad.cu.
@@ -196,13 +196,17 @@ cudaError_t launch_time(const float* part, int stride, int tiles_per_mol, int n,
                         cudaStream_t s);
 
 // The node-level prep kernels of the forward entry points (node_block.cu,
-// edge_pair.cu), which the backward entry points reuse.
+// edge_pair.cu, pos_update.cu), which the backward entry points reuse.
 cudaError_t node_block_prep(const void* const* weights, const bf16* x, const float* t,
                             bf16* xn, float* gpre, int B, int N, int Dn, int De, int H,
                             cudaStream_t s);
 cudaError_t edge_pair_prep(const void* const* weights, const bf16* x, const float* t, float* np,
                            float* gpre, int B, int N, int Dn, int De, int I, int G, int Do,
                            cudaStream_t s);
+// pos_update.cu: the two node MLPs L, R -> lr [2, B*N, Dl] (weights: the
+// 6 left and 6 right MLP leaves).
+cudaError_t pos_update_prep(const void* const* weights, const bf16* x, bf16* lr, int B, int N,
+                            int Dn, int Dl, cudaStream_t s);
 
 // Carve 256-byte aligned buffers out of a workspace; with base == nullptr it
 // only counts the bytes.

@@ -25,7 +25,7 @@
 // (64 x 256 and 256 x 256) on tensor cores (WMMA), the two one-column
 // layers as warp dot products. The force sum over senders closes inside
 // the CTA: no CTA waits on another, and the result is deterministic.
-#include "common.cuh"
+#include "grad.cuh"
 
 using md::bf16;
 
@@ -204,7 +204,36 @@ __global__ void __launch_bounds__(md::kThreads) pos_pair_kernel(const PosArgs a)
   }
 }
 
+cudaError_t launch_prep(const PosArgs& a, cudaStream_t s) {
+  const size_t prep_smem = md::smem_bytes(md::kMaxRows, a.Dn + 8, 2) +
+                           md::smem_bytes(md::kMaxRows, a.Dl + 8, 2) +
+                           md::smem_bytes(md::kMaxRows, a.Dl + 4, 4);
+  cudaError_t err = cudaFuncSetAttribute(pos_prep_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(prep_smem));
+  if (err != cudaSuccess) return err;
+  dim3 prep_grid((a.B * a.N + md::kMaxRows - 1) / md::kMaxRows, 2);
+  pos_prep_kernel<<<prep_grid, md::kThreads, prep_smem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+namespace md {
+
+// L and R of every node (the prep kernel), for the backward entry point.
+cudaError_t pos_update_prep(const void* const* weights, const bf16* x, bf16* lr, int B, int N,
+                            int Dn, int Dl, cudaStream_t s) {
+  PosArgs a = {};
+  const bf16** w = &a.side[0].w1;
+  for (int k = 0; k < 12; ++k) w[k] = static_cast<const bf16*>(weights[k]);
+  a.x = x;
+  a.lr = lr;
+  a.B = B; a.N = N; a.Dn = Dn; a.Dl = Dl;
+  return launch_prep(a, s);
+}
+
+}  // namespace md
 
 extern "C" {
 
@@ -229,16 +258,7 @@ int md_pos_update_forward(const void* const* p, int B, int N, int Dn, int De, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *launched = 0;
 
-  const size_t prep_smem = md::smem_bytes(md::kMaxRows, Dn + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, Dl + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, Dl + 4, 4);
-  cudaError_t err = cudaFuncSetAttribute(pos_prep_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(prep_smem));
-  if (err != cudaSuccess) return err;
-  dim3 prep_grid((B * N + md::kMaxRows - 1) / md::kMaxRows, 2);
-  pos_prep_kernel<<<prep_grid, md::kThreads, prep_smem, s>>>(a);
-  err = cudaGetLastError();
+  cudaError_t err = launch_prep(a, s);
   if (err != cudaSuccess) return err;
   *launched = 1;
 

@@ -1,9 +1,10 @@
-"""Model class indices -> atoms and bonds (moldiff_tpu/data/featurize.py).
+"""Atoms and bonds <-> model class indices (moldiff_tpu/data/featurize.py).
 
 Class vocabularies (GEOM-Drug defaults):
   node types: 7 elements (C N O F P S Cl) + optional mask type      -> Kn = 8
   edge types: none + {single, double, triple, aromatic} + opt. mask -> Ke = 6
-Only the decoding half is ported: sampling needs no encoder.
+Training encodes molecules (featurize), sampling decodes model outputs
+(decode_output).
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ GEOM_DRUG_SIZE_STD = 5.516291901819105
 
 @dataclass
 class MolFeaturizer:
-    """Decodes model outputs to element/position/bond arrays."""
+    """Maps elements and bonds to class indices and decodes model outputs
+    back."""
 
     atomic_numbers: tuple = GEOM_DRUG_ATOMIC_NUMBERS
     mol_bond_types: tuple = GEOM_DRUG_BOND_TYPES
@@ -37,6 +39,26 @@ class MolFeaturizer:
         self.num_edge_types = self.num_bond_types + 1 + int(self.use_mask_edge)
         self.ele_to_nodetype = {e: i for i, e in enumerate(self.atomic_numbers)}
         self.nodetype_to_ele = {i: e for i, e in enumerate(self.atomic_numbers)}
+
+    # -- encode ---------------------------------------------------------------
+
+    def featurize(self, element: np.ndarray, pos: np.ndarray, bond_index: np.ndarray,
+                  bond_type: np.ndarray, center: bool = True) -> dict:
+        """One molecule -> dict(node_type [n], pos [n,3], halfedge_type [E])
+        (featurize.py:49-76). bond_index [2, 2 n_bonds] holds both
+        directions; half-edges are the upper-triangular pairs in row-major
+        order."""
+        n = len(element)
+        assert all(e in self.ele_to_nodetype for e in element), "unknown element"
+        node_type = np.array([self.ele_to_nodetype[e] for e in element], dtype=np.int32)
+        pos = np.asarray(pos, dtype=np.float32)
+        if center:
+            pos = pos - pos.mean(axis=0)
+        adj = np.zeros((n, n), dtype=np.int32)
+        adj[bond_index[0], bond_index[1]] = bond_type
+        iu, ju = triu_indices(n)
+        halfedge_type = adj[iu, ju].astype(np.int32)
+        return {"node_type": node_type, "pos": pos, "halfedge_type": halfedge_type}
 
     # -- decode ---------------------------------------------------------------
 
@@ -107,7 +129,7 @@ class MolFeaturizer:
 def featurizer_from_config(cfg) -> MolFeaturizer:
     """Featurizer from a train config's ``chem``/``transform`` blocks
     (the vocabulary the reference derives in scripts/train_drug3d.py:44-50).
-    Used by the sample CLI."""
+    Used by the sample and train CLIs."""
     return MolFeaturizer(
         atomic_numbers=tuple(cfg.chem.atomic_numbers),
         mol_bond_types=tuple(cfg.chem.mol_bond_types),

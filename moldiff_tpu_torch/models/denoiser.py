@@ -9,12 +9,11 @@ The port runs the JAX package's kernel path (``use_pallas`` + ``pallas_bwd``
 with ``edge_full=False``): the NodeBlock message sum, the EdgeBlock pair
 aggregate and the PosUpdate force sum go through the wrappers of
 ops/kernels.py, which launch the CUDA kernels for CUDA tensors and use
-their plain versions for CPU tensors. The first two are differentiable:
-their gradients run through the backward kernels (the bond predictor's
-guidance gradient); PosUpdate has no backward yet, and the models that
-are differentiated (the predictor, ``update_pos: false``) do not run it. Everything around them (embeddings,
-LayerNorms, the edge tail) is plain PyTorch in the compute dtype, as the
-JAX package leaves it to XLA. The gated blocks (``use_gate: true``, every
+their plain versions for CPU tensors. All three are differentiable: their
+gradients run through the backward kernels (the bond predictor's guidance
+gradient, the training loss's gradient). Everything around them
+(embeddings, LayerNorms, the edge tail) is plain PyTorch in the compute
+dtype, as the JAX package leaves it to XLA. The gated blocks (``use_gate: true``, every
 committed model) are the ones with kernels; an ungated model is refused.
 """
 from __future__ import annotations
@@ -112,9 +111,10 @@ def apply_block(blk, static, h_node, pos_node, h_edge, node_time, edge_time, pai
                                          pair_mask)
     h_node = h_node + h_node_delta
     if update_pos:
-        # PosUpdate (denoiser.py:324-336, pallas_bwd path) is the kernel alone
-        pos_node = pos_node + kernels.pos_update(blk["pos_block"], h_node, h_edge_i, rel_vec,
-                                                 distance, edge_time, pair_mask)
+        # PosUpdate (denoiser.py:338-350, pallas_bwd path) is the kernel alone,
+        # differentiable through its backward kernel
+        pos_node = pos_node + kernels.pos_update_ad(blk["pos_block"], h_node, h_edge_i, rel_vec,
+                                                    distance, edge_time, pair_mask)
     return h_node, pos_node, h_edge_i
 
 

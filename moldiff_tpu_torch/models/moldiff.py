@@ -12,8 +12,10 @@ JAX package given the same noise.
 Ported: ``forward`` (:178-249), ``sample`` (:425) with ``ddpm`` positions
 and ``commit`` in {"none", "nodes"}, and its step (:559), with the bond
 predictor's position guidance in all eight modes (:960-1044) and its
-class-space edge guidance (:650-675). Not yet: respacing, DDIM, edge
-commit, the continuous categorical mode, the loss.
+class-space edge guidance (:650-675); the training loss ``get_loss``
+(:253-373), its noise (the time draw and the three forward noisings) passed
+in as :class:`LossNoise`. Not yet: respacing, DDIM, edge commit, the
+continuous categorical mode, the MoE loss.
 
 Sampling runs under ``torch.no_grad()``; the guidance delta re-enables
 autograd for the predictor's forward and its gradient with respect to the
@@ -32,7 +34,7 @@ from ..ops.categorical import CategoricalTransition, index_to_log_onehot, log_sa
 from ..ops.gaussian import GaussianTransition
 from ..ops.schedules import get_beta_schedule
 from .denoiser import denoiser_static_config, node_edge_net, prepare_blocks
-from .nn import GaussianSmearing, linear, mlp
+from .nn import GaussianSmearing, linear, mlp, safe_distance
 
 COMMIT_MODES = ("none", "nodes")
 
@@ -56,6 +58,29 @@ class StepNoise(NamedTuple):
     pos: torch.Tensor    # [B, N, 3] standard normal
     node: torch.Tensor   # [B, N, Kn] uniform [0, 1)
     edge: torch.Tensor   # [B, E, Ke] uniform [0, 1)
+
+
+class LossNoise(NamedTuple):
+    """The random numbers of one training loss: the time draw and the noise
+    of the three forward noisings."""
+    t: torch.Tensor      # [B] int timesteps (sample_time_antithetic)
+    pos: torch.Tensor    # [B, N, 3] standard normal
+    node: torch.Tensor   # [B, N, Kn] uniform [0, 1)
+    edge: torch.Tensor   # [B, E, Ke] uniform [0, 1)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of x over the elements where mask == 1 (moldiff.py:40-43)."""
+    mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
+    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def sample_time_antithetic(half: torch.Tensor, num_graphs: int,
+                           num_timesteps: int) -> torch.Tensor:
+    """Antithetic timesteps (moldiff.py:46-51) from ``half``, the
+    num_graphs // 2 + 1 uniform integer draws in [0, num_timesteps)."""
+    t = torch.cat([half, num_timesteps - half - 1])[:num_graphs]
+    return t.to(torch.long)
 
 
 class SampleState(NamedTuple):
@@ -86,6 +111,11 @@ class MolDiff:
         self.device = resolve_device(device)
         self.num_node_types = num_node_types
         self.num_edge_types = num_edge_types
+        # loss knobs (moldiff.py:74-95)
+        self.bond_len_loss = bool(config.get("bond_len_loss", False))
+        self.edge_loss_scale = float(config.get("edge_loss_scale", 1.0))
+        self.v0_ce_scale = float(config.get("v0_ce_scale", 0.0))
+        self.v0_ce_edge_scale = float(config.get("v0_ce_edge_scale", self.v0_ce_scale))
         diff = config["diff"]
         self.num_timesteps = diff["num_timesteps"]
         self.time_dim = diff["time_dim"]
@@ -135,6 +165,75 @@ class MolDiff:
         h_half_sym = graph_ops.dense_to_halfedge(graph_ops.symmetrize_dense(h_edge))
         pred_halfedge = mlp(params["edge_decoder"], h_half_sym)
         return MolDiffPreds(pred_node, pos_out, pred_halfedge)
+
+    # -- training loss ---------------------------------------------------------
+
+    def draw_loss_noise(self, b: int, n: int, generator: torch.Generator) -> LossNoise:
+        """Fresh noise for one :meth:`get_loss` on a [B, N] batch."""
+        dev = self.device
+        half = torch.randint(0, self.num_timesteps, (b // 2 + 1,), generator=generator,
+                             device=dev)
+        return LossNoise(
+            t=sample_time_antithetic(half, b, self.num_timesteps),
+            pos=torch.randn((b, n, 3), generator=generator, device=dev),
+            node=torch.rand((b, n, self.num_node_types), generator=generator, device=dev),
+            edge=torch.rand((b, graph_ops.num_halfedges(n), self.num_edge_types),
+                            generator=generator, device=dev),
+        )
+
+    def get_loss(self, params: dict, node_type, node_pos, halfedge_type, node_mask,
+                 noise: LossNoise):
+        """Diffusion training loss (moldiff.py:253-373): masked-mean position
+        MSE + 100 x KL(node) + 100 x edge_loss_scale x KL(edge) [+ bond-length
+        MSE] [+ v0 cross-entropy]. node_type [B,N] int, node_pos [B,N,3],
+        halfedge_type [B,E] int, node_mask [B,N] -> (loss, dict of terms)."""
+        n = node_type.shape[1]
+        halfedge_mask = graph_ops.halfedge_mask_from_node_mask(node_mask)
+        t = noise.t
+        pos_pert = self.pos_transition.add_noise(node_pos, t, noise.pos)
+        h_node_pert, log_node_t, log_node_0 = self.node_transition.add_noise(
+            node_type, t, noise.node)
+        h_halfedge_pert, log_halfedge_t, log_halfedge_0 = self.edge_transition.add_noise(
+            halfedge_type, t, noise.edge)
+        preds = self.forward(params, h_node_pert, pos_pert, h_halfedge_pert, t, node_mask)
+
+        loss_pos = masked_mean((preds.pred_pos - node_pos) ** 2, node_mask[..., None])
+        losses = {}
+        if self.bond_len_loss:
+            iu, ju = (torch.as_tensor(a, dtype=torch.long, device=node_pos.device)
+                      for a in graph_ops.triu_indices(n))
+            bond_mask = halfedge_mask * (halfedge_type > 0)
+            true_len = safe_distance(node_pos[:, iu] - node_pos[:, ju])
+            pred_len = safe_distance(preds.pred_pos[:, iu] - preds.pred_pos[:, ju])
+            losses["loss_len"] = masked_mean((pred_len - true_len) ** 2, bond_mask)
+
+        node_tr, edge_tr = self.node_transition, self.edge_transition
+        log_node_recon = torch.log_softmax(preds.pred_node, dim=-1)
+        kl_node = node_tr.compute_v_Lt(node_tr.q_v_posterior(log_node_0, log_node_t, t),
+                                       node_tr.q_v_posterior(log_node_recon, log_node_t, t),
+                                       log_node_0, t)
+        loss_node = masked_mean(kl_node, node_mask) * 100.0
+        log_edge_recon = torch.log_softmax(preds.pred_halfedge, dim=-1)
+        kl_edge = edge_tr.compute_v_Lt(
+            edge_tr.q_v_posterior(log_halfedge_0, log_halfedge_t, t),
+            edge_tr.q_v_posterior(log_edge_recon, log_halfedge_t, t), log_halfedge_0, t)
+        loss_edge = masked_mean(kl_edge, halfedge_mask) * 100.0 * self.edge_loss_scale
+        if self.v0_ce_scale > 0 or self.v0_ce_edge_scale > 0:
+            loss_v0ce = 0.0
+            if self.v0_ce_scale > 0:
+                ce_node = -torch.gather(log_node_recon, -1, node_type[..., None].long())[..., 0]
+                loss_v0ce = loss_v0ce + self.v0_ce_scale * masked_mean(ce_node, node_mask)
+            if self.v0_ce_edge_scale > 0:
+                ce_edge = -torch.gather(log_edge_recon, -1,
+                                        halfedge_type[..., None].long())[..., 0]
+                loss_v0ce = loss_v0ce + self.v0_ce_edge_scale * masked_mean(ce_edge,
+                                                                            halfedge_mask)
+            losses["loss_v0ce"] = loss_v0ce
+        loss_total = (loss_pos + loss_node + loss_edge + losses.get("loss_len", 0.0)
+                      + losses.get("loss_v0ce", 0.0))
+        losses.update(loss=loss_total, loss_pos=loss_pos, loss_node=loss_node,
+                      loss_edge=loss_edge)
+        return loss_total, losses
 
     # -- sampling --------------------------------------------------------------
 

@@ -36,11 +36,13 @@ SIGNATURES = {
     "md_pos_update_forward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "md_node_block_backward": [_P, _I, _I, _I, _I, _I, _P, _P],
     "md_edge_pair_backward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "md_pos_update_backward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 # bytes of workspace a backward call needs, from its widths
 WORKSPACE_SIGNATURES = {
     "md_node_block_backward_workspace": [_I] * 5,
     "md_edge_pair_backward_workspace": [_I] * 7,
+    "md_pos_update_backward_workspace": [_I] * 7,
 }
 
 _loaded: Optional[ctypes.CDLL] = None

@@ -28,6 +28,16 @@ def log_sample_categorical(logits: torch.Tensor, uniform: torch.Tensor) -> torch
     return torch.argmax(gumbel + logits, dim=-1)
 
 
+def categorical_kl(log_prob1: torch.Tensor, log_prob2: torch.Tensor) -> torch.Tensor:
+    """KL(p1 || p2) with both arguments in log space; reduces the last axis."""
+    return torch.sum(torch.exp(log_prob1) * (log_prob1 - log_prob2), dim=-1)
+
+
+def log_categorical(log_x_start: torch.Tensor, log_prob: torch.Tensor) -> torch.Tensor:
+    """E_{x ~ x_start}[log_prob(x)]; reduces the last axis."""
+    return torch.sum(torch.exp(log_x_start) * log_prob, dim=-1)
+
+
 def _clamped_log(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.log(x + EPS), min=LOG_MIN)
 
@@ -77,6 +87,34 @@ class CategoricalTransition:
         self.transpose_q_onestep_mats = f32(np.transpose(q_one_step, (0, 2, 1)))
         self.init_prob = f32(prior)
         self.log_prior = torch.clamp(torch.log(self.init_prob + EPS), min=LOG_MIN)
+
+    def q_vt_pred(self, log_v0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """log q(v_t | v_0) (categorical.py:123-134), the K x K contraction in
+        float32."""
+        q_vt = torch.einsum("bmk,bkj->bmj", torch.exp(log_v0), self.q_mats[t])
+        return _clamped_log(q_vt)
+
+    def q_vt_sample(self, log_v0: torch.Tensor, t: torch.Tensor, uniform: torch.Tensor):
+        """A draw of v_t ~ q(v_t | v_0) given uniforms of log_v0's shape ->
+        (classes, log one-hot)."""
+        sample = log_sample_categorical(self.q_vt_pred(log_v0, t), uniform)
+        return sample, index_to_log_onehot(sample, self.num_classes)
+
+    def add_noise(self, v: torch.Tensor, t: torch.Tensor, uniform: torch.Tensor):
+        """Perturb clean classes v [B, M] given uniforms [B, M, K] -> (one-hot
+        v_t, log one-hot v_t, log one-hot v_0) (categorical.py:143-148)."""
+        log_v0 = index_to_log_onehot(v, self.num_classes)
+        v_t, log_vt = self.q_vt_sample(log_v0, t, uniform)
+        return self.onehot_encode(v_t), log_vt, log_v0
+
+    def compute_v_Lt(self, log_v_post_true: torch.Tensor, log_v_post_pred: torch.Tensor,
+                     log_v0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """Per-element variational loss [B, M]: KL(q || p) for t > 0, the
+        decoder NLL at t = 0 (categorical.py:193-207)."""
+        kl_v = categorical_kl(log_v_post_true, log_v_post_pred)
+        nll_v = -log_categorical(log_v0, log_v_post_pred)
+        t_is_zero = (t == 0).reshape(t.shape + (1,) * (kl_v.dim() - 1))
+        return torch.where(t_is_zero, nll_v, kl_v)
 
     def onehot_encode(self, v: torch.Tensor) -> torch.Tensor:
         return torch.nn.functional.one_hot(v.long(), self.num_classes).to(torch.float32)

@@ -22,6 +22,7 @@ class GaussianTransition:
 
         f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
         self.num_timesteps = len(betas)
+        self.alphas_bar = f32(alphas_bar)
         # posterior q(x_{t-1} | x_0, x_t) coefficients
         self.coef_x0 = f32(np.sqrt(alphas_bar_prev) * betas / (1 - alphas_bar))
         self.coef_xt = f32(np.sqrt(alphas) * (1 - alphas_bar_prev) / (1 - alphas_bar))
@@ -30,6 +31,13 @@ class GaussianTransition:
     @staticmethod
     def _bcast(coef_t: torch.Tensor, ndim: int) -> torch.Tensor:
         return coef_t.reshape(coef_t.shape + (1,) * (ndim - 1))
+
+    def add_noise(self, x: torch.Tensor, t: torch.Tensor,
+                  noise: torch.Tensor) -> torch.Tensor:
+        """x_t = sqrt(a_bar_t) x + sqrt(1 - a_bar_t) noise, a draw from
+        q(x_t | x_0) given standard-normal noise (gaussian.py:55-72)."""
+        a_bar = self._bcast(self.alphas_bar[t], x.dim())
+        return torch.sqrt(a_bar) * x + torch.sqrt(1.0 - a_bar) * noise
 
     def get_prev_from_recon(self, x_t: torch.Tensor, x_recon: torch.Tensor,
                             t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:

@@ -12,15 +12,17 @@ float32, biases and LayerNorm parameters read as float32):
   pos_update            <- _pos_update_kernel  (PosUpdate force sum)
   node_block_aggregate_bwd <- _node_block_bwd_kernel (recompute + cotangents)
   edge_pair_aggregate_bwd  <- _edge_pair_bwd_kernel  (recompute + cotangents)
+  pos_update_bwd           <- _pos_update_bwd_kernel (recompute + cotangents)
 
 The backward versions return cotangents matching the primal signature, as
 the Pallas wrappers do: (d_params, then one cotangent per input), parameter
 grads accumulated in float32 and cast to the parameter dtype at the end.
 Like the Pallas backward bodies, their recompute keeps the sigmoid and the
 message in float32 where the forward rounds them to bf16.
-:func:`node_block_aggregate_ad` and :func:`edge_pair_aggregate_ad` are the
-differentiable versions: a ``torch.autograd.Function`` whose forward is the
-forward wrapper and whose backward is the backward wrapper.
+:func:`node_block_aggregate_ad`, :func:`edge_pair_aggregate_ad` and
+:func:`pos_update_ad` are the differentiable versions: a
+``torch.autograd.Function`` whose forward is the forward wrapper and whose
+backward is the backward wrapper.
 
 A wrapper takes its plain version (``*_plain``) for tensors on the CPU,
 which is where the tests run. For CUDA tensors it launches the hand-written
@@ -42,7 +44,8 @@ from typing import Dict, List, Sequence
 import torch
 
 launch_counts: Dict[str, int] = {"node_block": 0, "edge_pair": 0, "pos_update": 0,
-                                  "node_block_bwd": 0, "edge_pair_bwd": 0}
+                                  "node_block_bwd": 0, "edge_pair_bwd": 0,
+                                  "pos_update_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -340,6 +343,114 @@ def edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask, 
             (left[4] + right[4]).to(pair_mask.dtype))
 
 
+def _mlp2_parts(x: torch.Tensor, p: dict, dt: torch.dtype):
+    """_mlp2 keeping what its backward needs (pallas_kernels.py:_mlp_chain):
+    (LN output, xhat, 1/std, relu output in dt, output in dt)."""
+    l0, l1 = p["layers"]
+    ln1, xhat1, inv1 = _ln_stats(_dot(x, l0["lin"]["w"]) + l0["lin"]["b"].float(), l0["ln"])
+    r1 = torch.relu(ln1).to(dt)
+    out = (_dot(r1, l1["lin"]["w"]) + l1["lin"]["b"].float()).to(dt)
+    return ln1, xhat1, inv1, r1, out
+
+
+def _mlp2_bwd(x: torch.Tensor, p: dict, parts, d_out: torch.Tensor, dt: torch.dtype):
+    """pallas_kernels.py:_mlp_bwd given the float32 cotangent of _mlp2's
+    output -> (float32 parameter grads, d_x)."""
+    ln1, xhat1, inv1, r1, _ = parts
+    l0, l1 = p["layers"]
+    d_ln1 = _dot_t(d_out.to(dt), l1["lin"]["w"]) * (ln1 > 0)
+    d_h1, ds_rows = _ln_bwd(d_ln1, xhat1, inv1, l0["ln"])
+    d_x = _dot_t(d_h1.to(dt), l0["lin"]["w"])
+    return _mlp_grads(_wgrad(x, d_h1), _rows(d_h1), _rows(ds_rows), _rows(d_ln1),
+                      _wgrad(r1, d_out), _rows(d_out)), d_x
+
+
+def pos_update_bwd_plain(params, h_node, h_edge, rel_vec, distance, edge_time, pair_mask, ct):
+    """pallas_kernels.py:_pos_update_bwd_kernel (as _pallas_pos_update_bwd
+    wraps it): cotangent ct [B,N,3] of the force sum -> (d_params, d_node,
+    d_edge, d_rel_vec, d_distance, d_time, d_mask); d_rel_vec and d_distance
+    float32, the gate's first-layer gradient as its e, xp and t rows."""
+    dt = h_node.dtype
+    parts_l = _mlp2_parts(h_node, params["left_lin_edge"], dt)
+    parts_r = _mlp2_parts(h_node, params["right_lin_edge"], dt)
+    lout, rout = parts_l[-1].float(), parts_r[-1].float()
+    xp = (lout[:, :, None, :] * rout[:, None, :, :]).to(dt)
+    el = params["edge_lin"]
+    pi0, pi1 = el["inter"]["layers"]
+    pg0, pg1 = el["gate"]["layers"]
+    wb, wn, wg1 = el["bond_linear"]["w"], el["node_linear"]["w"], pg0["lin"]["w"]
+    de, dxp = h_edge.shape[-1], xp.shape[-1]
+
+    # forward recompute, float32 sigmoid and message
+    bp = _dot(h_edge, wb)
+    np_ = _dot(xp, wn)
+    inter0 = bp * np_
+    ln1, xhat1, inv1 = _ln_stats(_dot(inter0.to(dt), pi0["lin"]["w"]) + pi0["lin"]["b"].float(),
+                                 pi0["ln"])
+    r1 = torch.relu(ln1).to(dt)
+    out_i = _dot(r1, pi1["lin"]["w"]) + pi1["lin"]["b"].float()
+    g1 = (_dot(h_edge, wg1[:de]) + _dot(xp, wg1[de:de + dxp])
+          + _time_col(edge_time) * wg1[de + dxp].float() + pg0["lin"]["b"].float())
+    lng, xhatg, invg = _ln_stats(g1, pg0["ln"])
+    rg = torch.relu(lng).to(dt)
+    sig = torch.sigmoid(_dot(rg, pg1["lin"]["w"]) + pg1["lin"]["b"].float())
+    w = out_i * sig
+
+    # force backward: q = 1/d', r = 1/(d'+1) (pallas_kernels.py:_pos_force_terms)
+    mask4 = pair_mask.float()[..., None]
+    d_safe = torch.where(mask4 > 0, distance.float()[..., None], torch.ones_like(mask4))
+    q, r = 1.0 / d_safe, 1.0 / (d_safe + 1.0)
+    qr = q * r
+    ct4 = ct.float()[:, :, None, :]
+    ct_dot_rv = (ct4 * rel_vec.float()).sum(dim=-1, keepdim=True)
+    d_w = ct_dot_rv * qr * mask4
+    d_rel = ct4 * w * qr * mask4
+    d_mask = (ct_dot_rv * w * qr)[..., 0]
+    d_dist = (ct_dot_rv * w * mask4 * (-qr) * (q + r))[..., 0]
+
+    # gated BondFFN backward
+    d_out_i = d_w * sig
+    d_g2 = d_w * out_i * sig * (1.0 - sig)
+    d_lng = _dot_t(d_g2.to(dt), pg1["lin"]["w"]) * (lng > 0)
+    d_g1, dsg_rows = _ln_bwd(d_lng, xhatg, invg, pg0["ln"])
+    d_e_gate = _dot_t(d_g1.to(dt), wg1[:de])
+    d_xp_gate = _dot_t(d_g1.to(dt), wg1[de:de + dxp])
+    d_g1_tot = d_g1.sum(dim=(1, 2))                           # [B, G]
+    d_time = d_g1_tot @ wg1[de + dxp].float()
+    d_ln1 = _dot_t(d_out_i.to(dt), pi1["lin"]["w"]) * (ln1 > 0)
+    d_h1, ds1_rows = _ln_bwd(d_ln1, xhat1, inv1, pi0["ln"])
+    d_inter0 = _dot_t(d_h1.to(dt), pi0["lin"]["w"])
+    d_bp = d_inter0 * np_
+    d_np = d_inter0 * bp
+    d_e = d_e_gate + _dot_t(d_bp.to(dt), wb)
+    d_xp = d_xp_gate + _dot_t(d_np.to(dt), wn)
+
+    # pair product and node MLPs: d_lout[i] sums over j, d_rout[j] over i
+    grads_l, dx_l = _mlp2_bwd(h_node, params["left_lin_edge"], parts_l,
+                              (d_xp * rout[:, None, :, :]).sum(dim=2), dt)
+    grads_r, dx_r = _mlp2_bwd(h_node, params["right_lin_edge"], parts_r,
+                              (d_xp * lout[:, :, None, :]).sum(dim=1), dt)
+
+    tv = edge_time.reshape(-1).float()
+    d_params = {
+        "left_lin_edge": grads_l,
+        "right_lin_edge": grads_r,
+        "edge_lin": {
+            "bond_linear": {"w": _wgrad(h_edge, d_bp)},
+            "node_linear": {"w": _wgrad(xp, d_np)},
+            "inter": _mlp_grads(_wgrad(inter0, d_h1), _rows(d_h1), _rows(ds1_rows),
+                                _rows(d_ln1), _wgrad(r1, d_out_i), _rows(d_out_i)),
+            "gate": _mlp_grads(
+                torch.cat([_wgrad(h_edge, d_g1), _wgrad(xp, d_g1),
+                           (tv[:, None] * d_g1_tot).sum(dim=0)[None]], dim=0),
+                _rows(d_g1), _rows(dsg_rows), _rows(d_lng), _wgrad(rg, d_g2), _rows(d_g2)),
+        },
+    }
+    return (_cast_like(d_params, params), (dx_l + dx_r).to(dt), d_e.to(dt),
+            d_rel.to(rel_vec.dtype), d_dist.to(distance.dtype),
+            d_time.reshape(edge_time.shape).to(edge_time.dtype), d_mask.to(pair_mask.dtype))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -481,6 +592,33 @@ def edge_pair_aggregate(params, h_bond, h_node, bond_time, pair_mask):
     return out[0], out[1]
 
 
+def _pos_update_checks(kernel: str, params, h_node, h_edge, rel_vec, distance, edge_time,
+                       pair_mask):
+    """Widths, weight leaves and the flat time vector of a PosUpdate call,
+    after checking every operand -> (De, Dl, I, G, leaves, t)."""
+    dev = h_node.device
+    b, n, dn = h_node.shape
+    de = h_edge.shape[-1]
+    dl = params["left_lin_edge"]["layers"][1]["lin"]["w"].shape[1]
+    hl = params["left_lin_edge"]["layers"][0]["lin"]["w"].shape[1]
+    el = params["edge_lin"]
+    i_dim = el["bond_linear"]["w"].shape[1]
+    g = el["gate"]["layers"][0]["lin"]["w"].shape[1]
+    _check_width(kernel, Dn=dn, De=de, Dl=dl, I=i_dim, G=g)
+    if hl != dl:
+        raise ValueError(f"{kernel}: the node MLPs' hidden width must equal their output")
+    shapes = (_mlp_shapes(dn, dl, dl) * 2 + [(de, i_dim), (dl, i_dim)]
+              + _mlp_shapes(i_dim, i_dim, 1) + _mlp_shapes(de + dl + 1, g, 1))
+    leaves = _pos_update_leaves(params)
+    _check_weights(kernel, leaves, shapes, dev)
+    _check(f"{kernel} h_node", h_node, (b, n, dn), torch.bfloat16, dev)
+    _check(f"{kernel} h_edge", h_edge, (b, n, n, de), torch.bfloat16, dev)
+    _check(f"{kernel} rel_vec", rel_vec, (b, n, n, 3), torch.float32, dev, align=4)
+    _check(f"{kernel} distance", distance, (b, n, n), torch.float32, dev, align=4)
+    t = _check_pairs(kernel, b, n, dev, pair_mask, edge_time)
+    return de, dl, i_dim, g, leaves, t
+
+
 def pos_update(params, h_node, h_edge, rel_vec, distance, edge_time, pair_mask):
     """PosUpdate force sum (see pos_update_plain)."""
     if h_node.device.type == "cpu":
@@ -490,25 +628,8 @@ def pos_update(params, h_node, h_edge, rel_vec, distance, edge_time, pair_mask):
 
     dev = h_node.device
     b, n, dn = h_node.shape
-    de = h_edge.shape[-1]
-    dl = params["left_lin_edge"]["layers"][1]["lin"]["w"].shape[1]
-    hl = params["left_lin_edge"]["layers"][0]["lin"]["w"].shape[1]
-    el = params["edge_lin"]
-    i_dim = el["bond_linear"]["w"].shape[1]
-    g = el["gate"]["layers"][0]["lin"]["w"].shape[1]
-    _check_width("pos_update", Dn=dn, De=de, Dl=dl, I=i_dim, G=g)
-    if hl != dl:
-        raise ValueError("pos_update: the node MLPs' hidden width must equal their output")
-    shapes = (_mlp_shapes(dn, dl, dl) * 2 + [(de, i_dim), (dl, i_dim)]
-              + _mlp_shapes(i_dim, i_dim, 1) + _mlp_shapes(de + dl + 1, g, 1))
-    leaves = (_mlp_leaves(params["left_lin_edge"]) + _mlp_leaves(params["right_lin_edge"])
-              + _bond_ffn_leaves(el))
-    _check_weights("pos_update", leaves, shapes, dev)
-    _check("pos_update h_node", h_node, (b, n, dn), torch.bfloat16, dev)
-    _check("pos_update h_edge", h_edge, (b, n, n, de), torch.bfloat16, dev)
-    _check("pos_update rel_vec", rel_vec, (b, n, n, 3), torch.float32, dev, align=4)
-    _check("pos_update distance", distance, (b, n, n), torch.float32, dev, align=4)
-    t = _check_pairs("pos_update", b, n, dev, pair_mask, edge_time)
+    de, dl, i_dim, g, leaves, t = _pos_update_checks("pos_update", params, h_node, h_edge,
+                                                     rel_vec, distance, edge_time, pair_mask)
     lr = torch.empty((2, b, n, dl), dtype=torch.bfloat16, device=dev)
     out = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
     _require_cuda("pos_update", dev)
@@ -551,6 +672,16 @@ def _edge_pair_leaves(p: dict) -> List[torch.Tensor]:
     return _bond_ffn_leaves(p["left"]) + _bond_ffn_leaves(p["right"])
 
 
+def _pos_update_leaves(p: dict) -> List[torch.Tensor]:
+    return (_mlp_leaves(p["left_lin_edge"]) + _mlp_leaves(p["right_lin_edge"])
+            + _bond_ffn_leaves(p["edge_lin"]))
+
+
+def _pos_update_tree(leaves: Sequence[torch.Tensor]) -> dict:
+    return {"left_lin_edge": _mlp_tree(leaves[0:6]), "right_lin_edge": _mlp_tree(leaves[6:12]),
+            "edge_lin": _bond_ffn_tree(leaves[12:26])}
+
+
 class _NodeBlockAggregate(torch.autograd.Function):
     """node_block_aggregate with the NodeBlock backward kernel as its
     gradient; saves only the inputs, the backward recomputes."""
@@ -588,6 +719,25 @@ class _EdgePairAggregate(torch.autograd.Function):
         return (d_bond, d_node, d_time, d_mask, *_edge_pair_leaves(d_params))
 
 
+class _PosUpdate(torch.autograd.Function):
+    """pos_update with the PosUpdate backward kernel as its gradient; saves
+    only the inputs, the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, h_node, h_edge, rel_vec, distance, edge_time, pair_mask, *leaves):
+        ctx.save_for_backward(h_node, h_edge, rel_vec, distance, edge_time, pair_mask, *leaves)
+        return pos_update(_pos_update_tree(leaves), h_node, h_edge, rel_vec, distance,
+                          edge_time, pair_mask)
+
+    @staticmethod
+    def backward(ctx, ct):
+        h_node, h_edge, rel_vec, distance, edge_time, pair_mask, *leaves = ctx.saved_tensors
+        d_params, *d_inputs = pos_update_bwd(
+            _pos_update_tree(leaves), h_node, h_edge, rel_vec, distance, edge_time, pair_mask,
+            ct.contiguous())
+        return (*d_inputs, *_pos_update_leaves(d_params))
+
+
 def node_block_aggregate_ad(params, x, edge_attr, node_time, pair_mask):
     """Differentiable node_block_aggregate (forward and backward kernels)."""
     return _NodeBlockAggregate.apply(x, edge_attr, node_time, pair_mask,
@@ -598,6 +748,12 @@ def edge_pair_aggregate_ad(params, h_bond, h_node, bond_time, pair_mask):
     """Differentiable edge_pair_aggregate (forward and backward kernels)."""
     return _EdgePairAggregate.apply(h_bond, h_node, bond_time, pair_mask,
                                     *_edge_pair_leaves(params))
+
+
+def pos_update_ad(params, h_node, h_edge, rel_vec, distance, edge_time, pair_mask):
+    """Differentiable pos_update (forward and backward kernels)."""
+    return _PosUpdate.apply(h_node, h_edge, rel_vec, distance, edge_time, pair_mask,
+                            *_pos_update_leaves(params))
 
 
 def _grad_buffers(shapes: List[Sequence[int]], device) -> List[torch.Tensor]:
@@ -689,3 +845,41 @@ def edge_pair_aggregate_bwd(params, h_bond, h_node, bond_time, pair_mask, dt_ct,
     d_params = _cast_like(_edge_pair_tree(grads), params)
     return (d_params, d_bond, d_node, d_time.reshape(bond_time.shape).to(bond_time.dtype),
             d_mask.to(pair_mask.dtype))
+
+
+def pos_update_bwd(params, h_node, h_edge, rel_vec, distance, edge_time, pair_mask, ct):
+    """PosUpdate backward (see pos_update_bwd_plain)."""
+    if h_node.device.type == "cpu":
+        return pos_update_bwd_plain(params, h_node, h_edge, rel_vec, distance, edge_time,
+                                    pair_mask, ct)
+    from . import build
+
+    dev = h_node.device
+    b, n, dn = h_node.shape
+    de, dl, i_dim, g, leaves, t = _pos_update_checks("pos_update_bwd", params, h_node, h_edge,
+                                                     rel_vec, distance, edge_time, pair_mask)
+    _check("pos_update_bwd ct", ct, (b, n, 3), torch.float32, dev, align=4)
+    if max(de, dl, g) > i_dim:
+        raise ValueError("pos_update_bwd: the edge, node-feature and gate widths must not "
+                         "exceed I")
+    _require_cuda("pos_update_bwd", dev)
+    lib = build.library()
+    d_node = torch.empty_like(h_node)
+    d_edge = torch.empty_like(h_edge)
+    d_rel = torch.empty_like(rel_vec)
+    d_dist = torch.empty_like(distance)
+    d_time = torch.empty((b,), dtype=torch.float32, device=dev)
+    d_mask = torch.empty((b, n, n), dtype=torch.float32, device=dev)
+    grads = _grad_buffers([tuple(x.shape) for x in leaves], dev)
+    ws = torch.empty((lib.md_pos_update_backward_workspace(b, n, dn, de, dl, i_dim, g),),
+                     dtype=torch.uint8, device=dev)
+    launched = ctypes.c_int(0)
+    rc = lib.md_pos_update_backward(
+        _pointers(leaves + [h_node, h_edge, rel_vec, distance, pair_mask, t, ct, d_node, d_edge,
+                            d_rel, d_dist, d_time, d_mask] + grads + [ws]),
+        b, n, dn, de, dl, i_dim, g, _stream(dev), ctypes.byref(launched))
+    build.check(lib, rc, "pos_update_bwd")
+    launch_counts["pos_update_bwd"] += launched.value
+    d_params = _cast_like(_pos_update_tree(grads), params)
+    return (d_params, d_node, d_edge, d_rel, d_dist,
+            d_time.reshape(edge_time.shape).to(edge_time.dtype), d_mask.to(pair_mask.dtype))

@@ -9,8 +9,10 @@ The model configs come from the checkpoints. The config's top-level
 ``bond_predictor`` names the predictor's checkpoint; ``sample.guidance``
 ([mode, scale]), ``guidance_interval``, ``edge_guidance[_tmax]`` and
 ``add_edge`` follow the JAX CLI. Writes SMILES.txt, one SDF per finished
-molecule under SDF/, and summary.json (success rate with its Wilson
-interval, throughput, accept stages, failure reasons) into
+molecule under SDF/, samples_all.pkl (every classified molecule, the JAX
+CLI's layout) and summary.json (success rate with its Wilson interval,
+throughput, accept stages, failure reasons, aromatic and triple-bond
+fractions) into
 ``<outdir>/<config name>_<time>/``. :func:`run` is the same path for a
 caller that already holds the settings as a dict.
 """
@@ -20,6 +22,7 @@ import argparse
 import json
 import math
 import os
+import pickle
 import time
 from collections import Counter
 from typing import Optional
@@ -27,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..chem.mol import AROMATIC
 from ..chem.sdf import write_sdf
 from ..data.featurize import featurizer_from_config
 from ..models.bond_predictor import BondPredictor
@@ -46,6 +50,12 @@ def wilson_interval(k: int, n: int, z: float = 1.959964) -> tuple:
     half = z * math.sqrt(p * (1 - p) / n + z * z / (4 * n * n)) / den
     # the exact ends at k = 0 and k = n, which rounding would miss
     return (0.0 if k == 0 else mid - half, 1.0 if k == n else mid + half)
+
+
+def _fraction_with_bond(finished: list, order: int) -> float:
+    """Share of finished molecules with at least one bond of ``order``."""
+    n = sum(1 for e in finished if "mol" in e and any(b.order == order for b in e["mol"].bonds))
+    return n / max(len(finished), 1)
 
 
 def load_bond_predictor(checkpoint: str, featurizer, device: torch.device):
@@ -79,7 +89,7 @@ def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
     guidance = sample_cfg.get("guidance")
     if guidance:
         guidance = (str(guidance[0]), float(guidance[1]))
-    tmax = sample_cfg.get("edge_guidance_tmax")
+    tmax = sample_cfg.get("edge_guidance_tmax")   # falsy: every step, as in JAX
     sampler = MolSampler(
         model, featurizer, batch_size=min(batch_size or sample_cfg["batch_size"], 256),
         sanitize_mode=str(sample_cfg.get("sanitize_mode") or "reference"),
@@ -87,7 +97,7 @@ def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
         guidance=guidance or None,
         guidance_interval=int(sample_cfg.get("guidance_interval") or 1),
         edge_guidance=float(sample_cfg.get("edge_guidance") or 0.0),
-        edge_guidance_tmax=None if tmax is None else int(tmax),
+        edge_guidance_tmax=tmax,
         add_edge=sample_cfg.get("add_edge") or None, **kw)
     return sampler, ckpt["params"]
 
@@ -146,10 +156,14 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
         "guidance": list(sampler.guidance) if sampler.guidance else None,
         "guidance_interval": sampler.guidance_interval,
         "edge_guidance": sampler.edge_guidance,
+        "edge_guidance_tmax": sampler.edge_guidance_tmax,
         "add_edge": sampler.add_edge,
         "accept_stage_counts": dict(Counter(e.get("stage") or "unknown"
                                             for e in pool["finished"])),
         "failure_reason_counts": dict(Counter(e["reason"] for e in pool["failed"])),
+        # aromatic / triple-bond exposure of the pool (sample_drug3d.py:368-396)
+        "aromatic_mol_fraction": _fraction_with_bond(pool["finished"], AROMATIC),
+        "triple_bond_mol_fraction": _fraction_with_bond(pool["finished"], 3),
     }
     out_dir = os.path.join(outdir, run_name)
     sdf_dir = os.path.join(out_dir, "SDF")
@@ -159,6 +173,13 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
             f.write(e["smiles"] + "\n")
     for k, e in enumerate(pool["finished"]):
         write_sdf([e["mol"]], os.path.join(sdf_dir, f"{k}.sdf"))
+    # every classified molecule, the JAX CLI's layout (sample_drug3d.py:347-362)
+    with open(os.path.join(out_dir, "samples_all.pkl"), "wb") as f:
+        pickle.dump({"finished": [{"smiles": e["smiles"], "decoded": e["decoded"],
+                                   "stage": e.get("stage")} for e in pool["finished"]],
+                     "failed": [{"reason": e["reason"], "decoded": e["decoded"]}
+                                for e in pool["failed"]],
+                     "wall_s": wall, "success_rate": summary["success_rate"]}, f)
     with open(os.path.join(out_dir, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     log(f"generated {n_fin} molecules in {wall:.1f} s | success {summary['success_rate']:.4f} "

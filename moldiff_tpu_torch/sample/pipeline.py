@@ -60,7 +60,9 @@ class MolSampler:
         self.guidance = guidance
         self.guidance_interval = guidance_interval
         self.edge_guidance = float(edge_guidance)
-        self.edge_guidance_tmax = edge_guidance_tmax
+        # edge guidance only at timesteps t < tmax; a falsy tmax (None or 0)
+        # means every step (pipeline.py:105-106)
+        self.edge_guidance_tmax = int(edge_guidance_tmax) if edge_guidance_tmax else None
         self.add_edge = add_edge
         self.chains = 0        # reverse chains run so far
         self.chain_s = 0.0     # wall time of those chains, device work included

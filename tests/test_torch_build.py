@@ -44,7 +44,7 @@ def test_build_is_one_nvcc_call_over_every_source(build_env, tmp_path):
     assert all(str(src) in calls[0] for src in build.sources())
     assert [p.name for p in build.sources()] == [
         "edge_pair.cu", "edge_pair_bwd.cu", "grad.cu", "node_block.cu", "node_block_bwd.cu",
-        "pos_update.cu"]
+        "pos_update.cu", "pos_update_bwd.cu"]
     assert "Used 96 registers" in build.build_log[0]
     # a finished build is reused, not rebuilt
     assert build.build() == lib
@@ -92,3 +92,18 @@ def test_trace_summary_counts_busy_union_and_port_kernels():
 def test_trace_summary_without_device_events_says_so():
     s = summarize_trace([_ev("cpu_op", "aten::add", 0, 5)], steps=1, step_ms=1.0)
     assert s["device_busy_ms"] is None and "no device events" in s["note"]
+
+
+def test_trace_summary_keeps_torch_reductions_out_of_port_kernels():
+    """PyTorch's reductions are also named reduce_kernel; only the port's
+    (anonymous-namespace) kernels count as the port's."""
+    events = [
+        _ev("kernel", "(anonymous namespace)::reduce_kernel(ReduceTable)", 0, 4),
+        _ev("kernel", "void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>", 10, 6),
+        _ev("kernel", "(anonymous namespace)::pos_bwd_pair_kernel(PosBwdArgs)", 20, 8),
+    ]
+    s = summarize_trace(events, steps=1, step_ms=1.0)
+    assert s["launches"] == {"all": 3.0, "port": 2.0}
+    assert s["port_kernel_ms"] == {"pos_bwd_pair_kernel": pytest.approx(0.008),
+                                   "reduce_kernel": pytest.approx(0.004)}
+    assert s["other_kernel_ms"] == pytest.approx(0.006)

@@ -201,7 +201,8 @@ def _jax_step(models, inputs, step, preds, noise, **kw):
     jmd.forward = lambda *a, **k: JPreds(*(jnp.asarray(p.numpy()) for p in preds))
     body = jmd._make_scan_body(jmd_params, jnp.asarray(i["mask"]), kw.get("guidance"),
                                (jbp, jbp_params), False, commit="nodes",
-                               edge_guidance=kw.get("edge_guidance", 0.0))
+                               edge_guidance=kw.get("edge_guidance", 0.0),
+                               edge_guidance_tmax=kw.get("edge_guidance_tmax"))
     node, edge = i["node"], i["edge"]
     carry = (jnp.asarray(i["pos"]), jnp.asarray(node), jnp.asarray(edge),
              jnp.log(jnp.clip(jnp.asarray(node), 1e-30)),
@@ -246,3 +247,38 @@ def test_step_equals_jax_given_same_noise(models, inputs, interpret, kw):
                                rtol=1e-4, atol=1e-4)
     for g, w in zip(got.preds, preds_j):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("tmax", [300, 0, 2])
+def test_edge_guidance_tmax_step_equals_jax(models, inputs, interpret, tmax):
+    """edge_guidance_tmax as the samplers read it: JAX's MolSampler turns a
+    falsy tmax into None (every step), and so does the port's; one
+    edge-guided reverse step at step 3 with each sampler's value equals the
+    JAX scan body given the same noise (tmax 300 and 0 guide the step,
+    tmax 2 leaves it unguided)."""
+    from moldiff_tpu.sample.pipeline import MolSampler as JSampler
+    from moldiff_tpu_torch.sample.pipeline import MolSampler
+
+    jbp, jbp_params, bp, bp_params, jmd, _, md, md_params = models
+    j_tmax = JSampler(jmd, None, bond_predictor=(jbp, jbp_params), edge_guidance=2.0,
+                      edge_guidance_tmax=tmax).edge_guidance_tmax
+    sampler = MolSampler(md, None, bond_predictor=(bp, bp_params), edge_guidance=2.0,
+                         edge_guidance_tmax=tmax)
+    assert sampler.edge_guidance_tmax == j_tmax == (tmax or None)
+    step = 3
+    noise = _noise(step)
+    with torch.no_grad():
+        preds = md.forward(md_params, torch.tensor(inputs["node"]), torch.tensor(inputs["pos"]),
+                           torch.tensor(inputs["edge"]), torch.full((B,), step),
+                           torch.tensor(inputs["mask"]))
+    got = _port_step(models, inputs, step, edge_guidance=2.0,
+                     edge_guidance_tmax=sampler.edge_guidance_tmax)
+    unguided = _port_step(models, inputs, step)
+    _, _, edge_j, _, ledge_j, _, _, _ = _jax_step(models, inputs, step, preds, noise,
+                                                  edge_guidance=2.0, edge_guidance_tmax=j_tmax)
+    np.testing.assert_array_equal(got.h_halfedge.numpy(), np.asarray(edge_j))
+    np.testing.assert_allclose(got.log_halfedge.numpy(), np.asarray(ledge_j),
+                               rtol=1e-4, atol=1e-4)
+    # unguided, the step re-normalises the same log-probs (float rounding)
+    moved = float((got.log_halfedge - unguided.log_halfedge).abs().max())
+    assert (moved > 1e-3) if tmax != 2 else (moved < 1e-5), moved

@@ -1,8 +1,9 @@
 """moldiff_tpu_torch and chip_smoke.py run where neither JAX, the JAX
 package, PyYAML, pandas nor ml_dtypes can be imported, as on a machine that
 has only PyTorch and numpy: every module imports, flagship_v2.ckpt loads,
-and the demo checkpoint runs MolDiff.forward and one reverse step on the
-CPU, in a fresh interpreter with those modules blocked."""
+the demo checkpoint runs MolDiff.forward, one reverse step and one training
+step (on an in-memory corpus) on the CPU, in a fresh interpreter with those
+modules blocked."""
 import json
 import os
 import subprocess
@@ -63,10 +64,22 @@ guided = model.reverse_step(ck["params"], state, 150, node_mask, model.draw_nois
                             commit="nodes", bond_predictor=(bp, bp_params, None),
                             guidance=("uncertainty", 1e-4), edge_guidance=0.5)
 assert bool(torch.isfinite(guided.pos).all())
+
+from moldiff_tpu_torch.data.dataset import make_corpus
+from moldiff_tpu_torch.data.loader import BucketedLoader
+from moldiff_tpu_torch.train.trainer import batch_to_device
+from moldiff_tpu_torch.train.trainer import Trainer
+train_cfg = dict(chip_smoke.TRAIN_SETTINGS["train"], batch_size=2)
+trainer = Trainer(model, train_cfg)
+tstate = trainer.init_from_params(ck["params"])
+recs = make_corpus("./data/synthetic", 10)["train"]
+batch = batch_to_device(next(iter(BucketedLoader(recs, feat, 2, (16, 24, 32), prefetch=0))), "cpu")
+tstate, aux = trainer.train_step(tstate, batch, trainer.draw_noise(batch, g))
+assert tstate.step == 1 and all(bool(torch.isfinite(v)) for v in aux.values()), aux
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print(json.dumps({"modules": names, "settings": chip_smoke.SAMPLE_SETTINGS,
-                  "guided": chip_smoke.GUIDED_SETTINGS}))
+                  "guided": chip_smoke.GUIDED_SETTINGS, "train": chip_smoke.TRAIN_SETTINGS}))
 """
 
 
@@ -78,7 +91,9 @@ def test_port_runs_without_jax_yaml_pandas():
     for name in ("moldiff_tpu_torch.ops.kernels", "moldiff_tpu_torch.ops.build",
                  "moldiff_tpu_torch.sample.cli", "moldiff_tpu_torch.models.moldiff",
                  "moldiff_tpu_torch.models.bond_predictor",
-                 "moldiff_tpu_torch.chem.bond_perception"):
+                 "moldiff_tpu_torch.chem.bond_perception", "moldiff_tpu_torch.train.cli",
+                 "moldiff_tpu_torch.train.trainer", "moldiff_tpu_torch.train.optim",
+                 "moldiff_tpu_torch.data.synthetic_v2", "moldiff_tpu_torch.data.loader"):
         assert name in out["modules"]
     # chip_smoke's sample settings are the committed YAML config's
     with open(os.path.join(REPO, "configs/sample/sample_flagship_v2.yml")) as f:
@@ -89,3 +104,10 @@ def test_port_runs_without_jax_yaml_pandas():
         guided = yaml.safe_load(f)
     assert guided["sample"].pop("add_edge") == "distance"
     assert out["guided"] == guided
+    # its training settings are configs/train/train_v2_cont.yml's (the
+    # dataset root aside: the smoke draws its corpus at given sizes)
+    with open(os.path.join(REPO, "configs/train/train_v2_cont.yml")) as f:
+        train = yaml.safe_load(f)
+    for cfg in (train, out["train"]):
+        cfg["dataset"].pop("root")
+    assert out["train"] == train

@@ -102,3 +102,38 @@ def test_sizes_and_buckets():
     assert stub.masks[1].sum(1).tolist() == [32, 3, 3]  # padded with 3-atom graphs
     assert sampler.chains == 3 and len(out) == 5
     assert [len(d["element"]) for d in out] == [30, 35, 31, 5, 32]
+
+
+def test_cli_writes_the_jax_cli_outputs(tmp_path):
+    """samples_all.pkl and summary.json carry the JAX CLI's keys
+    (scripts/sample_drug3d.py:347-396): every classified molecule with its
+    decoded arrays, the aromatic and triple-bond fractions, and
+    edge_guidance_tmax (a falsy value read as every step, None)."""
+    import pickle
+
+    from moldiff_tpu_torch.chem.mol import AROMATIC
+
+    config = {"model": {"checkpoint": "ckpts/demo_synthetic_30k.ckpt"},
+              "bond_predictor": "ckpts/demo_bondpred_4k.ckpt",
+              "sample": {"seed": 3, "batch_size": 4, "num_mols": 1, "size_mean": 9.0,
+                         "size_std": 1.0, "sanitize_mode": "reference", "commit": "nodes",
+                         "edge_guidance": 1.0, "edge_guidance_tmax": 0, "buckets": [12]}}
+    summary = cli.run(config, device="cpu", outdir=str(tmp_path), run_name="o", log=lambda m: 0)
+    assert summary["edge_guidance_tmax"] is None and summary["edge_guidance"] == 1.0
+    with open(tmp_path / "o" / "samples_all.pkl", "rb") as f:
+        pool = pickle.load(f)
+    assert set(pool) == {"finished", "failed", "wall_s", "success_rate"}
+    assert len(pool["finished"]) == summary["num_finished"]
+    assert len(pool["failed"]) == summary["num_failed"]
+    assert all(set(e) == {"smiles", "decoded", "stage"} for e in pool["finished"])
+    assert all(set(e) == {"reason", "decoded"} for e in pool["failed"])
+    assert {"element", "atom_pos"} <= set(pool["finished"][0]["decoded"])
+    assert pool["success_rate"] == summary["success_rate"]
+    on_disk = json.loads((tmp_path / "o" / "summary.json").read_text())
+    from moldiff_tpu_torch.chem.sdf import read_sdf
+
+    mols = [next(read_sdf(str(tmp_path / "o" / "SDF" / f"{k}.sdf")))
+            for k in range(summary["num_finished"])]
+    for key, order in (("aromatic_mol_fraction", AROMATIC), ("triple_bond_mol_fraction", 3)):
+        want = sum(any(b.order == order for b in m.bonds) for m in mols) / len(mols)
+        assert on_disk[key] == summary[key] == want
