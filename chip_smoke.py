@@ -6,24 +6,27 @@
                                         # a longer sampling phase, for the success rate
   python3 chip_smoke.py --num-mols 8 --guided-num-mols 160 --guided-batch-size 128 \
       --budget-s 3300                   # a longer guided phase, for its success rate
+  python3 chip_smoke.py --fuse-num-mols 1000 --fuse-batch-size 128 --budget-s 3300
+                                        # a longer path-B phase (fuse_block), for its rate
 
 Phases, each asserting and none catching a failure:
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: nvcc builds the kernels of moldiff_tpu_torch/csrc;
-  3. kernel checks: each kernel against its plain PyTorch version on the
-     card, at flagship widths, N = 32 and 40, B = 16, block-0 weights of
-     ckpts/flagship_v2.ckpt, seeded inputs and random masks; times by CUDA
-     events;
+  3. kernel checks: each forward kernel (rows 1, 2, 4, 6, 8) against its
+     plain PyTorch version on the card, at flagship widths, N = 32 and 40,
+     B = 16, block-0 weights of ckpts/flagship_v2.ckpt, seeded inputs and
+     random masks; times by CUDA events;
   4. forward check: one MolDiff.forward with the kernels against the same
      forward with the plain versions, on the card;
   5. sampling: the sample CLI's run() with the settings of
      configs/sample/sample_flagship_v2.yml (T = 1000, commit: nodes),
      decoded and classified; each launch count must equal the kernels one
      wrapper call launches (prep + pair: 2) x num_blocks x T x chains;
-  6. backward kernel checks: the two backward kernels against their plain
+  6. backward kernel checks: the backward kernels against their plain
      versions on every output (each parameter gradient included), block-0
-     weights of ckpts/bondpred_v2.ckpt, B = 16, N = 32 and 40, seeded inputs,
-     cotangents and masks; times by CUDA events;
+     weights of ckpts/bondpred_v2.ckpt (rows 3, 5) and of flagship_v2
+     (rows 7, 9), B = 16, N = 32 and 40, seeded inputs, cotangents and
+     masks; times by CUDA events;
   7. gradient check: one bond_guidance_delta (uncertainty) at B = 16 with
      the kernels against the same delta with the plain versions;
   8. guided sampling: run() with the settings of
@@ -46,9 +49,19 @@ Phases, each asserting and none catching a failure:
      checkpoint it wrote reloaded in the port;
  11. fine-tuning kernel checks: each of the six kernels at batch 128, N = 40
      on the arguments of its first call in one loss and backward of a
-     corpus batch, against its plain version on every output.
-The PosUpdate backward kernel (row 9) joins phase 6 at the denoiser's
-widths (flagship_v2 block 0). The last line is {"ok": true, "device": {...}}. A hang ends in a traceback
+     corpus batch, against its plain version on every output;
+ 12. path B, the whole-block kernel (row 2): flagship_v2 with
+     model.denoiser.fuse_block set in memory; phase 4's forward check, then
+     run() with the unguided settings, each step's launches 6 x row 2's
+     per call and none of rows 1, 4, 8; row 2 at batch 128, N = 40 on a
+     sampling state against its plain version; one fine-tuning step with
+     fuse_block (row 2 forward; rows 1, 4, 8 recomputed and 3, 5, 9
+     backward), its launches asserted and its checkpoint's config read;
+ 13. path A, the full-EdgeBlock kernels (rows 6, 7): phase 10 with
+     model.denoiser.edge_full (no launch of rows 4, 5), the checkpoint's
+     config carrying edge_full; phase 9 with edge_full; phase 11 for rows 6
+     and 7 at batch 128, N = 40.
+The last line is {"ok": true, "device": {...}}. A hang ends in a traceback
 and a non-zero exit (faulthandler) before the budget runs out. The script
 imports only torch, numpy, the standard library and moldiff_tpu_torch.
 """
@@ -154,11 +167,24 @@ TRAIN_WITNESS_SEEDS = (0, 1, 2)
 # through the blocks and their gradients, so the bound is on the largest
 # difference relative to the delta's largest component
 GRAD_MAX_FRAC = 5e-2
+# rows 2, 6 and 7 round the two EdgeBlock chains' float32 endpoint sums to
+# bf16 and feed them through the tail (LayerNorm, relu). Where the kernel's
+# sum and the plain version's lie one bf16 ulp apart (the share that row
+# 4's check shows: float32 summation order), the relu can flip at a pair
+# and move that pair's outputs past compare()'s tolerance. For these
+# kernels compare_witnessed() holds each output's count of elements outside
+# the tolerance to SUM_WITNESS_RATIO x the largest count the plain version
+# shows against itself with one ulp added to its sums at that share
+# (TRAIN_WITNESS_SEEDS), and every other element to the tolerance.
+SUM_WITNESS_KERNELS = ("fused_block", "edge_block_full", "edge_block_full_bwd")
+SUM_WITNESS_RATIO = 2.0
 PEAK_BF16_FLOPS = 989e12   # H100 SXM, dense
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 KERNELS = {
     "node_block": ("moldiff_tpu_torch/csrc/node_block.cu",
                    "moldiff_tpu/ops/pallas_kernels.py:49"),
+    "fused_block": ("moldiff_tpu_torch/csrc/fused_block.cu",
+                    "moldiff_tpu/ops/pallas_kernels.py:389"),
     "edge_pair": ("moldiff_tpu_torch/csrc/edge_pair.cu",
                   "moldiff_tpu/ops/pallas_kernels.py:1062"),
     "pos_update": ("moldiff_tpu_torch/csrc/pos_update.cu",
@@ -169,9 +195,28 @@ KERNELS = {
                       "moldiff_tpu/ops/pallas_kernels.py:1157"),
     "pos_update_bwd": ("moldiff_tpu_torch/csrc/pos_update_bwd.cu",
                        "moldiff_tpu/ops/pallas_kernels.py:1918"),
+    "edge_block_full": ("moldiff_tpu_torch/csrc/edge_block_full.cu",
+                        "moldiff_tpu/ops/pallas_kernels.py:1442"),
+    "edge_block_full_bwd": ("moldiff_tpu_torch/csrc/edge_block_full.cu",
+                            "moldiff_tpu/ops/pallas_kernels.py:1474"),
 }
+# the partial path's kernels (every configuration's default)
 FORWARD_KERNELS = ("node_block", "edge_pair", "pos_update")
 BACKWARD_KERNELS = ("node_block_bwd", "edge_pair_bwd", "pos_update_bwd")
+# the kernels each route runs in a training step (models/denoiser.py): the
+# whole-block route (fuse_block) runs row 2 forward and differentiates the
+# partial path's block, recomputed; the full-EdgeBlock route (edge_full)
+# runs rows 6 and 7 in place of rows 4 and 5
+TRAIN_ROUTES = {
+    "partial": FORWARD_KERNELS + BACKWARD_KERNELS,
+    "fuse_block": ("fused_block",) + FORWARD_KERNELS + BACKWARD_KERNELS,
+    "edge_full": ("node_block", "edge_block_full", "pos_update", "node_block_bwd",
+                  "edge_block_full_bwd", "pos_update_bwd"),
+}
+# path B's sampling: the checkpoint's model config with fuse_block set in
+# memory, as scripts/sample_drug3d.py:161 sets remat
+FUSE_SETTINGS = dict(SAMPLE_SETTINGS, model={"checkpoint": CHECKPOINT,
+                                             "denoiser": {"fuse_block": True}})
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes these fused "
                 "MLP-gate-sum chains")
 
@@ -219,6 +264,32 @@ def work(name: str, blk: dict, b: int, n: int) -> tuple:
     written once, bf16 weights read once (float32 gradients written once)."""
     nb, eb = blk["node_block"], blk["edge_block"]
     pairs, nodes = b * n * n, b * n
+    if name == "fused_block":
+        de = eb["self_ffn"]["w"].shape[0]
+        dh = blk["edge_emb"]["w"].shape[0] - de
+        dn, h = nb["centroid_lin"]["w"].shape
+        flops = (pairs * 2 * (de + dh) * de + nodes * 4 * dn * h
+                 + sum(work(k, blk, b, n)[0] for k in ("node_block", "edge_block_full",
+                                                        "pos_update")))
+        io = (nodes * (2 * dn + 2 * dn + 12) + pairs * (2 * de + 2 * dh + 12 + 4 + 4 + 2 * de)
+              + 4 * b)
+        return flops, io + 2 * _numel(blk)
+    if name in ("edge_block_full", "edge_block_full_bwd"):
+        side = eb["bond_ffn_left"]
+        de, i = side["bond_linear"]["w"].shape
+        dn = side["node_linear"]["w"].shape[0]
+        g = side["gate"]["layers"][0]["lin"]["w"].shape[1]
+        do = eb["out"]["w"].shape[1]
+        per_pair = 2 * de * i + 2 * i * i + 2 * i * do + 2 * de * g + 2 * g * do
+        per_node = 2 * dn * i + 2 * dn * g
+        # both chains, then the tail: self_ffn and out per pair, the node FFNs per node
+        flops = (2 * (pairs * per_pair + nodes * per_node) + pairs * (2 * de * do + 2 * do * do)
+                 + nodes * 4 * dn * do)
+        if name == "edge_block_full":
+            io = pairs * (2 * de + 4 + 2 * do) + nodes * 2 * dn + 4 * b
+            return flops, io + 2 * _numel(eb)
+        io = pairs * (2 * de + 4 + 2 * do + 2 * de + 4) + nodes * (2 * dn + 2 * dn) + 8 * b
+        return 3 * flops, io + 6 * _numel(eb)
     if name in ("node_block", "node_block_bwd"):
         de, h = nb["edge_net"]["layers"][0]["lin"]["w"].shape
         dn = nb["node_net"]["layers"][0]["lin"]["w"].shape[0]
@@ -268,7 +339,7 @@ def kernel_inputs(b: int, n: int, seed: int, device):
     import torch
 
     from moldiff_tpu_torch.ops import graph_ops
-    from moldiff_tpu_torch.models.nn import safe_distance
+    from moldiff_tpu_torch.models.nn import GaussianSmearing, safe_distance
 
     g = torch.Generator(device="cpu").manual_seed(seed)
     sizes = torch.randint(n // 2, n + 1, (b,), generator=g)
@@ -279,27 +350,24 @@ def kernel_inputs(b: int, n: int, seed: int, device):
     x = torch.randn((b, n, 256), generator=g).to(torch.bfloat16)
     e = torch.randn((b, n, n, 64), generator=g).to(torch.bfloat16)
     t = torch.rand((b, 1, 1), generator=g)
+    dist = safe_distance(rel)
+    # flagship_v2's distance features: 16 Gaussians up to its cutoff of 15
+    hd = GaussianSmearing(stop=15.0, num_gaussians=16)(dist).to(torch.bfloat16)
     return {k: v.to(device).contiguous() for k, v in dict(
-        x=x, e=e, t=t, pair_mask=pair_mask, rel=rel, dist=safe_distance(rel)).items()}
+        x=x, e=e, t=t, pair_mask=pair_mask, rel=rel, dist=dist, hd=hd).items()}
 
 
-def kernel_calls(blk: dict, inp: dict):
-    """name -> (kernel call, plain call) on the same inputs."""
-    from moldiff_tpu_torch.ops import kernels as K
-
+def kernel_calls(blk: dict, inp: dict) -> dict:
+    """name -> the arguments of one call of each forward kernel, all on the
+    same inputs."""
     nb, eb, pb = blk["node_block"], blk["edge_block"], blk["pos_block"]
     nb_p = {k: nb[k] for k in ("node_net", "edge_net", "msg_net", "gate")}
     eb_p = {"left": eb["bond_ffn_left"], "right": eb["bond_ffn_right"]}
     x, e, t, m = inp["x"], inp["e"], inp["t"], inp["pair_mask"]
-    pos_args = (pb, x, e, inp["rel"], inp["dist"], t, m)
-    return {
-        "node_block": (lambda: K.node_block_aggregate(nb_p, x, e, t, m),
-                       lambda: K.node_block_aggregate_plain(nb_p, x, e, t, m)),
-        "edge_pair": (lambda: K.edge_pair_aggregate(eb_p, e, x, t, m),
-                      lambda: K.edge_pair_aggregate_plain(eb_p, e, x, t, m)),
-        "pos_update": (lambda: K.pos_update(*pos_args),
-                       lambda: K.pos_update_plain(*pos_args)),
-    }
+    return {"node_block": (nb_p, x, e, t, m), "edge_pair": (eb_p, e, x, t, m),
+            "pos_update": (pb, x, e, inp["rel"], inp["dist"], t, m),
+            "fused_block": (blk, x, e, inp["hd"], inp["rel"], inp["dist"], t, m),
+            "edge_block_full": (eb, e, x, t, m)}
 
 
 def _leaves(tree, path=""):
@@ -313,54 +381,141 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
-def compare(name: str, got, want) -> float:
-    """Every leaf of a kernel's outputs against its plain version's, with
-    the kernels' tolerance; returns the largest |kernel - plain|."""
+def outside(name: str, got, want) -> dict:
+    """path -> (elements outside the kernels' tolerance, largest |got - want|)
+    over every leaf of two output trees."""
     import torch
 
-    err = 0.0
+    out = {}
     for (path, a), (_, w) in zip(_leaves(got), _leaves(want)):
         a, w = a.float(), w.float()
         assert a.shape == w.shape and bool(torch.isfinite(a).all()), f"{name}{path}"
         tol = KERNEL_ATOL_FRAC * w.abs().max() + KERNEL_RTOL * w.abs()
-        bad = int(((a - w).abs() > tol).sum())
+        out[path] = (int(((a - w).abs() > tol).sum()), float((a - w).abs().max()))
+    return out
+
+
+def compare(name: str, got, want) -> float:
+    """Every leaf of a kernel's outputs against its plain version's, with
+    the kernels' tolerance; returns the largest |kernel - plain|."""
+    err = 0.0
+    for path, (bad, e) in outside(name, got, want).items():
         assert bad == 0, f"{name}{path}: {bad} elements outside the tolerance"
-        err = max(err, float((a - w).abs().max()))
+        err = max(err, e)
     return err
 
 
-def check_kernels(blk: dict, device) -> dict:
+def _int_view(x):
     import torch
 
-    from moldiff_tpu_torch.ops import kernels
+    return x.contiguous().view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[x.dtype])
 
+
+def bump_ulp(w, share: float, gen):
+    """w with one ulp added (a random sign) at a random share of its nonzero
+    elements."""
+    import torch
+
+    pick = (torch.rand(w.shape, generator=gen, device=w.device) < share) & (w != 0)
+    sign = torch.where(torch.rand(w.shape, generator=gen, device=w.device) < 0.5, -1, 1)
+    bumped = (_int_view(w) + sign.to(_int_view(w).dtype)).view(w.dtype)
+    return torch.where(pick, bumped, w)
+
+
+def sum_inputs(name: str, args: tuple) -> tuple:
+    """(EdgeBlock params, h_bond, h_node, time, pair mask) of a row-2, 6 or
+    7 call: its chains' inputs (row 2's embedded edges stand in by its input
+    edges)."""
+    if name == "fused_block":
+        blk, x, e, _, _, _, t, m = args
+        return blk["edge_block"], e, x, t, m
+    return args[:5]
+
+
+def compare_witnessed(name: str, got, want, plain, args: tuple) -> float:
+    """compare() for SUM_WITNESS_KERNELS (see SUM_WITNESS_RATIO): ``plain``
+    recomputes the plain version, ``args`` are the call's arguments."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels as K
+
+    eb, e, x, t, m = sum_inputs(name.split()[0], args)
+    chains = {"left": eb["bond_ffn_left"], "right": eb["bond_ffn_right"]}
+    share = max(float((a != w).sum()) / max(int((w != 0).sum()), 1) for a, w in zip(
+        K.edge_pair_aggregate(chains, e, x, t, m),
+        K.edge_pair_aggregate_plain(chains, e, x, t, m)))
+    kernel = outside(name, got, want)
+    sums, witness = K._edge_sums, []
+    for seed in TRAIN_WITNESS_SEEDS:
+        gen = torch.Generator(device=e.device).manual_seed(seed)
+        K._edge_sums = lambda *a: tuple(bump_ulp(o, share, gen) for o in sums(*a))
+        try:
+            witness.append(outside(f"{name} witness", plain(), want))
+        finally:
+            K._edge_sums = sums
+    err = 0.0
+    for path, (bad, e_max) in kernel.items():
+        most = max(w[path][0] for w in witness)
+        if bad or most:
+            say(f"  {name}{path}: {bad} elements outside the tolerance; the one-ulp witness "
+                f"(sums bumped at a share of {share:.3g}): at most {most}")
+        assert bad <= SUM_WITNESS_RATIO * most, (f"{name}{path}: {bad} elements outside the "
+                                                 f"tolerance > {SUM_WITNESS_RATIO} x {most}")
+        err = max(err, e_max)
+    return err
+
+
+def check_call(name: str, args: tuple, wblk: dict, results: dict, what: str,
+               keep: bool = False, iters: int = 20, plain_iters: int = 5) -> None:
+    """One kernel call against its plain version on the same arguments
+    (compare(), or compare_witnessed() for SUM_WITNESS_KERNELS), both timed
+    by CUDA events beside the bound; records its launches per call and,
+    with ``keep``, its times in ``results``."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels as K
+
+    kern_fn = getattr(K, KERNEL_FUNCTIONS[name])
+    plain_fn = getattr(K, KERNEL_FUNCTIONS[name] + "_plain")
+    kern, plain = (lambda: kern_fn(*args)), (lambda: plain_fn(*args))
+    with torch.no_grad():
+        before = K.launch_counts[name]
+        got = kern()
+        per_call = K.launch_counts[name] - before
+        torch.cuda.synchronize()
+        want = plain()
+        err = (compare_witnessed(f"{name} {what}", got, want, plain, args)
+               if name in SUM_WITNESS_KERNELS else compare(f"{name} {what}", got, want))
+        ms = median_ms(kern, warmup=2, iters=iters)
+        plain_ms = median_ms(plain, warmup=1, iters=plain_iters)
+    b, n = args[1].shape[:2]
+    flops, nbytes = work(name, wblk, b, n)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    say(f"kernel {name} {what}: max_abs_err {err:.6g} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"bound_ms {max(t_ops, t_bytes):.5f} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) "
+        f"launches/call {per_call}")
+    r = results.setdefault(name, {"max_abs_err": 0.0, "per_call": per_call})
+    assert per_call == r["per_call"] > 0, f"{name}: {per_call} launches per call"
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if keep:
+        r.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_kernels(blk: dict, device) -> dict:
+    """Phase 3: each forward kernel at B = 16, N = 32 and 40; the N = 32
+    times (the sampling phase's shape) kept."""
     results = {}
     for n in (32, 40):
         inp = kernel_inputs(16, n, seed=n, device=device)
-        for name, (kern, plain) in kernel_calls(blk, inp).items():
-            before = kernels.launch_counts[name]
-            got, want = kern(), plain()
-            per_call = kernels.launch_counts[name] - before
-            torch.cuda.synchronize()
-            err = compare(f"{name} N={n}", got, want)
-            ms = median_ms(kern, warmup=3, iters=20)
-            plain_ms = median_ms(plain, warmup=1, iters=5)
-            flops, nbytes = work(name, blk, 16, n)
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-            say(f"kernel {name} B=16 N={n}: max_abs_err {err:.6g} ms {ms:.4f} "
-                f"plain_ms {plain_ms:.4f} bound_ms {max(t_ops, t_bytes):.5f} "
-                f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
-            r = results.setdefault(name, {"max_abs_err": 0.0, "per_call": per_call})
-            assert per_call == r["per_call"] > 0, f"{name}: {per_call} launches per call"
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if n == 32:  # the shape of the sampling phase
-                r.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes")
+        for name, args in kernel_calls(blk, inp).items():
+            check_call(name, args, blk, results, f"B=16 N={n}", keep=n == 32)
     return results
 
 
 def check_forward(model, params, device) -> None:
-    """MolDiff.forward at flagship width, kernels against plain versions."""
+    """MolDiff.forward at flagship width, kernels against plain versions
+    (every forward kernel's wrapper replaced by its plain version)."""
     import torch
 
     from moldiff_tpu_torch.ops import kernels as K
@@ -374,14 +529,14 @@ def check_forward(model, params, device) -> None:
     blocks = model.prepare(params)
     args = (params, state.h_node, state.pos, state.h_halfedge, t, node_mask)
     got = model.forward(*args, blocks=blocks)
-    saved = (K.node_block_aggregate, K.edge_pair_aggregate, K.pos_update)
-    K.node_block_aggregate = K.node_block_aggregate_plain
-    K.edge_pair_aggregate = K.edge_pair_aggregate_plain
-    K.pos_update = K.pos_update_plain
+    saved = {fn: getattr(K, fn) for fn in FORWARD_FUNCTIONS.values()}
+    for fn in saved:
+        setattr(K, fn, getattr(K, fn + "_plain"))
     try:
         want = model.forward(*args, blocks=blocks)
     finally:
-        K.node_block_aggregate, K.edge_pair_aggregate, K.pos_update = saved
+        for fn, f in saved.items():
+            setattr(K, fn, f)
     torch.cuda.synchronize()
     for name, a, w in zip(got._fields, got, want):
         assert bool(torch.isfinite(a).all()), name
@@ -390,12 +545,10 @@ def check_forward(model, params, device) -> None:
         assert frac <= FORWARD_MAX_FRAC, f"forward {name}: {frac} > {FORWARD_MAX_FRAC}"
 
 
-def backward_calls(blk: dict, b: int, n: int, seed: int, device):
-    """name -> (kernel call, plain call) of the backward kernels on seeded
-    inputs, cotangents and masks at the predictor's widths."""
+def backward_calls(blk: dict, b: int, n: int, seed: int, device) -> dict:
+    """name -> the arguments of one call of each backward kernel on seeded
+    inputs, cotangents and masks: rows 3 and 5 at ``blk``'s widths."""
     import torch
-
-    from moldiff_tpu_torch.ops import kernels as K
 
     inp = kernel_inputs(b, n, seed, device)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
@@ -408,65 +561,39 @@ def backward_calls(blk: dict, b: int, n: int, seed: int, device):
     dt_ct = torch.randn((b, n, do), generator=g).to(torch.bfloat16).to(device)
     du_ct = torch.randn((b, n, do), generator=g).to(torch.bfloat16).to(device)
     x, e, t, m = inp["x"], inp["e"], inp["t"], inp["pair_mask"]
-    return {
-        "node_block_bwd": (lambda: K.node_block_aggregate_bwd(nb_p, x, e, t, m, dout),
-                           lambda: K.node_block_aggregate_bwd_plain(nb_p, x, e, t, m, dout)),
-        "edge_pair_bwd": (lambda: K.edge_pair_aggregate_bwd(eb_p, e, x, t, m, dt_ct, du_ct),
-                          lambda: K.edge_pair_aggregate_bwd_plain(eb_p, e, x, t, m, dt_ct,
-                                                                  du_ct)),
-    }
+    return {"node_block_bwd": (nb_p, x, e, t, m, dout),
+            "edge_pair_bwd": (eb_p, e, x, t, m, dt_ct, du_ct)}
 
 
-def pos_backward_calls(blk: dict, b: int, n: int, seed: int, device):
-    """pos_update_bwd (kernel call, plain call) on seeded inputs, cotangent
-    and masks at the denoiser's widths."""
+def pos_backward_calls(blk: dict, b: int, n: int, seed: int, device) -> dict:
+    """The arguments of pos_update_bwd and edge_block_full_bwd calls (rows
+    9 and 7) on seeded inputs, cotangents and masks at the denoiser's
+    widths."""
     import torch
-
-    from moldiff_tpu_torch.ops import kernels as K
 
     inp = kernel_inputs(b, n, seed, device)
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
     ct = torch.randn((b, n, 3), generator=g).to(device)
-    args = (blk["pos_block"], inp["x"], inp["e"], inp["rel"], inp["dist"], inp["t"],
-            inp["pair_mask"], ct)
-    return {"pos_update_bwd": (lambda: K.pos_update_bwd(*args),
-                               lambda: K.pos_update_bwd_plain(*args))}
+    ct_e = torch.randn(tuple(inp["e"].shape), generator=g).to(torch.bfloat16).to(device)
+    return {"pos_update_bwd": (blk["pos_block"], inp["x"], inp["e"], inp["rel"], inp["dist"],
+                               inp["t"], inp["pair_mask"], ct),
+            "edge_block_full_bwd": (blk["edge_block"], inp["e"], inp["x"], inp["t"],
+                                    inp["pair_mask"], ct_e)}
 
 
 def check_backward(blk: dict, pos_blk: dict, device) -> dict:
     """Phase 6: each backward kernel against its plain version on every
     output, B = 16, N = 32 and 40; times at both, the N = 32 ones kept.
     NodeBlock and EdgeBlock at the predictor's widths (``blk``), PosUpdate
-    at the denoiser's (``pos_blk``)."""
-    import torch
-
-    from moldiff_tpu_torch.ops import kernels
-
+    and the full EdgeBlock at the denoiser's (``pos_blk``)."""
     results = {}
     for n in (32, 40):
-        calls = [(name, c, blk) for name, c in backward_calls(blk, 16, n, seed=100 + n,
-                                                              device=device).items()]
-        calls += [(name, c, pos_blk) for name, c in pos_backward_calls(
+        calls = [(name, args, blk) for name, args in backward_calls(
+            blk, 16, n, seed=100 + n, device=device).items()]
+        calls += [(name, args, pos_blk) for name, args in pos_backward_calls(
             pos_blk, 16, n, seed=200 + n, device=device).items()]
-        for name, (kern, plain), wblk in calls:
-            before = kernels.launch_counts[name]
-            got = kern()
-            per_call = kernels.launch_counts[name] - before
-            torch.cuda.synchronize()
-            err = compare(f"{name} N={n}", got, plain())
-            ms = median_ms(kern, warmup=3, iters=20)
-            plain_ms = median_ms(plain, warmup=1, iters=3)
-            flops, nbytes = work(name, wblk, 16, n)
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-            say(f"kernel {name} B=16 N={n}: max_abs_err {err:.6g} ms {ms:.4f} "
-                f"plain_ms {plain_ms:.4f} bound_ms {max(t_ops, t_bytes):.5f} "
-                f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) launches/call {per_call}")
-            r = results.setdefault(name, {"max_abs_err": 0.0, "per_call": per_call})
-            assert per_call == r["per_call"] > 0, f"{name}: {per_call} launches per call"
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            if n == 32:
-                r.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes")
+        for name, args, wblk in calls:
+            check_call(name, args, wblk, results, f"B=16 N={n}", keep=n == 32, plain_iters=3)
     return results
 
 
@@ -560,19 +687,38 @@ def train_batch(records: list, b: int, n: int, device) -> dict:
 
 
 FORWARD_FUNCTIONS = {"node_block": "node_block_aggregate", "edge_pair": "edge_pair_aggregate",
-                     "pos_update": "pos_update"}
+                     "pos_update": "pos_update", "fused_block": "fused_block",
+                     "edge_block_full": "edge_block_full"}
 KERNEL_FUNCTIONS = dict(FORWARD_FUNCTIONS, node_block_bwd="node_block_aggregate_bwd",
-                        edge_pair_bwd="edge_pair_aggregate_bwd", pos_update_bwd="pos_update_bwd")
+                        edge_pair_bwd="edge_pair_aggregate_bwd", pos_update_bwd="pos_update_bwd",
+                        edge_block_full_bwd="edge_block_full_bwd")
+
+
+def with_denoiser(settings: dict, **flags) -> dict:
+    """A copy of a configuration with ``flags`` set on model.denoiser."""
+    import copy
+
+    out = copy.deepcopy(settings)
+    out["model"]["denoiser"].update(flags)
+    return out
+
+
+def route(settings: dict) -> str:
+    den = settings["model"]["denoiser"]
+    return "fuse_block" if den.get("fuse_block") else "edge_full" if den.get("edge_full") \
+        else "partial"
+
+
+def train_launches(settings: dict, results: dict) -> dict:
+    """Each kernel's launches in one training step of ``settings``: its
+    launches per call x the blocks, for the kernels of its route, else 0."""
+    blocks = settings["model"]["denoiser"]["num_blocks"]
+    runs = TRAIN_ROUTES[route(settings)]
+    return {name: results[name]["per_call"] * blocks if name in runs else 0 for name in KERNELS}
 
 
 def _outputs(out) -> list:
     return list(out) if isinstance(out, tuple) else [out]
-
-
-def _int_view(x):
-    import torch
-
-    return x.contiguous().view({torch.bfloat16: torch.int16, torch.float32: torch.int32}[x.dtype])
 
 
 def ulp_witness(kern, plain, gen, shares: list):
@@ -581,8 +727,6 @@ def ulp_witness(kern, plain, gen, shares: list):
     the share where ``kern`` differs from ``plain`` on the same inputs.
     Appends (that share, the part of those elements one ulp apart, the
     largest difference over the output's largest value) to ``shares``."""
-    import torch
-
     def call(*args):
         got, want = _outputs(kern(*args)), _outputs(plain(*args))
         out = []
@@ -593,22 +737,19 @@ def ulp_witness(kern, plain, gen, shares: list):
                 a.sign() == w.sign()) & nz
             shares.append((differ / max(int(nz.sum()), 1), int(one_ulp.sum()) / max(differ, 1),
                            float((a - w).abs().max() / w.abs().max())))
-            share = shares[-1][0]
-            pick = (torch.rand(w.shape, generator=gen, device=w.device) < share) & nz
-            sign = torch.where(torch.rand(w.shape, generator=gen, device=w.device) < 0.5, -1, 1)
-            bumped = (_int_view(w) + sign.to(_int_view(w).dtype)).view(w.dtype)
-            out.append(torch.where(pick, bumped, w))
+            out.append(bump_ulp(w, shares[-1][0], gen))
         return tuple(out) if len(out) > 1 else out[0]
 
     return call
 
 
-def check_train_gradient(params, records: list, device, b: int = 16, n: int = 32) -> dict:
+def check_train_gradient(params, records: list, device, settings: dict, b: int = 16,
+                         n: int = 32) -> dict:
     """Phase 9: the training loss and every parameter gradient of
-    flagship_v2 at B = b, N = n, kernels against plain versions, both
-    bf16, with the plain versions at float32 as the ground truth; each
-    forward kernel alone, the backward kernels alone, and the one-ulp
-    witness against plain."""
+    flagship_v2 with ``settings`` at B = b, N = n, kernels against plain
+    versions, both bf16, with the plain versions at float32 as the ground
+    truth; each forward kernel of the route alone, its backward kernels
+    alone, and the one-ulp witness against plain."""
     import copy
 
     import torch
@@ -624,9 +765,9 @@ def check_train_gradient(params, records: list, device, b: int = 16, n: int = 32
             return [tree_map_paths(v, f"{path}/{k}") for k, v in enumerate(tree)]
         return path
 
-    cfg32 = copy.deepcopy(TRAIN_SETTINGS["model"])
+    cfg32 = copy.deepcopy(settings["model"])
     cfg32["denoiser"]["dtype"] = "float32"
-    model = MolDiff(TRAIN_SETTINGS["model"], 8, 6, device=device)
+    model = MolDiff(settings["model"], 8, 6, device=device)
     model32 = MolDiff(cfg32, 8, 6, device=device)
     batch = train_batch(records, b, n, device)
     noise = model.draw_loss_noise(b, n, torch.Generator(device=device).manual_seed(9))
@@ -647,22 +788,25 @@ def check_train_gradient(params, records: list, device, b: int = 16, n: int = 32
                 setattr(K, fn, kern[name])
         return float(loss.detach()), grads
 
+    runs = TRAIN_ROUTES[route(settings)]
+    fwd_kernels = [k for k in runs if not k.endswith("_bwd")]
+    bwd_kernels = [k for k in runs if k.endswith("_bwd")]
     before = dict(K.launch_counts)
     loss_k, grads_k = loss_and_grads(model, kern)
     launched = {k: K.launch_counts[k] - before[k] for k in before}
     loss_p, grads_p = loss_and_grads(model, plain)
     loss_t, grads_t = loss_and_grads(model32, plain)
-    _, grads_b = loss_and_grads(model, dict(plain, **{k: kern[k] for k in BACKWARD_KERNELS}))
+    _, grads_b = loss_and_grads(model, dict(plain, **{k: kern[k] for k in bwd_kernels}))
     alone = {name: loss_and_grads(model, dict(plain, **{name: kern[name]}))[1]
-             for name in FORWARD_KERNELS}
-    witness, shares = [], {name: [] for name in FORWARD_KERNELS}
+             for name in fwd_kernels}
+    witness, shares = [], {name: [] for name in fwd_kernels}
     for seed in TRAIN_WITNESS_SEEDS:
         gen = torch.Generator(device=device).manual_seed(seed)
         bumped = {name: ulp_witness(kern[name], plain[name], gen, shares[name])
-                  for name in FORWARD_KERNELS}
+                  for name in fwd_kernels}
         witness.append(loss_and_grads(model, dict(plain, **bumped))[1])
     torch.cuda.synchronize()
-    assert all(v > 0 for v in launched.values()), launched
+    assert {k for k, v in launched.items() if v > 0} == set(runs), launched
 
     paths = tree_leaves(tree_map_paths(params))
     scale = lambda x: float(x.abs().max().clamp(min=1e-30))
@@ -677,7 +821,8 @@ def check_train_gradient(params, records: list, device, b: int = 16, n: int = 32
     mean_k, mean_p = statistics.mean(err_k), statistics.mean(err_p)
     top = worst(differ)
     at_top = lambda fr: fr[paths.index(top[1])]
-    say(f"train gradient B={b} N={n}: loss kernels {loss_k:.6f} plain {loss_p:.6f} float32 "
+    say(f"train gradient ({route(settings)}) B={b} N={n}: loss kernels {loss_k:.6f} plain "
+        f"{loss_p:.6f} float32 "
         f"{loss_t:.6f}; grad norm kernels {norm_k:.6f} plain {norm_p:.6f}; mean error against "
         f"float32: kernels {mean_k:.4g}, plain {mean_p:.4g}; launches {launched}")
     say(f"  |kernels - plain| / scale over {len(differ)} leaves: median "
@@ -712,20 +857,22 @@ def check_train_gradient(params, records: list, device, b: int = 16, n: int = 32
             "witness_max": [worst(frac(g))[0] for g in witness]}
 
 
-def check_train_kernels(params, records: list, results: dict, device) -> None:
-    """Phase 11: each of the six kernels at the fine-tuning shape (batch 128,
-    the larger bucket) on a batch of the fine-tune corpus: the arguments of
-    its first call in one get_loss + backward through the kernels, replayed
-    through the kernel and its plain version and compared with compare();
-    times by CUDA events."""
+def check_train_kernels(params, records: list, results: dict, device, settings: dict,
+                        names: tuple) -> None:
+    """Phase 11: the kernels ``names`` of the route of ``settings`` at the
+    fine-tuning shape (batch 128, the larger bucket) on a batch of the
+    fine-tune corpus: the arguments of each one's first call in one
+    get_loss + backward through the kernels, replayed through the kernel
+    and its plain version and compared with compare(); times by CUDA
+    events."""
     import torch
 
     from moldiff_tpu_torch.models.moldiff import MolDiff
     from moldiff_tpu_torch.ops import kernels as K
     from moldiff_tpu_torch.train.optim import tree_leaves, tree_unflatten
 
-    b, n = TRAIN_SETTINGS["train"]["batch_size"], max(TRAIN_SETTINGS["train"]["buckets"])
-    model = MolDiff(TRAIN_SETTINGS["model"], 8, 6, device=device)
+    b, n = settings["train"]["batch_size"], max(settings["train"]["buckets"])
+    model = MolDiff(settings["model"], 8, 6, device=device)
     batch = train_batch(records, b, n, device)
     noise = model.draw_loss_noise(b, n, torch.Generator(device=device).manual_seed(5))
     kern = {name: getattr(K, fn) for name, fn in KERNEL_FUNCTIONS.items()}
@@ -748,29 +895,20 @@ def check_train_kernels(params, records: list, results: dict, device) -> None:
         for name, fn in KERNEL_FUNCTIONS.items():
             setattr(K, fn, kern[name])
     blk0 = model.prepare(params)[0]
-    assert sorted(captured) == sorted(KERNELS), sorted(captured)
-    torch.set_grad_enabled(False)
-    for name, fn in KERNEL_FUNCTIONS.items():
-        args, plain = captured[name], getattr(K, fn + "_plain")
-        got = kern[name](*args)
-        torch.cuda.synchronize()
-        err = compare(f"{name} B={b} N={n}", got, plain(*args))
-        ms = median_ms(lambda: kern[name](*args), warmup=2, iters=10)
-        plain_ms = median_ms(lambda: plain(*args), warmup=1, iters=3)
-        flops, nbytes = work(name, blk0, b, n)
-        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        say(f"kernel {name} B={b} N={n} (a corpus batch, denoiser widths): max_abs_err {err:.6g} "
-            f"ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound:.5f} ({flops / 1e9:.3f} GFLOP, "
-            f"{nbytes / 1e6:.3f} MB)")
-        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
-    torch.set_grad_enabled(True)
+    assert sorted(captured) == sorted(TRAIN_ROUTES[route(settings)]), sorted(captured)
+    for name in names:
+        check_call(name, captured[name], blk0, results,
+                   f"B={b} N={n} (a corpus batch, denoiser widths)", iters=10, plain_iters=3)
 
 
-def fine_tune(corpus: dict, results: dict, device) -> tuple:
-    """Phase 10: the train CLI's run() from flagship_v2 at batch 128,
-    TRAIN_STEPS_PER_BUCKET steps in each bucket; launch counts set to 0
-    just before and read just after. Then one eval step, one scheduler step
-    and the written checkpoint reloaded in the port."""
+def fine_tune(corpus: dict, results: dict, device, settings: dict,
+              steps_per_bucket: int = TRAIN_STEPS_PER_BUCKET) -> tuple:
+    """Phase 10: the train CLI's run() with ``settings`` from flagship_v2 at
+    batch 128, ``steps_per_bucket`` steps in each bucket (or one step in
+    all, with 0); launch counts set to 0 just before and read just after,
+    each step's equal to train_launches(). Then one eval step, one scheduler
+    step and the written checkpoint reloaded in the port, its config
+    carrying the route's flags."""
     import torch
 
     from moldiff_tpu_torch.ops import kernels
@@ -780,15 +918,15 @@ def fine_tune(corpus: dict, results: dict, device) -> tuple:
     from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
 
     start = int(load_checkpoint_numpy(CHECKPOINT)["step"])
-    steps = 2 * TRAIN_STEPS_PER_BUCKET
+    steps = max(2 * steps_per_bucket, 1)
     kernels.reset_launch_counts()
-    out = train_cli.run(TRAIN_SETTINGS, CHECKPOINT, device=device,
-                        logdir=os.path.join("outputs_torch", "chip_smoke"), name="train_v2_cont",
-                        max_iters=start + steps, reset_ema=True, reset_optim=True,
-                        subsets=corpus, log=lambda m: say(f"  {m}"))
+    out = train_cli.run(settings, CHECKPOINT, device=device,
+                        logdir=os.path.join("outputs_torch", "chip_smoke"),
+                        name=f"train_v2_cont_{route(settings)}", max_iters=start + steps,
+                        reset_ema=True, reset_optim=True, subsets=corpus,
+                        log=lambda m: say(f"  {m}"))
     counts = dict(kernels.launch_counts)
-    blocks = TRAIN_SETTINGS["model"]["denoiser"]["num_blocks"]
-    per_step = {name: results[name]["per_call"] * blocks for name in KERNELS}
+    per_step = train_launches(settings, results)
     by_bucket = {}
     for st in out["steps"]:
         assert st["launches"] == per_step, (st["it"], st["launches"], per_step)
@@ -797,8 +935,9 @@ def fine_tune(corpus: dict, results: dict, device) -> tuple:
         by_bucket.setdefault(st["n"], []).append(st["s"])
         say(f"  train step {st['it']} N={st['n']}: {st['s']:.4f} s loss {st['loss']:.4f} "
             f"grad_norm {st['grad_norm']:.4f}")
-    assert sorted(by_bucket) == TRAIN_SETTINGS["train"]["buckets"], by_bucket
-    assert all(len(v) >= TRAIN_STEPS_PER_BUCKET for v in by_bucket.values()), by_bucket
+    if steps_per_bucket:
+        assert sorted(by_bucket) == settings["train"]["buckets"], by_bucket
+        assert all(len(v) >= steps_per_bucket for v in by_bucket.values()), by_bucket
     assert counts == {k: v * len(out["steps"]) for k, v in per_step.items()}, counts
     trainer, state = out["trainer"], out["state"]
     batch = train_batch(corpus["val"], 16, 40, device)
@@ -808,15 +947,51 @@ def fine_tune(corpus: dict, results: dict, device) -> tuple:
     state = trainer.scheduler_step(state, float(vaux["loss"]))
     assert math.isfinite(float(vaux["loss"])) and state.opt_state.lr == lr0
     path = out["checkpoints"][-1]
-    back = Trainer(trainer.model, TRAIN_SETTINGS["train"]).load_checkpoint(path, device)
+    back = Trainer(trainer.model, settings["train"]).load_checkpoint(path, device)
     assert back.step == start + steps and back.opt_state.count == steps
     for a, b in zip(tree_leaves(back.params), tree_leaves(state.params)):
         assert torch.equal(a, b)
+    saved = load_checkpoint_numpy(path)["config"]["model"]["denoiser"]
+    for flag in ("fuse_block", "edge_full"):
+        assert bool(saved.get(flag)) == bool(settings["model"]["denoiser"].get(flag)), saved
     s_step = {n: statistics.mean(v[1:] or v) for n, v in sorted(by_bucket.items())}
-    say(f"fine-tuning: {len(out['steps'])} steps at batch {TRAIN_SETTINGS['train']['batch_size']}"
-        f", s/step by bucket (first step of each left out) {s_step}, eval loss "
-        f"{float(vaux['loss']):.4f}, checkpoint {path} reloaded; launches {counts}")
+    say(f"fine-tuning ({route(settings)}): {len(out['steps'])} steps at batch "
+        f"{settings['train']['batch_size']}, s/step by bucket (first step of each left out) "
+        f"{s_step}, eval loss {float(vaux['loss']):.4f}, checkpoint {path} reloaded (its "
+        f"denoiser config {dict(saved)}); launches {counts}")
     return counts, s_step
+
+
+def check_fused_state(model, params, results: dict, device, b: int = 128, n: int = 40) -> None:
+    """Row 2 at path B's largest sampling shape: the arguments of the first
+    block's whole-block call in one MolDiff.forward of a sampling state
+    (batch b, bucket n, t = 500), replayed through the kernel and its plain
+    version."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels as K
+
+    g = torch.Generator(device=device).manual_seed(13)
+    node_mask = (torch.arange(n, device=device)[None, :]
+                 < torch.randint(n // 2, n + 1, (b, 1), generator=g, device=device)).float()
+    state = model.init_state(node_mask, model.draw_noise(b, n, g))
+    t = torch.full((b,), 500, dtype=torch.long, device=device)
+    blocks = model.prepare(params)
+    kern, captured = K.fused_block, {}
+
+    def recorder(*args):
+        captured.setdefault("fused_block", args)
+        return kern(*args)
+
+    K.fused_block = recorder
+    try:
+        with torch.no_grad():
+            model.forward(params, state.h_node, state.pos, state.h_halfedge, t, node_mask,
+                          blocks=blocks)
+    finally:
+        K.fused_block = kern
+    check_call("fused_block", captured["fused_block"], blocks[0], results,
+               f"B={b} N={n} (a sampling state)", iters=10, plain_iters=3)
 
 
 def run_path(cli, settings: dict, args_num_mols: int, batch_size: int, run_name: str) -> tuple:
@@ -856,6 +1031,10 @@ def main() -> None:
                     help="molecules the guided sampling phase generates (finished)")
     ap.add_argument("--guided-batch-size", type=int, default=16,
                     help="molecules per reverse chain in the guided sampling phase")
+    ap.add_argument("--fuse-num-mols", type=int, default=8,
+                    help="molecules path B's sampling (fuse_block) generates (finished)")
+    ap.add_argument("--fuse-batch-size", type=int, default=16,
+                    help="molecules per reverse chain in path B's sampling")
     ap.add_argument("--budget-s", type=float, default=540.0,
                     help="wall-clock budget; the run is stopped with a traceback after it "
                          "(the default ends a hang well inside a 900 s call)")
@@ -947,7 +1126,8 @@ def main() -> None:
     g_expected = {}
     for name in KERNELS:
         per_step = {"node_block": dn_blocks + bp_blocks, "edge_pair": dn_blocks + bp_blocks,
-                    "pos_update": dn_blocks, "pos_update_bwd": 0}.get(name, bp_blocks)
+                    "pos_update": dn_blocks, "node_block_bwd": bp_blocks,
+                    "edge_pair_bwd": bp_blocks}.get(name, 0)
         g_expected[name] = results[name]["per_call"] * per_step * steps * g_chains
     say(f"guided sampling: {g_chains} chains x {steps} steps, launches {g_counts}, "
         f"expected {g_expected}")
@@ -960,18 +1140,56 @@ def main() -> None:
     # 9. the training gradient, kernels against plain versions
     corpus = collect_corpus(corpus_jobs)
     pool.shutdown()
-    check_train_gradient(params, corpus["train"], device)
+    check_train_gradient(params, corpus["train"], device, TRAIN_SETTINGS)
     say(f"launches made by the checks (not counted below): {kernels.launch_counts}")
 
     # 10. the training path: the train CLI's run() from flagship_v2
-    t_counts, _ = fine_tune(corpus, results, device)
+    t_counts, _ = fine_tune(corpus, results, device, TRAIN_SETTINGS)
 
     # 11. the six kernels at the fine-tuning shape, against plain versions
-    check_train_kernels(params, corpus["train"], results, device)
+    check_train_kernels(params, corpus["train"], results, device, TRAIN_SETTINGS,
+                        TRAIN_ROUTES["partial"])
 
+    # 12. path B: the whole-block kernel (fuse_block) on flagship_v2's
+    # sampling path and in one fine-tuning step
+    t0 = time.time()
+    f_sampler, _ = cli.build_sampler(CHECKPOINT, FUSE_SETTINGS["sample"], device,
+                                     denoiser=FUSE_SETTINGS["model"]["denoiser"])
+    f_model = f_sampler.model
+    assert f_model.denoiser_static["fuse_block"]
+    check_forward(f_model, params, device)
+    f_summary, f_counts = run_path(cli, FUSE_SETTINGS, args.fuse_num_mols, args.fuse_batch_size,
+                                   f"flagship_v2_fuse_block_{args.fuse_num_mols}")
+    f_calls = dn_blocks * steps * f_summary["chains"]
+    f_expected = {name: results[name]["per_call"] * f_calls if name == "fused_block" else 0
+                  for name in KERNELS}
+    say(f"fuse_block sampling: {f_summary['chains']} chains x {steps} steps, launches "
+        f"{f_counts}, expected {f_expected}")
+    assert f_counts == f_expected, (f_counts, f_expected)
+    kernels.reset_launch_counts()
+    assert f_summary["num_finished"] >= args.fuse_num_mols
+    assert f_summary["success_rate_classified"] >= 0.25, f_summary
+    report("fuse_block sampling", f_summary, steps)
+    check_fused_state(f_model, params, results, device)
+    fb_counts, _ = fine_tune(corpus, results, device,
+                             with_denoiser(TRAIN_SETTINGS, fuse_block=True), steps_per_bucket=0)
+    say(f"phase 12 (path B, fuse_block): {time.time() - t0:.1f} s")
+
+    # 13. path A: the full-EdgeBlock kernels (edge_full) on fine-tuning
+    t0 = time.time()
+    edge_full = with_denoiser(TRAIN_SETTINGS, edge_full=True)
+    e_counts, _ = fine_tune(corpus, results, device, edge_full)
+    check_train_gradient(params, corpus["train"], device, edge_full)
+    check_train_kernels(params, corpus["train"], results, device, edge_full,
+                        ("edge_block_full", "edge_block_full_bwd"))
+    ws = build.library().md_edge_block_full_backward_workspace(128, 40, 256, 64, 128, 32)
+    say(f"row 7's workspace at B=128 N=40, flagship widths: {ws / 1e9:.3f} GB")
+    say(f"phase 13 (path A, edge_full): {time.time() - t0:.1f} s")
+
+    main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": counts[name] + g_counts[name] + t_counts[name],
+         "launches": sum(c[name] for c in main_paths),
          "max_abs_err": results[name]["max_abs_err"],
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"], "bound_by": results[name]["bound_by"],

@@ -50,6 +50,7 @@ struct EdgePairArgs {
   float* gpre;         // scratch [2,B,N,G]: x @ Wg1x + t Wg1t + bg1
   bf16* out;           // [2,B,N,Do]: t (left), u (right)
   int B, N, Dn, De, I, G, Do;
+  int round_msg;       // 1: msg rounded to bf16 before the sum (the whole-block kernel)
 };
 
 // One CTA per (64 nodes, side).
@@ -176,7 +177,7 @@ __global__ void __launch_bounds__(md::kThreads) edge_pair_kernel(const EdgePairA
     const int r = idx / Do, c = idx % Do;
     const float sig = md::sigmoidf(sC[r * ldc + c] + md::bf(w.bg2[c]));
     const float msg = (sOut[r * ldo + c] + md::bf(w.b2[c])) * sig;
-    sOut[r * ldo + c] = msg * a.mask[pair_of(r)];
+    sOut[r * ldo + c] = (a.round_msg ? md::rbf(msg) : msg) * a.mask[pair_of(r)];
   }
   __syncthreads();
   // sum over the N pairs of each group, in order
@@ -219,39 +220,28 @@ cudaError_t edge_pair_prep(const void* const* weights, const bf16* x, const floa
 
 }  // namespace md
 
-extern "C" {
+namespace md {
 
-// p: 14 left weights, 14 right weights (BondFfn order), then e, x, mask, t,
-// np, gpre, out.
-// *launched: the kernels this call launched (the prep kernel, then the pair
-// kernel).
-int md_edge_pair_forward(const void* const* p, int B, int N, int Dn, int De, int I, int G,
-                         int Do, void* stream, int* launched) {
+cudaError_t edge_pair_run(const void* const* weights, const bf16* e, const bf16* x,
+                          const float* mask, const float* t, float* np, float* gpre, bf16* out,
+                          int B, int N, int Dn, int De, int I, int G, int Do, int round_msg,
+                          cudaStream_t s, int* launched) {
   EdgePairArgs a;
   const bf16** w = &a.side[0].wb;
-  for (int k = 0; k < 28; ++k) w[k] = static_cast<const bf16*>(p[k]);
-  a.e = static_cast<const bf16*>(p[28]);
-  a.x = static_cast<const bf16*>(p[29]);
-  a.mask = static_cast<const float*>(p[30]);
-  a.t = static_cast<const float*>(p[31]);
-  a.np = static_cast<float*>(const_cast<void*>(p[32]));
-  a.gpre = static_cast<float*>(const_cast<void*>(p[33]));
-  a.out = static_cast<bf16*>(const_cast<void*>(p[34]));
+  for (int k = 0; k < 28; ++k) w[k] = static_cast<const bf16*>(weights[k]);
+  a.e = e;
+  a.x = x;
+  a.mask = mask;
+  a.t = t;
+  a.np = np;
+  a.gpre = gpre;
+  a.out = out;
   a.B = B; a.N = N; a.Dn = Dn; a.De = De; a.I = I; a.G = G; a.Do = Do;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *launched = 0;
+  a.round_msg = round_msg;
 
-  const size_t prep_smem = md::smem_bytes(md::kMaxRows, Dn + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, I + 4, 4);
-  cudaError_t err = cudaFuncSetAttribute(edge_prep_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(prep_smem));
+  cudaError_t err = edge_pair_prep(weights, x, t, np, gpre, B, N, Dn, De, I, G, Do, s);
   if (err != cudaSuccess) return err;
-  dim3 prep_grid((B * N + md::kMaxRows - 1) / md::kMaxRows, 2);
-  edge_prep_kernel<<<prep_grid, md::kThreads, prep_smem, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  *launched = 1;
+  ++*launched;
 
   const size_t pair_smem = md::smem_bytes(md::kMaxRows, De + 8, 2) +
                            md::smem_bytes(md::kMaxRows, I + 8, 2) +
@@ -264,8 +254,27 @@ int md_edge_pair_forward(const void* const* p, int B, int N, int Dn, int De, int
   dim3 grid((N + R - 1) / R, B, 2);
   edge_pair_kernel<<<grid, md::kThreads, pair_smem, s>>>(a);
   err = cudaGetLastError();
-  if (err == cudaSuccess) *launched = 2;
+  if (err == cudaSuccess) ++*launched;
   return err;
+}
+
+}  // namespace md
+
+extern "C" {
+
+// p: 14 left weights, 14 right weights (BondFfn order), then e, x, mask, t,
+// np, gpre, out.
+// *launched: the kernels this call launched (the prep kernel, then the pair
+// kernel).
+int md_edge_pair_forward(const void* const* p, int B, int N, int Dn, int De, int I, int G,
+                         int Do, void* stream, int* launched) {
+  *launched = 0;
+  return md::edge_pair_run(
+      p, static_cast<const bf16*>(p[28]), static_cast<const bf16*>(p[29]),
+      static_cast<const float*>(p[30]), static_cast<const float*>(p[31]),
+      static_cast<float*>(const_cast<void*>(p[32])), static_cast<float*>(const_cast<void*>(p[33])),
+      static_cast<bf16*>(const_cast<void*>(p[34])), B, N, Dn, De, I, G, Do, 0,
+      static_cast<cudaStream_t>(stream), launched);
 }
 
 }  // extern "C"

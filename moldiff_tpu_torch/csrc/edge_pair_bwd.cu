@@ -27,6 +27,9 @@
 // element is written by one CTA and nothing races. Parameter gradients go
 // through grad.cu as in node_block_bwd.cu. Launches per call: prep
 // (edge_pair.cu), pair x 2, node, weight gradients, reduction, time x 2 = 8.
+// The chains' backward (md::edge_chain_bwd) also serves the full-EdgeBlock
+// backward (edge_block_full.cu), which gives it float32 cotangents, its
+// own prep and the tail's terms of d_bond and d_node.
 #include "grad.cuh"
 
 using md::bf16;
@@ -61,7 +64,10 @@ struct EdgeBwdArgs {
   const bf16* e;       // [B,N,N,De]
   const bf16* x;       // [B,N,Dn]
   const float* mask;   // [B,N,N]
-  const bf16* ct[2];   // cotangents of t and u, [B,N,Do]
+  const bf16* ct[2];   // cotangents of t and u, [B,N,Do], bf16
+  const float* ct32[2];  // or float32 (when not null)
+  const float* dbond_add;  // [B,N,N,De] float32 added to d_bond, or null
+  const float* dnode_add;  // [B,N,Dn] float32 added to d_node, or null
   const float* np;     // prep: [2,B,N,I] x @ Wn
   const float* gpre;   // prep: [2,B,N,G] x @ Wg1x + t Wg1t + bg1
   bf16* d_bond;        // [B,N,N,De]
@@ -184,7 +190,9 @@ __global__ void __launch_bounds__(md::kThreads) edge_bwd_pair_kernel(const EdgeB
     for (int r = warp; r < rp; r += md::kWarps) {
       const bool valid = r < ri;
       const float m = valid ? a.mask[pair(r)] : 0.0f;
-      const bf16* ct = a.ct[side] + ((size_t)b * N + m0 + (valid ? r : 0)) * Do;
+      const size_t ct_row = ((size_t)b * N + m0 + (valid ? r : 0)) * Do;
+      const bf16* ct = a.ct32[side] ? nullptr : a.ct[side] + ct_row;
+      const float* ct32 = a.ct32[side] ? a.ct32[side] + ct_row : nullptr;
       float dm = 0.0f;
 #pragma unroll
       for (int q = 0; q < md::kMaxPerLane; ++q)
@@ -192,7 +200,7 @@ __global__ void __launch_bounds__(md::kThreads) edge_bwd_pair_kernel(const EdgeB
           const int c = lane + 32 * q;
           const float sig = md::sigmoidf(F[2][r * ldf + c] + md::bf(W.bg2[c]));
           const float out = F[1][r * ldf + c] + md::bf(W.b2[c]);
-          const float dr = valid ? md::bf(ct[c]) : 0.0f;
+          const float dr = !valid ? 0.0f : ct32 ? ct32[c] : md::bf(ct[c]);
           dm += dr * (out * sig);
           const float dmsg = dr * m;
           const float dout = dmsg * sig;
@@ -312,7 +320,7 @@ __global__ void __launch_bounds__(md::kThreads) edge_bwd_pair_kernel(const EdgeB
     const int r = idx / De, c = idx % De;
     const size_t o = pair(r) * De + c;
     if (side == 0)
-      a.dbond32[o] = F[3][r * ldf + c];
+      a.dbond32[o] = (a.dbond_add ? a.dbond_add[o] : 0.0f) + F[3][r * ldf + c];
     else
       a.d_bond[o] = md::tobf(a.dbond32[o] + F[3][r * ldf + c]);
   }
@@ -330,6 +338,12 @@ __global__ void __launch_bounds__(md::kThreads) edge_bwd_node_kernel(const EdgeB
   const int n0 = blockIdx.x * md::kBwdRows;
   const int rows = min(md::kBwdRows, total - n0);
   const int mt = (rows + 15) / 16, rp = mt * 16;
+  if (a.dnode_add != nullptr) {
+    for (int idx = threadIdx.x; idx < rp * Dn; idx += blockDim.x) {
+      const int r = idx / Dn, c = idx % Dn;
+      F0[r * ldf + c] = r < rows ? a.dnode_add[(size_t)(n0 + r) * Dn + c] : 0.0f;
+    }
+  }
   for (int side = 0; side < 2; ++side) {
     const SideWork& S = a.w[side];
     const BondFfn& W = a.side[side];
@@ -354,7 +368,7 @@ __global__ void __launch_bounds__(md::kThreads) edge_bwd_node_kernel(const EdgeB
     }
     __syncthreads();
     md::cta_gemm_t(X0, nullptr, ldb, W.wg1 + (size_t)De * G, G, Dn, F0, ldf, mt,
-                   side == 0 ? md::kStore : md::kAdd);
+                   side == 0 && a.dnode_add == nullptr ? md::kStore : md::kAdd);
     __syncthreads();
     md::cta_gemm_t(X1, nullptr, ldb, W.wn, I, Dn, F0, ldf, mt, md::kAdd);
     __syncthreads();
@@ -409,47 +423,49 @@ EdgeBwdWork carve(EdgeBwdArgs& a, unsigned char* base, int B, int N, int Dn, int
 
 }  // namespace
 
-extern "C" {
+namespace md {
 
-long long md_edge_pair_backward_workspace(int B, int N, int Dn, int De, int I, int G, int Do) {
+size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do) {
   EdgeBwdArgs a = {};
-  return (long long)carve(a, nullptr, B, N, Dn, De, I, G, Do).bytes;
+  return carve(a, nullptr, B, N, Dn, De, I, G, Do).bytes;
 }
 
-// p: 14 left and 14 right weights (BondFfn order), e, x, mask, t, dt_ct,
-// du_ct, then the outputs d_bond, d_node, d_time, d_mask and the 28 float32
-// parameter gradients in the weights' order (each gate's first-layer weight
-// as one [De+Dn+1, G] matrix), then the workspace
-// (md_edge_pair_backward_workspace bytes).
-int md_edge_pair_backward(const void* const* p, int B, int N, int Dn, int De, int I, int G,
-                          int Do, void* stream, int* launched) {
+cudaError_t edge_chain_bwd(const EdgeChainBwd& c, int B, int N, int Dn, int De, int I, int G,
+                           int Do, cudaStream_t s, int* launched) {
   EdgeBwdArgs a = {};
   const bf16** w = &a.side[0].wb;
-  for (int k = 0; k < 28; ++k) w[k] = static_cast<const bf16*>(p[k]);
-  a.e = static_cast<const bf16*>(p[28]);
-  a.x = static_cast<const bf16*>(p[29]);
-  a.mask = static_cast<const float*>(p[30]);
-  const float* t = static_cast<const float*>(p[31]);
-  a.ct[0] = static_cast<const bf16*>(p[32]);
-  a.ct[1] = static_cast<const bf16*>(p[33]);
-  a.d_bond = static_cast<bf16*>(const_cast<void*>(p[34]));
-  a.d_node = static_cast<bf16*>(const_cast<void*>(p[35]));
-  float* d_time = static_cast<float*>(const_cast<void*>(p[36]));
-  a.d_mask = static_cast<float*>(const_cast<void*>(p[37]));
+  for (int k = 0; k < 28; ++k) w[k] = static_cast<const bf16*>(c.weights[k]);
+  a.e = c.e;
+  a.x = c.x;
+  a.mask = c.mask;
+  for (int sd = 0; sd < 2; ++sd) {
+    a.ct[sd] = c.ct16[sd];
+    a.ct32[sd] = c.ct32[sd];
+  }
+  a.dbond_add = c.dbond_add;
+  a.dnode_add = c.dnode_add;
+  a.d_bond = c.d_bond;
+  a.d_node = c.d_node;
+  a.d_mask = c.d_mask;
+  const float* t = c.t;
+  float* d_time = c.d_time;
   float* g[2][14];
-  for (int s = 0; s < 2; ++s)
-    for (int k = 0; k < 14; ++k) g[s][k] = static_cast<float*>(const_cast<void*>(p[38 + 14 * s + k]));
-  EdgeBwdWork ws = carve(a, static_cast<unsigned char*>(const_cast<void*>(p[66])), B, N, Dn, De,
-                         I, G, Do);
-  a.np = ws.np;
-  a.gpre = ws.gpre;
+  for (int sd = 0; sd < 2; ++sd)
+    for (int k = 0; k < 14; ++k) g[sd][k] = c.grads[14 * sd + k];
+  EdgeBwdWork ws = carve(a, static_cast<unsigned char*>(c.workspace), B, N, Dn, De, I, G, Do);
   a.B = B; a.N = N; a.Dn = Dn; a.De = De; a.I = I; a.G = G; a.Do = Do;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *launched = 0;
 
-  cudaError_t err = md::edge_pair_prep(p, a.x, t, ws.np, ws.gpre, B, N, Dn, De, I, G, Do, s);
-  if (err != cudaSuccess) return err;
-  ++*launched;
+  cudaError_t err;
+  if (c.np != nullptr) {
+    a.np = c.np;
+    a.gpre = c.gpre;
+  } else {
+    a.np = ws.np;
+    a.gpre = ws.gpre;
+    err = md::edge_pair_prep(c.weights, a.x, t, ws.np, ws.gpre, B, N, Dn, De, I, G, Do, s);
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
 
   const int BN = B * N, P = BN * N;
   const int tiles = BN * a.nch, ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
@@ -518,6 +534,42 @@ int md_edge_pair_backward(const void* const* p, int B, int N, int Dn, int De, in
     ++*launched;
   }
   return cudaSuccess;
+}
+
+}  // namespace md
+
+extern "C" {
+
+long long md_edge_pair_backward_workspace(int B, int N, int Dn, int De, int I, int G, int Do) {
+  return (long long)md::edge_chain_bwd_bytes(B, N, Dn, De, I, G, Do);
+}
+
+// p: 14 left and 14 right weights (BondFfn order), e, x, mask, t, dt_ct,
+// du_ct, then the outputs d_bond, d_node, d_time, d_mask and the 28 float32
+// parameter gradients in the weights' order (each gate's first-layer weight
+// as one [De+Dn+1, G] matrix), then the workspace
+// (md_edge_pair_backward_workspace bytes).
+int md_edge_pair_backward(const void* const* p, int B, int N, int Dn, int De, int I, int G,
+                          int Do, void* stream, int* launched) {
+  float* grads[28];
+  for (int k = 0; k < 28; ++k) grads[k] = static_cast<float*>(const_cast<void*>(p[38 + k]));
+  md::EdgeChainBwd c = {};
+  c.weights = p;
+  c.e = static_cast<const bf16*>(p[28]);
+  c.x = static_cast<const bf16*>(p[29]);
+  c.mask = static_cast<const float*>(p[30]);
+  c.t = static_cast<const float*>(p[31]);
+  c.ct16[0] = static_cast<const bf16*>(p[32]);
+  c.ct16[1] = static_cast<const bf16*>(p[33]);
+  c.d_bond = static_cast<bf16*>(const_cast<void*>(p[34]));
+  c.d_node = static_cast<bf16*>(const_cast<void*>(p[35]));
+  c.d_time = static_cast<float*>(const_cast<void*>(p[36]));
+  c.d_mask = static_cast<float*>(const_cast<void*>(p[37]));
+  c.grads = grads;
+  c.workspace = const_cast<void*>(p[66]);
+  *launched = 0;
+  return md::edge_chain_bwd(c, B, N, Dn, De, I, G, Do, static_cast<cudaStream_t>(stream),
+                            launched);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 // Shared pieces of the backward pair kernels (node_block_bwd.cu,
-// edge_pair_bwd.cu, pos_update_bwd.cu): transposed-weight tile products, the float32 split
-// into two bf16 halves, the LayerNorm backward of one row held by a warp,
-// per-tile column sums, and the host launchers of the weight-gradient,
-// reduction and time kernels of grad.cu.
+// edge_pair_bwd.cu, pos_update_bwd.cu, edge_block_full.cu): transposed-weight
+// tile products, the float32 split into two bf16 halves, the LayerNorm
+// backward of one row held by a warp, per-tile column sums, the host
+// launchers of the weight-gradient, reduction and time kernels of grad.cu,
+// and the host launchers that the full-EdgeBlock and whole-block entry
+// points (edge_block_full.cu, fused_block.cu) share with the others.
 //
 // Parameter gradients are sums over every pair of the batch. A CTA of the
 // pair kernels owns one tile of at most kBwdRows pairs and has no room for
@@ -207,6 +209,63 @@ cudaError_t edge_pair_prep(const void* const* weights, const bf16* x, const floa
 // 6 left and 6 right MLP leaves).
 cudaError_t pos_update_prep(const void* const* weights, const bf16* x, bf16* lr, int B, int N,
                             int Dn, int Dl, cudaStream_t s);
+
+// The three forward kernels whole (prep, then pair), each adding its
+// launches to *launched; the flags select the whole-block kernel's
+// roundings (fused_block.cu): node_block's sum as float32 into out32 (out
+// unused), edge_pair's messages rounded to bf16 before their sums,
+// pos_update's weight rounded to bf16 and the force as w * rel / d / (d + 1).
+cudaError_t node_block_run(const void* const* weights, const bf16* x, const bf16* e,
+                           const float* mask, const float* t, bf16* xn, float* gpre, bf16* out,
+                           float* out32, int B, int N, int Dn, int De, int H, cudaStream_t s,
+                           int* launched);
+cudaError_t edge_pair_run(const void* const* weights, const bf16* e, const bf16* x,
+                          const float* mask, const float* t, float* np, float* gpre, bf16* out,
+                          int B, int N, int Dn, int De, int I, int G, int Do, int round_msg,
+                          cudaStream_t s, int* launched);
+cudaError_t pos_update_run(const void* const* weights, const bf16* x, const bf16* e,
+                           const float* rel, const float* dist, const float* mask,
+                           const float* t, bf16* lr, float* out, int B, int N, int Dn, int De,
+                           int Dl, int I, int G, int fused, cudaStream_t s, int* launched);
+
+// edge_pair_bwd.cu: the two chains' backward given the cotangents of their
+// endpoint sums, bf16 (ct16) or float32 (ct32), with the prep's np and gpre
+// already computed (np, gpre non-null: no prep launch) or not; dbond_add
+// [B*N*N, De] and dnode_add [B*N, Dn] (float32, or null) are added to
+// d_bond and d_node before they are rounded (edge_block_full.cu's tail).
+struct EdgeChainBwd {
+  const void* const* weights;   // 28: left, then right (BondFfn order)
+  const bf16* e;
+  const bf16* x;
+  const float* mask;
+  const float* t;
+  const bf16* ct16[2];
+  const float* ct32[2];
+  const float* np;
+  const float* gpre;
+  const float* dbond_add;
+  const float* dnode_add;
+  bf16* d_bond;
+  bf16* d_node;
+  float* d_time;
+  float* d_mask;
+  float* const* grads;          // 28 float32 outputs in the weights' order
+  void* workspace;              // edge_chain_bwd_bytes
+};
+size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do);
+cudaError_t edge_chain_bwd(const EdgeChainBwd& c, int B, int N, int Dn, int De, int I, int G,
+                           int Do, cudaStream_t s, int* launched);
+
+// edge_block_full.cu: the EdgeBlock tail given the chains' sums tu [2, B*N,
+// De] (t by row, u by column): proj [2, B*N, De] = the node FFNs of x,
+// then per pair relu(LN(t[i] + u[j] + proj_l[i] + proj_r[j] + e @ Wsf + bsf))
+// @ Wo + bo into out [B*N*N, De]; with residual, the four broadcast terms
+// are added in bf16 and out = e + the delta (the whole-block kernel's
+// tail). weights: the tail's 10 (node_ffn_left, node_ffn_right, self_ffn,
+// ln, out).
+cudaError_t edge_tail_forward(const void* const* weights, const bf16* e, const bf16* x,
+                              const bf16* tu, bf16* proj, bf16* out, int residual, int B, int N,
+                              int Dn, int De, cudaStream_t s, int* launched);
 
 // Carve 256-byte aligned buffers out of a workspace; with base == nullptr it
 // only counts the bytes.

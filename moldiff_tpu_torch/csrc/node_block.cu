@@ -48,6 +48,7 @@ struct NodeBlockArgs {
   bf16* xn;            // scratch [B,N,H]: sender MLP
   float* gpre;         // scratch [B,N,H]: x[j] @ Wg1x + t Wg1t + bg1
   bf16* out;           // [B,N,H]
+  float* out32;        // [B,N,H] the float32 sum in place of out (the whole-block kernel), or null
   int B, N, Dn, De, H;
 };
 
@@ -199,7 +200,11 @@ __global__ void __launch_bounds__(md::kThreads) node_pair_kernel(const NodeBlock
     const int rec = idx / H, c = idx % H;
     float s = 0.0f;
     for (int j = 0; j < N; ++j) s += sC[(rec * N + j) * ldc + c];
-    a.out[((size_t)b * N + i0 + rec) * H + c] = md::tobf(s);
+    const size_t o = ((size_t)b * N + i0 + rec) * H + c;
+    if (a.out32 != nullptr)
+      a.out32[o] = s;
+    else
+      a.out[o] = md::tobf(s);
   }
 }
 
@@ -230,6 +235,41 @@ cudaError_t node_block_prep(const void* const* weights, const bf16* x, const flo
   return cudaGetLastError();
 }
 
+cudaError_t node_block_run(const void* const* weights, const bf16* x, const bf16* e,
+                           const float* mask, const float* t, bf16* xn, float* gpre, bf16* out,
+                           float* out32, int B, int N, int Dn, int De, int H, cudaStream_t s,
+                           int* launched) {
+  NodeBlockArgs a;
+  const bf16** w = &a.we1;
+  for (int k = 0; k < 20; ++k) w[k] = static_cast<const bf16*>(weights[k]);
+  a.x = x;
+  a.e = e;
+  a.mask = mask;
+  a.t = t;
+  a.xn = xn;
+  a.gpre = gpre;
+  a.out = out;
+  a.out32 = out32;
+  a.B = B; a.N = N; a.Dn = Dn; a.De = De; a.H = H;
+
+  cudaError_t err = node_block_prep(weights, x, t, xn, gpre, B, N, Dn, De, H, s);
+  if (err != cudaSuccess) return err;
+  ++*launched;
+
+  const size_t pair_smem = md::smem_bytes(md::kMaxRows, De + 8, 2) +
+                           2 * md::smem_bytes(md::kMaxRows, H + 8, 2) +
+                           md::smem_bytes(md::kMaxRows, H + 4, 4);
+  err = cudaFuncSetAttribute(node_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(pair_smem));
+  if (err != cudaSuccess) return err;
+  const int R = md::groups_per_cta(N);
+  dim3 grid((N + R - 1) / R, B);
+  node_pair_kernel<<<grid, md::kThreads, pair_smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return err;
+}
+
 }  // namespace md
 
 extern "C" {
@@ -243,45 +283,13 @@ const char* md_error_name(int code) {
 // kernel).
 int md_node_block_forward(const void* const* p, int B, int N, int Dn, int De, int H,
                           void* stream, int* launched) {
-  NodeBlockArgs a;
-  const bf16** w = &a.we1;
-  for (int k = 0; k < 20; ++k) w[k] = static_cast<const bf16*>(p[k]);
-  a.x = static_cast<const bf16*>(p[20]);
-  a.e = static_cast<const bf16*>(p[21]);
-  a.mask = static_cast<const float*>(p[22]);
-  a.t = static_cast<const float*>(p[23]);
-  a.xn = static_cast<bf16*>(const_cast<void*>(p[24]));
-  a.gpre = static_cast<float*>(const_cast<void*>(p[25]));
-  a.out = static_cast<bf16*>(const_cast<void*>(p[26]));
-  a.B = B; a.N = N; a.Dn = Dn; a.De = De; a.H = H;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   *launched = 0;
-
-  const size_t prep_smem = md::smem_bytes(md::kMaxRows, Dn + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, H + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, H + 4, 4);
-  cudaError_t err = cudaFuncSetAttribute(node_prep_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(prep_smem));
-  if (err != cudaSuccess) return err;
-  const int prep_blocks = (B * N + md::kMaxRows - 1) / md::kMaxRows;
-  node_prep_kernel<<<prep_blocks, md::kThreads, prep_smem, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  *launched = 1;
-
-  const size_t pair_smem = md::smem_bytes(md::kMaxRows, De + 8, 2) +
-                           2 * md::smem_bytes(md::kMaxRows, H + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, H + 4, 4);
-  err = cudaFuncSetAttribute(node_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(pair_smem));
-  if (err != cudaSuccess) return err;
-  const int R = md::groups_per_cta(N);
-  dim3 grid((N + R - 1) / R, B);
-  node_pair_kernel<<<grid, md::kThreads, pair_smem, s>>>(a);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) *launched = 2;
-  return err;
+  return md::node_block_run(
+      p, static_cast<const bf16*>(p[20]), static_cast<const bf16*>(p[21]),
+      static_cast<const float*>(p[22]), static_cast<const float*>(p[23]),
+      static_cast<bf16*>(const_cast<void*>(p[24])), static_cast<float*>(const_cast<void*>(p[25])),
+      static_cast<bf16*>(const_cast<void*>(p[26])), nullptr, B, N, Dn, De, H,
+      static_cast<cudaStream_t>(stream), launched);
 }
 
 }  // extern "C"

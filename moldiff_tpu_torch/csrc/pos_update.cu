@@ -50,6 +50,7 @@ struct PosArgs {
   bf16* lr;            // scratch [2,B,N,Dl]: L and R
   float* out;          // [B,N,3]
   int B, N, Dn, De, Dl, I, G;
+  int fused;           // 1: the whole-block kernel's bf16 weight, force w * rel / d / (d + 1)
 };
 
 // One CTA per (64 nodes, side): L (side 0) or R (side 1).
@@ -191,7 +192,8 @@ __global__ void __launch_bounds__(md::kThreads) pos_pair_kernel(const PosArgs a)
       const size_t p = pair0 + r;
       const float m = a.mask[p];
       const float d = m > 0.0f ? a.dist[p] : 1.0f;
-      sF[r * 3 + lane] = w * a.rel[p * 3 + lane] * (1.0f / d) * (1.0f / (d + 1.0f)) * m;
+      sF[r * 3 + lane] = a.fused ? md::rbf(w) * a.rel[p * 3 + lane] / d / (d + 1.0f) * m
+                                 : w * a.rel[p * 3 + lane] * (1.0f / d) * (1.0f / (d + 1.0f)) * m;
     }
   }
   __syncthreads();
@@ -233,34 +235,27 @@ cudaError_t pos_update_prep(const void* const* weights, const bf16* x, bf16* lr,
   return launch_prep(a, s);
 }
 
-}  // namespace md
-
-extern "C" {
-
-// p: 6 left-MLP, 6 right-MLP, 14 edge_lin weights, then x, e, rel, dist,
-// mask, t, lr, out.
-// *launched: the kernels this call launched (the prep kernel, then the pair
-// kernel).
-int md_pos_update_forward(const void* const* p, int B, int N, int Dn, int De, int Dl, int I,
-                          int G, void* stream, int* launched) {
+cudaError_t pos_update_run(const void* const* weights, const bf16* x, const bf16* e,
+                           const float* rel, const float* dist, const float* mask,
+                           const float* t, bf16* lr, float* out, int B, int N, int Dn, int De,
+                           int Dl, int I, int G, int fused, cudaStream_t s, int* launched) {
   PosArgs a;
   const bf16** w = &a.side[0].w1;
-  for (int k = 0; k < 26; ++k) w[k] = static_cast<const bf16*>(p[k]);
-  a.x = static_cast<const bf16*>(p[26]);
-  a.e = static_cast<const bf16*>(p[27]);
-  a.rel = static_cast<const float*>(p[28]);
-  a.dist = static_cast<const float*>(p[29]);
-  a.mask = static_cast<const float*>(p[30]);
-  a.t = static_cast<const float*>(p[31]);
-  a.lr = static_cast<bf16*>(const_cast<void*>(p[32]));
-  a.out = static_cast<float*>(const_cast<void*>(p[33]));
+  for (int k = 0; k < 26; ++k) w[k] = static_cast<const bf16*>(weights[k]);
+  a.x = x;
+  a.e = e;
+  a.rel = rel;
+  a.dist = dist;
+  a.mask = mask;
+  a.t = t;
+  a.lr = lr;
+  a.out = out;
   a.B = B; a.N = N; a.Dn = Dn; a.De = De; a.Dl = Dl; a.I = I; a.G = G;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *launched = 0;
+  a.fused = fused;
 
   cudaError_t err = launch_prep(a, s);
   if (err != cudaSuccess) return err;
-  *launched = 1;
+  ++*launched;
 
   const size_t pair_smem = md::smem_bytes(md::kMaxRows, De + 8, 2) +
                            md::smem_bytes(md::kMaxRows, Dl + 8, 2) +
@@ -275,8 +270,27 @@ int md_pos_update_forward(const void* const* p, int B, int N, int Dn, int De, in
   dim3 grid((N + R - 1) / R, B);
   pos_pair_kernel<<<grid, md::kThreads, pair_smem, s>>>(a);
   err = cudaGetLastError();
-  if (err == cudaSuccess) *launched = 2;
+  if (err == cudaSuccess) ++*launched;
   return err;
+}
+
+}  // namespace md
+
+extern "C" {
+
+// p: 6 left-MLP, 6 right-MLP, 14 edge_lin weights, then x, e, rel, dist,
+// mask, t, lr, out.
+// *launched: the kernels this call launched (the prep kernel, then the pair
+// kernel).
+int md_pos_update_forward(const void* const* p, int B, int N, int Dn, int De, int Dl, int I,
+                          int G, void* stream, int* launched) {
+  *launched = 0;
+  return md::pos_update_run(
+      p, static_cast<const bf16*>(p[26]), static_cast<const bf16*>(p[27]),
+      static_cast<const float*>(p[28]), static_cast<const float*>(p[29]),
+      static_cast<const float*>(p[30]), static_cast<const float*>(p[31]),
+      static_cast<bf16*>(const_cast<void*>(p[32])), static_cast<float*>(const_cast<void*>(p[33])),
+      B, N, Dn, De, Dl, I, G, 0, static_cast<cudaStream_t>(stream), launched);
 }
 
 }  // extern "C"

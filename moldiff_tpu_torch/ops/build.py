@@ -37,12 +37,18 @@ SIGNATURES = {
     "md_node_block_backward": [_P, _I, _I, _I, _I, _I, _P, _P],
     "md_edge_pair_backward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "md_pos_update_backward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "md_edge_block_full_forward": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "md_edge_block_full_backward": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # the widths as an int array (ops/kernels.py _fused_block_dims)
+    "md_fused_block_forward": [_P, _P, _P, _P],
 }
 # bytes of workspace a backward call needs, from its widths
 WORKSPACE_SIGNATURES = {
     "md_node_block_backward_workspace": [_I] * 5,
     "md_edge_pair_backward_workspace": [_I] * 7,
     "md_pos_update_backward_workspace": [_I] * 7,
+    "md_edge_block_full_backward_workspace": [_I] * 6,
+    "md_fused_block_forward_workspace": [_P],
 }
 
 _loaded: Optional[ctypes.CDLL] = None

@@ -45,7 +45,8 @@ import torch
 
 launch_counts: Dict[str, int] = {"node_block": 0, "edge_pair": 0, "pos_update": 0,
                                   "node_block_bwd": 0, "edge_pair_bwd": 0,
-                                  "pos_update_bwd": 0}
+                                  "pos_update_bwd": 0, "fused_block": 0, "edge_block_full": 0,
+                                  "edge_block_full_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -116,18 +117,26 @@ def _bond_chain(p, e, x, t, node_axis: int, dt):
     return out * sig
 
 
+def _edge_sums(params, h_bond, h_node, bond_time, pair_mask, round_msg: bool):
+    """The two chains' masked endpoint sums, rounded to h_bond's dtype; with
+    ``round_msg`` each message is rounded to it first (the whole-block
+    kernel's _bond_ffn_flat)."""
+    dt = h_bond.dtype
+    mask4 = pair_mask.float()[..., None]
+    rnd = (lambda m: m.to(dt).float()) if round_msg else (lambda m: m)
+    msg_l = rnd(_bond_chain(params["left"], h_bond, h_node, bond_time, 1, dt))
+    t_out = (msg_l * mask4).sum(dim=1).to(dt)
+    msg_r = rnd(_bond_chain(params["right"], h_bond, h_node, bond_time, 2, dt))
+    u_out = (msg_r * mask4).sum(dim=2).to(dt)
+    return t_out, u_out
+
+
 def edge_pair_aggregate_plain(params, h_bond, h_node, bond_time, pair_mask):
     """pallas_kernels.py:_edge_pair_kernel. params {'left', 'right'} BondFFN
     params; h_bond [B,N,N,De], h_node [B,N,Dn] -> (t [B,N,Do], u [B,N,Do]):
     t[j] = sum_i left chain (node features of i), u[i] = sum_j right chain
     (node features of j)."""
-    dt = h_bond.dtype
-    mask4 = pair_mask.float()[..., None]
-    msg_l = _bond_chain(params["left"], h_bond, h_node, bond_time, 1, dt)
-    t_out = (msg_l * mask4).sum(dim=1).to(dt)
-    msg_r = _bond_chain(params["right"], h_bond, h_node, bond_time, 2, dt)
-    u_out = (msg_r * mask4).sum(dim=2).to(dt)
-    return t_out, u_out
+    return _edge_sums(params, h_bond, h_node, bond_time, pair_mask, False)
 
 
 def pos_update_plain(params, h_node, h_edge, rel_vec, distance, edge_time, pair_mask):
@@ -449,6 +458,142 @@ def pos_update_bwd_plain(params, h_node, h_edge, rel_vec, distance, edge_time, p
     return (_cast_like(d_params, params), (dx_l + dx_r).to(dt), d_e.to(dt),
             d_rel.to(rel_vec.dtype), d_dist.to(distance.dtype),
             d_time.reshape(edge_time.shape).to(edge_time.dtype), d_mask.to(pair_mask.dtype))
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the full-EdgeBlock and whole-block kernels
+# ---------------------------------------------------------------------------
+
+def _linear32(x: torch.Tensor, p: dict) -> torch.Tensor:
+    return _dot(x, p["w"]) + p["b"].float()
+
+
+def _edge_tail(p, e, x, t_per, u_per, dt):
+    """pallas_kernels.py:_edge_block_tail_fwd: the EdgeBlock tail given the
+    two endpoint sums, every term added in float32 -> (LN output, xhat,
+    1/std, relu output in dt, delta in dt)."""
+    projl = _linear32(x, p["node_ffn_left"]).to(dt)
+    projr = _linear32(x, p["node_ffn_right"]).to(dt)
+    h1 = (t_per.float()[:, :, None] + u_per.float()[:, None] + projl.float()[:, :, None]
+          + projr.float()[:, None] + _linear32(e, p["self_ffn"]))
+    ln_out, xhat, inv = _ln_stats(h1, p["ln"])
+    r = torch.relu(ln_out).to(dt)
+    return ln_out, xhat, inv, r, _linear32(r, p["out"]).to(dt)
+
+
+def _edge_chains(p: dict) -> dict:
+    return {"left": p["bond_ffn_left"], "right": p["bond_ffn_right"]}
+
+
+def edge_block_full_plain(params, h_bond, h_node, bond_time, pair_mask):
+    """pallas_kernels.py:_edge_block_full_kernel. params: the EdgeBlock's
+    (both BondFFN chains, node and self FFNs, LN, out); h_bond [B,N,N,De],
+    h_node [B,N,Dn] -> the block's delta [B,N,N,De] in h_bond's dtype: the
+    two chains' endpoint sums (edge_pair_aggregate_plain) and the tail."""
+    t_per, u_per = _edge_sums(_edge_chains(params), h_bond, h_node, bond_time, pair_mask, False)
+    return _edge_tail(params, h_bond, h_node, t_per, u_per, h_bond.dtype)[-1]
+
+
+def edge_block_full_bwd_plain(params, h_bond, h_node, bond_time, pair_mask, ct):
+    """pallas_kernels.py:_edge_block_full_bwd_kernel (as
+    _pallas_edge_block_full_bwd wraps it): cotangent ct [B,N,N,De] of the
+    delta -> (d_params, d_bond, d_node, d_time, d_mask). The tail's
+    backward gives d_h per pair; its sums over columns and over rows are the
+    cotangents of the two endpoint sums, which the chains' backward
+    (_edge_side_bwd) takes in float32."""
+    dt = h_bond.dtype
+    mask4 = pair_mask.float()[..., None]
+    t_per, u_per = _edge_sums(_edge_chains(params), h_bond, h_node, bond_time, pair_mask, False)
+    ln_out, xhat, inv, r, _ = _edge_tail(params, h_bond, h_node, t_per, u_per, dt)
+    d_delta = ct.float()
+    d_ln = _dot_t(d_delta.to(dt), params["out"]["w"]) * (ln_out > 0)
+    d_h, ds_rows = _ln_bwd(d_ln, xhat, inv, params["ln"])
+    d_e_self = _dot_t(d_h.to(dt), params["self_ffn"]["w"])
+    d_projl = d_h.sum(dim=2)          # t_per[i] and projl[i] broadcast over columns
+    d_projr = d_h.sum(dim=1)          # u_per[j] and projr[j] over rows
+    d_x_proj = (_dot_t(d_projl.to(dt), params["node_ffn_left"]["w"])
+                + _dot_t(d_projr.to(dt), params["node_ffn_right"]["w"]))
+    left = _bond_chain_bwd(params["bond_ffn_left"], h_bond, h_node, bond_time, mask4,
+                           d_projl[:, None, :, :], 1, dt)
+    right = _bond_chain_bwd(params["bond_ffn_right"], h_bond, h_node, bond_time, mask4,
+                            d_projr[:, :, None, :], 2, dt)
+    d_params = {
+        "bond_ffn_left": left[0], "bond_ffn_right": right[0],
+        "node_ffn_left": {"w": _wgrad(h_node, d_projl), "b": _rows(d_projl)},
+        "node_ffn_right": {"w": _wgrad(h_node, d_projr), "b": _rows(d_projr)},
+        "self_ffn": {"w": _wgrad(h_bond, d_h), "b": _rows(d_h)},
+        "ln": {"scale": _rows(ds_rows), "bias": _rows(d_ln)},
+        "out": {"w": _wgrad(r, d_delta), "b": _rows(d_delta)},
+    }
+    return (_cast_like(d_params, params), (d_e_self + left[1] + right[1]).to(dt),
+            (d_x_proj + left[2] + right[2]).to(dt),
+            (left[3] + right[3]).reshape(bond_time.shape).to(bond_time.dtype),
+            (left[4] + right[4]).to(pair_mask.dtype))
+
+
+def fused_block_plain(blk, h_node, h_edge, h_dist, rel_vec, distance, node_time, pair_mask):
+    """pallas_kernels.py:_fused_block_kernel: one whole denoiser block
+    (edge_emb, NodeBlock, EdgeBlock, both residuals, PosUpdate) with the
+    node time as its one time input. h_node [B,N,Dn], h_edge [B,N,N,De],
+    h_dist [B,N,N,Dh], rel_vec [B,N,N,3], distance [B,N,N] -> (h_node_new
+    [B,N,Dn], h_edge_new [B,N,N,De] in h_node's dtype, pos_delta [B,N,3]
+    float32). Its roundings are its own, not the partial path's: the
+    message sum enters the NodeBlock in float32, the EdgeBlock's and
+    PosUpdate's gated messages are rounded to the compute dtype, the tail
+    adds its four broadcast terms in the compute dtype before the float32
+    self term, and the force divides by d and d + 1."""
+    dt = h_node.dtype
+    x = h_node
+    de, dn = h_edge.shape[-1], x.shape[-1]
+    mask4 = pair_mask.float()[..., None]
+    tcol = _time_col(node_time)
+    w_ee = blk["edge_emb"]["w"]
+    he = (_dot(h_edge, w_ee[:de]) + _dot(h_dist.to(dt), w_ee[de:])
+          + blk["edge_emb"]["b"].float()).to(dt)
+
+    # NodeBlock: message sum over senders j, added in float32
+    nb = blk["node_block"]
+    h_e = _mlp2(he, nb["edge_net"], dt).to(dt)
+    xn = _mlp2(x, nb["node_net"], dt).to(dt)
+    msg = _linear32((h_e.float() * xn.float()[:, None]).to(dt), nb["msg_net"]).to(dt)
+    g0, g1 = nb["gate"]["layers"]
+    wg1 = g0["lin"]["w"]
+    g = (_dot(he, wg1[:de]) + _dot(x, wg1[de:de + dn])[:, None] + tcol * wg1[de + dn].float()
+         + g0["lin"]["b"].float())
+    g = torch.relu(_ln32(g, g0["ln"])).to(dt)
+    gate = torch.sigmoid(_linear32(g, g1["lin"])).to(dt)
+    aggr = ((msg * gate).float() * mask4).sum(dim=2)
+    nbv = torch.relu(_ln32(_linear32(x, nb["centroid_lin"]) + aggr, nb["ln"])).to(dt)
+    h_node_new = x + _linear32(nbv, nb["out"]).to(dt)
+
+    # EdgeBlock on the old node features, gated messages rounded to dt
+    eb = blk["edge_block"]
+    t_per, u_per = _edge_sums(_edge_chains(eb), he, x, node_time, pair_mask, True)
+    projl = _linear32(x, eb["node_ffn_left"]).to(dt)
+    projr = _linear32(x, eb["node_ffn_right"]).to(dt)
+    h = (t_per[:, :, None] + u_per[:, None] + projl[:, :, None] + projr[:, None]
+         + _linear32(he, eb["self_ffn"]))
+    h = torch.relu(_ln32(h, eb["ln"])).to(dt)
+    h_edge_new = he + _linear32(h, eb["out"]).to(dt)
+
+    # PosUpdate on the new node and edge features
+    pb = blk["pos_block"]
+    lf = _mlp2(h_node_new, pb["left_lin_edge"], dt).to(dt)
+    rf = _mlp2(h_node_new, pb["right_lin_edge"], dt).to(dt)
+    xp = (lf[:, :, None] * rf[:, None]).to(dt)
+    el = pb["edge_lin"]
+    dxp = xp.shape[-1]
+    inter = _mlp2((_dot(h_edge_new, el["bond_linear"]["w"])
+                   * _dot(xp, el["node_linear"]["w"])).to(dt), el["inter"], dt)
+    p0, p1 = el["gate"]["layers"]
+    wp1 = p0["lin"]["w"]
+    gp = (_dot(h_edge_new, wp1[:de]) + _dot(xp, wp1[de:de + dxp]) + tcol * wp1[de + dxp].float()
+          + p0["lin"]["b"].float())
+    gp = torch.relu(_ln32(gp, p0["ln"])).to(dt)
+    weight = (inter * torch.sigmoid(_linear32(gp, p1["lin"]))).to(dt)
+    d_safe = torch.where(mask4 > 0, distance.float()[..., None], torch.ones_like(mask4))
+    force = weight.float() * rel_vec.float() / d_safe / (d_safe + 1.0) * mask4
+    return h_node_new, h_edge_new, force.sum(dim=2)
 
 
 # ---------------------------------------------------------------------------
@@ -883,3 +1028,263 @@ def pos_update_bwd(params, h_node, h_edge, rel_vec, distance, edge_time, pair_ma
     d_params = _cast_like(_pos_update_tree(grads), params)
     return (d_params, d_node, d_edge, d_rel, d_dist,
             d_time.reshape(edge_time.shape).to(edge_time.dtype), d_mask.to(pair_mask.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the full EdgeBlock (rows 6, 7) and the whole block (row 2)
+# ---------------------------------------------------------------------------
+
+def _linear_leaves(p: dict) -> List[torch.Tensor]:
+    return [p["w"], p["b"]]
+
+
+def _ln_leaves(p: dict) -> List[torch.Tensor]:
+    return [p["scale"], p["bias"]]
+
+
+def _edge_block_full_leaves(p: dict) -> List[torch.Tensor]:
+    """pallas_kernels.py:_edge_full_weights order (38): both chains, then
+    node_ffn_left, node_ffn_right, self_ffn, ln, out."""
+    return (_bond_ffn_leaves(p["bond_ffn_left"]) + _bond_ffn_leaves(p["bond_ffn_right"])
+            + _linear_leaves(p["node_ffn_left"]) + _linear_leaves(p["node_ffn_right"])
+            + _linear_leaves(p["self_ffn"]) + _ln_leaves(p["ln"]) + _linear_leaves(p["out"]))
+
+
+def _edge_block_full_tree(leaves: Sequence[torch.Tensor]) -> dict:
+    lin = lambda k: {"w": leaves[k], "b": leaves[k + 1]}
+    return {"bond_ffn_left": _bond_ffn_tree(leaves[0:14]),
+            "bond_ffn_right": _bond_ffn_tree(leaves[14:28]),
+            "node_ffn_left": lin(28), "node_ffn_right": lin(30), "self_ffn": lin(32),
+            "ln": {"scale": leaves[34], "bias": leaves[35]}, "out": lin(36)}
+
+
+def _fused_block_leaves(blk: dict) -> List[torch.Tensor]:
+    """pallas_kernels.py:flatten_block_weights order (92): edge_emb, the
+    NodeBlock (edge_net, node_net, msg_net, gate, centroid_lin, ln, out),
+    the EdgeBlock (_edge_block_full_leaves) and PosUpdate."""
+    nb = blk["node_block"]
+    return (_linear_leaves(blk["edge_emb"]) + _node_block_leaves(nb)
+            + _linear_leaves(nb["centroid_lin"]) + _ln_leaves(nb["ln"]) + _linear_leaves(nb["out"])
+            + _edge_block_full_leaves(blk["edge_block"]) + _pos_update_leaves(blk["pos_block"]))
+
+
+def _fused_block_tree(leaves: Sequence[torch.Tensor]) -> dict:
+    nb = _node_block_tree(leaves[2:22])
+    nb.update(centroid_lin={"w": leaves[22], "b": leaves[23]},
+              ln={"scale": leaves[24], "bias": leaves[25]}, out={"w": leaves[26], "b": leaves[27]})
+    return {"edge_emb": {"w": leaves[0], "b": leaves[1]}, "node_block": nb,
+            "edge_block": _edge_block_full_tree(leaves[28:66]),
+            "pos_block": _pos_update_tree(leaves[66:92])}
+
+
+def _edge_block_full_shapes(dn: int, de: int, i_dim: int, g: int) -> List[tuple]:
+    """The 38 weight shapes of _edge_block_full_leaves (output width De)."""
+    chain = ([(de, i_dim), (dn, i_dim)] + _mlp_shapes(i_dim, i_dim, de)
+             + _mlp_shapes(de + dn + 1, g, de))
+    return chain + chain + [(dn, de), (de,), (dn, de), (de,), (de, de), (de,), (de,), (de,),
+                            (de, de), (de,)]
+
+
+def _edge_block_full_checks(kernel: str, params, h_bond, h_node, bond_time, pair_mask):
+    """Widths, weight leaves and the flat time vector of a full-EdgeBlock
+    call, after checking every operand -> (I, G, leaves, t)."""
+    dev = h_bond.device
+    b, n, dn = h_node.shape
+    de = h_bond.shape[-1]
+    left = params["bond_ffn_left"]
+    i_dim = left["bond_linear"]["w"].shape[1]
+    g = left["gate"]["layers"][0]["lin"]["w"].shape[1]
+    do = params["out"]["w"].shape[1]
+    _check_width(kernel, Dn=dn, De=de, I=i_dim, G=g, Do=do)
+    if do != de or g > i_dim or de > i_dim:
+        raise ValueError(f"{kernel}: the output width must equal De, and G and De must not "
+                         "exceed I")
+    leaves = _edge_block_full_leaves(params)
+    _check_weights(kernel, leaves, _edge_block_full_shapes(dn, de, i_dim, g), dev)
+    _check(f"{kernel} h_bond", h_bond, (b, n, n, de), torch.bfloat16, dev)
+    _check(f"{kernel} h_node", h_node, (b, n, dn), torch.bfloat16, dev)
+    t = _check_pairs(kernel, b, n, dev, pair_mask, bond_time)
+    return i_dim, g, leaves, t
+
+
+def edge_block_full(params, h_bond, h_node, bond_time, pair_mask):
+    """The whole EdgeBlock's delta (see edge_block_full_plain)."""
+    if h_bond.device.type == "cpu":
+        return edge_block_full_plain(params, h_bond, h_node, bond_time, pair_mask)
+    from . import build
+
+    dev = h_bond.device
+    b, n, dn = h_node.shape
+    de = h_bond.shape[-1]
+    i_dim, g, leaves, t = _edge_block_full_checks("edge_block_full", params, h_bond, h_node,
+                                                  bond_time, pair_mask)
+    _require_cuda("edge_block_full", dev)
+    lib = build.library()
+    np_ = torch.empty((2, b, n, i_dim), dtype=torch.float32, device=dev)
+    gpre = torch.empty((2, b, n, g), dtype=torch.float32, device=dev)
+    tu = torch.empty((2, b, n, de), dtype=torch.bfloat16, device=dev)
+    proj = torch.empty((2, b, n, de), dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(h_bond)
+    launched = ctypes.c_int(0)
+    rc = lib.md_edge_block_full_forward(
+        _pointers(leaves + [h_bond, h_node, pair_mask, t, np_, gpre, tu, proj, out]),
+        b, n, dn, de, i_dim, g, _stream(dev), ctypes.byref(launched))
+    build.check(lib, rc, "edge_block_full")
+    launch_counts["edge_block_full"] += launched.value
+    return out
+
+
+def edge_block_full_bwd(params, h_bond, h_node, bond_time, pair_mask, ct):
+    """The whole EdgeBlock's backward (see edge_block_full_bwd_plain)."""
+    if h_bond.device.type == "cpu":
+        return edge_block_full_bwd_plain(params, h_bond, h_node, bond_time, pair_mask, ct)
+    from . import build
+
+    dev = h_bond.device
+    b, n, dn = h_node.shape
+    de = h_bond.shape[-1]
+    i_dim, g, leaves, t = _edge_block_full_checks("edge_block_full_bwd", params, h_bond, h_node,
+                                                  bond_time, pair_mask)
+    _check("edge_block_full_bwd ct", ct, (b, n, n, de), torch.bfloat16, dev)
+    _require_cuda("edge_block_full_bwd", dev)
+    lib = build.library()
+    d_bond = torch.empty_like(h_bond)
+    d_node = torch.empty_like(h_node)
+    d_time = torch.empty((b,), dtype=torch.float32, device=dev)
+    d_mask = torch.empty((b, n, n), dtype=torch.float32, device=dev)
+    grads = _grad_buffers([tuple(x.shape) for x in leaves], dev)
+    ws = torch.empty((lib.md_edge_block_full_backward_workspace(b, n, dn, de, i_dim, g),),
+                     dtype=torch.uint8, device=dev)
+    launched = ctypes.c_int(0)
+    rc = lib.md_edge_block_full_backward(
+        _pointers(leaves + [h_bond, h_node, pair_mask, t, ct, d_bond, d_node, d_time, d_mask]
+                  + grads + [ws]),
+        b, n, dn, de, i_dim, g, _stream(dev), ctypes.byref(launched))
+    build.check(lib, rc, "edge_block_full_bwd")
+    launch_counts["edge_block_full_bwd"] += launched.value
+    d_params = _cast_like(_edge_block_full_tree(grads), params)
+    return (d_params, d_bond, d_node, d_time.reshape(bond_time.shape).to(bond_time.dtype),
+            d_mask.to(pair_mask.dtype))
+
+
+def _fused_block_dims(blk, h_node, h_edge, h_dist) -> List[int]:
+    """[B, N, Dn, De, Dh, H, I, G, Dl, Ip, Gp]: the batch, the NodeBlock's
+    hidden width H, the EdgeBlock chains' interior and gate widths I and G,
+    PosUpdate's node-MLP, interior and gate widths Dl, Ip and Gp."""
+    b, n, dn = h_node.shape
+    eb, el = blk["edge_block"]["bond_ffn_left"], blk["pos_block"]["edge_lin"]
+    return [b, n, dn, h_edge.shape[-1], h_dist.shape[-1],
+            blk["node_block"]["msg_net"]["w"].shape[0], eb["bond_linear"]["w"].shape[1],
+            eb["gate"]["layers"][0]["lin"]["w"].shape[1],
+            blk["pos_block"]["left_lin_edge"]["layers"][1]["lin"]["w"].shape[1],
+            el["bond_linear"]["w"].shape[1], el["gate"]["layers"][0]["lin"]["w"].shape[1]]
+
+
+def fused_block(blk, h_node, h_edge, h_dist, rel_vec, distance, node_time, pair_mask):
+    """One whole denoiser block (see fused_block_plain)."""
+    if h_node.device.type == "cpu":
+        return fused_block_plain(blk, h_node, h_edge, h_dist, rel_vec, distance, node_time,
+                                 pair_mask)
+    from . import build
+
+    dev = h_node.device
+    dims = _fused_block_dims(blk, h_node, h_edge, h_dist)
+    b, n, dn, de, dh, h, i_dim, g, dl, ip, gp = dims
+    _check_width("fused_block", Dn=dn, De=de, H=h, I=i_dim, G=g, Dl=dl, Ip=ip, Gp=gp)
+    if dh % 16 or not 16 <= dh <= 256:
+        raise ValueError(f"fused_block: Dh = {dh}; the kernel takes multiples of 16 up to 256")
+    if g > i_dim or de > i_dim:
+        raise ValueError("fused_block: the EdgeBlock's gate and edge widths must not exceed I")
+    if blk["pos_block"]["left_lin_edge"]["layers"][0]["lin"]["w"].shape[1] != dl:
+        raise ValueError("fused_block: the node MLPs' hidden width must equal their output")
+    shapes = ([(de + dh, de), (de,)]
+              + _mlp_shapes(de, h, h) + _mlp_shapes(dn, h, h) + [(h, h), (h,)]
+              + _mlp_shapes(de + dn + 1, h, h) + [(dn, h), (h,), (h,), (h,), (h, dn), (dn,)]
+              + _edge_block_full_shapes(dn, de, i_dim, g)
+              + _mlp_shapes(dn, dl, dl) * 2 + [(de, ip), (dl, ip)]
+              + _mlp_shapes(ip, ip, 1) + _mlp_shapes(de + dl + 1, gp, 1))
+    leaves = _fused_block_leaves(blk)
+    _check_weights("fused_block", leaves, shapes, dev)
+    _check("fused_block h_node", h_node, (b, n, dn), torch.bfloat16, dev)
+    _check("fused_block h_edge", h_edge, (b, n, n, de), torch.bfloat16, dev)
+    _check("fused_block h_dist", h_dist, (b, n, n, dh), torch.bfloat16, dev)
+    _check("fused_block rel_vec", rel_vec, (b, n, n, 3), torch.float32, dev, align=4)
+    _check("fused_block distance", distance, (b, n, n), torch.float32, dev, align=4)
+    t = _check_pairs("fused_block", b, n, dev, pair_mask, node_time)
+    _require_cuda("fused_block", dev)
+    lib = build.library()
+    dims_c = (ctypes.c_int * len(dims))(*dims)
+    node_out = torch.empty_like(h_node)
+    edge_out = torch.empty_like(h_edge)
+    pos_out = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
+    ws = torch.empty((lib.md_fused_block_forward_workspace(dims_c),), dtype=torch.uint8,
+                     device=dev)
+    launched = ctypes.c_int(0)
+    rc = lib.md_fused_block_forward(
+        _pointers(leaves + [h_node, h_edge, h_dist, rel_vec, distance, pair_mask, t, node_out,
+                            edge_out, pos_out, ws]),
+        dims_c, _stream(dev), ctypes.byref(launched))
+    build.check(lib, rc, "fused_block")
+    launch_counts["fused_block"] += launched.value
+    return node_out, edge_out, pos_out
+
+
+class _EdgeBlockFull(torch.autograd.Function):
+    """edge_block_full with the full-EdgeBlock backward kernel as its
+    gradient; saves only the inputs, the backward recomputes."""
+
+    @staticmethod
+    def forward(ctx, h_bond, h_node, bond_time, pair_mask, *leaves):
+        ctx.save_for_backward(h_bond, h_node, bond_time, pair_mask, *leaves)
+        return edge_block_full(_edge_block_full_tree(leaves), h_bond, h_node, bond_time,
+                               pair_mask)
+
+    @staticmethod
+    def backward(ctx, ct):
+        h_bond, h_node, bond_time, pair_mask, *leaves = ctx.saved_tensors
+        d_params, *d_inputs = edge_block_full_bwd(_edge_block_full_tree(leaves), h_bond, h_node,
+                                                  bond_time, pair_mask, ct.contiguous())
+        return (*d_inputs, *_edge_block_full_leaves(d_params))
+
+
+class _FusedBlock(torch.autograd.Function):
+    """fused_block whose gradient is that of ``recompute``, the partial
+    path's block on the same inputs with the node time as both times (the
+    port's counterpart of pallas_kernels.py:_fb_bwd, the VJP of
+    _xla_fused_block); saves only the inputs, the backward recomputes under
+    autograd and differentiates the recompute."""
+
+    @staticmethod
+    def forward(ctx, recompute, h_node, h_edge, h_dist, rel_vec, distance, node_time, pair_mask,
+                *leaves):
+        ctx.recompute = recompute
+        ctx.save_for_backward(h_node, h_edge, h_dist, rel_vec, distance, node_time, pair_mask,
+                              *leaves)
+        return fused_block(_fused_block_tree(leaves), h_node, h_edge, h_dist, rel_vec, distance,
+                           node_time, pair_mask)
+
+    @staticmethod
+    def backward(ctx, d_node, d_edge, d_pos):
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            args = [a.detach().requires_grad_(nd) for a, nd in zip(ctx.saved_tensors, need)]
+            outs = ctx.recompute(_fused_block_tree(args[7:]), *args[:7])
+            wrt = [a for a, nd in zip(args, need) if nd]
+            grads = iter(torch.autograd.grad(outs, wrt, (d_node, d_edge, d_pos),
+                                             allow_unused=True))
+        return (None, *[next(grads) if nd else None for nd in need])
+
+
+def edge_block_full_ad(params, h_bond, h_node, bond_time, pair_mask):
+    """Differentiable edge_block_full (forward and backward kernels)."""
+    return _EdgeBlockFull.apply(h_bond, h_node, bond_time, pair_mask,
+                                *_edge_block_full_leaves(params))
+
+
+def fused_block_ad(blk, recompute, h_node, h_edge, h_dist, rel_vec, distance, node_time,
+                   pair_mask):
+    """Differentiable fused_block: the whole-block kernel forward, the
+    gradient of ``recompute(blk, h_node, h_edge, h_dist, rel_vec, distance,
+    node_time, pair_mask)`` backward."""
+    return _FusedBlock.apply(recompute, h_node, h_edge, h_dist, rel_vec, distance, node_time,
+                             pair_mask, *_fused_block_leaves(blk))

@@ -68,11 +68,16 @@ def load_bond_predictor(checkpoint: str, featurizer, device: torch.device):
 
 
 def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
-                  batch_size: Optional[int] = None, bond_predictor: Optional[str] = None):
+                  batch_size: Optional[int] = None, bond_predictor: Optional[str] = None,
+                  denoiser: Optional[dict] = None):
     """(sampler, params) for a checkpoint, the ``sample`` settings and,
-    optionally, a bond-predictor checkpoint."""
+    optionally, a bond-predictor checkpoint and settings to set on the
+    checkpoint's ``model.denoiser`` (``{"fuse_block": True}``: the
+    whole-block kernel), as scripts/sample_drug3d.py:161 sets ``remat``."""
     ckpt = load_checkpoint(checkpoint, device)
     train_config = Config(ckpt["config"])
+    if denoiser:
+        train_config = train_config.merged({"model": {"denoiser": denoiser}})
     featurizer = featurizer_from_config(train_config)
     model = MolDiff(train_config.model, featurizer.num_node_types, featurizer.num_edge_types,
                     device=device)
@@ -105,8 +110,9 @@ def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
 def run(config: dict, device=None, outdir: str = "outputs_torch",
         num_mols: Optional[int] = None, batch_size: Optional[int] = None,
         run_name: str = "sample", log=print) -> dict:
-    """Sample per ``config`` ({'model': {'checkpoint'}, 'sample': {...}}),
-    write the outputs and return the summary."""
+    """Sample per ``config`` ({'model': {'checkpoint', optionally
+    'denoiser': settings set on the checkpoint's model.denoiser}, 'sample':
+    {...}}), write the outputs and return the summary."""
     device = resolve_device(device)
     scfg = dict(config["sample"])
     for key in ("num_steps", "save_traj_prob"):
@@ -116,7 +122,8 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
         raise NotImplementedError("only the ddpm position sampler is ported")
     torch.manual_seed(int(scfg["seed"]))
     sampler, params = build_sampler(config["model"]["checkpoint"], scfg, device, batch_size,
-                                    bond_predictor=config.get("bond_predictor"))
+                                    bond_predictor=config.get("bond_predictor"),
+                                    denoiser=config["model"].get("denoiser"))
     num_mols = num_mols or int(scfg["num_mols"])
     generator = torch.Generator(device=device)
     generator.manual_seed(int(scfg["seed"]))

@@ -6,10 +6,13 @@ of a few training steps of flagship_v2 (the loss, its gradient through the
 backward kernels, adamw and EMA) with the settings of
 configs/train/train_v2_cont.yml (train/settings.py), on one batch of v2
 molecules per bucket drawn at sizes inside the bucket, as chip_smoke.py's
-fine-tuning corpus.
+fine-tuning corpus. ``--fuse-block`` and ``--edge-full`` set those flags on
+the model config the trace builds (models/denoiser.py): the whole-block
+kernel in every block, or the full-EdgeBlock kernels.
 
   python -m moldiff_tpu_torch.sample.profile_steps [--batch 16 128]
-      [--bucket 32 40] [--steps 5] [--guided | --train] [--out outputs_torch/profile]
+      [--bucket 32 40] [--steps 5] [--guided | --train] [--fuse-block] [--edge-full]
+      [--out outputs_torch/profile]
 
 For each (batch, bucket) it runs WARMUP steps, times ``--steps`` steps with
 CUDA events, then traces as many more under torch.profiler and prints one
@@ -54,12 +57,16 @@ TRAIN_SIZES = {32: (20, 32), 40: (33, 38)}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the port's kernels (csrc/*.cu, each in an anonymous namespace):
 # <node|edge|pos>_<prep|pair>_kernel, the backward's
-# <node|edge|pos>_bwd_<pair|node>_kernel and grad.cu's three; PyTorch's own
-# reductions are also named reduce_kernel (at::native::reduce_kernel<...>),
-# so a name counts only unqualified or in the anonymous namespace
+# <node|edge|pos>_bwd_<pair|node>_kernel, grad.cu's three, the EdgeBlock
+# tail's tail_<prep|fwd|bwd_pair|bwd_node>_kernel and the whole block's
+# edge_emb_kernel and node_tail_kernel; PyTorch's own reductions are also
+# named reduce_kernel (at::native::reduce_kernel<...>), so a name counts
+# only unqualified or in the anonymous namespace
 PORT_KERNEL = re.compile(r"^(?:void )?(?:\(anonymous namespace\)::)?"
                          r"((?:node|edge|pos)_(?:prep|pair)_kernel"
                          r"|(?:node|edge|pos)_bwd_(?:pair|node)_kernel"
+                         r"|tail_(?:prep|fwd|bwd_pair|bwd_node)_kernel"
+                         r"|edge_emb_kernel|node_tail_kernel"
                          r"|wgrad_kernel|reduce_kernel|time_kernel)\b")
 
 
@@ -173,6 +180,7 @@ def profile_train(trainer, params, data: dict, steps: int, out_dir: str,
             state, _ = trainer.train_step(state, data, trainer.draw_noise(data, gen))
 
     return {"train": True, "batch": batch, "bucket": bucket,
+            "route": {k: trainer.model.denoiser_static[k] for k in ("fuse_block", "edge_full")},
             **_timed_and_traced(run, steps, dev, out_dir, f"trace_train_B{batch}_N{bucket}.json")}
 
 
@@ -203,6 +211,7 @@ def profile(model, params, batch: int, bucket: int, steps: int, out_dir: str,
 
     tag = "guided_" if guided else ""
     return {"guided": bool(guided), "batch": batch, "bucket": bucket,
+            "route": {k: model.denoiser_static[k] for k in ("fuse_block", "edge_full")},
             **_timed_and_traced(run, steps, dev, out_dir, f"trace_{tag}B{batch}_N{bucket}.json")}
 
 
@@ -219,11 +228,17 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                       help="guided steps (bondpred_v2, uncertainty guidance at 1e-4)")
     mode.add_argument("--train", action="store_true",
                       help="training steps (configs/train/train_v2_cont.yml)")
+    ap.add_argument("--fuse-block", action="store_true",
+                    help="model.denoiser.fuse_block: the whole-block kernel in every block")
+    ap.add_argument("--edge-full", action="store_true",
+                    help="model.denoiser.edge_full: the full-EdgeBlock kernels")
     ap.add_argument("--out", default=os.path.join("outputs_torch", "profile"))
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    sampler, params = build_sampler(CHECKPOINT, SETTINGS, device)
+    flags = {k: True for k, on in (("fuse_block", args.fuse_block),
+                                   ("edge_full", args.edge_full)) if on}
+    sampler, params = build_sampler(CHECKPOINT, SETTINGS, device, denoiser=flags)
     bond_predictor = (load_bond_predictor(BOND_PREDICTOR, sampler.featurizer, device)
                       if args.guided else None)
     trainer = None
@@ -232,7 +247,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         from ..train.settings import TRAIN_V2_CONT
         from ..train.trainer import Trainer
 
-        model = MolDiff(TRAIN_V2_CONT["model"], sampler.featurizer.num_node_types,
+        cfg = dict(TRAIN_V2_CONT["model"])
+        cfg["denoiser"] = dict(cfg["denoiser"], **flags)
+        model = MolDiff(cfg, sampler.featurizer.num_node_types,
                         sampler.featurizer.num_edge_types, device=device)
         trainer = Trainer(model, TRAIN_V2_CONT["train"])
     lines = []

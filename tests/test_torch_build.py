@@ -43,8 +43,8 @@ def test_build_is_one_nvcc_call_over_every_source(build_env, tmp_path):
         assert flag in calls[0]
     assert all(str(src) in calls[0] for src in build.sources())
     assert [p.name for p in build.sources()] == [
-        "edge_pair.cu", "edge_pair_bwd.cu", "grad.cu", "node_block.cu", "node_block_bwd.cu",
-        "pos_update.cu", "pos_update_bwd.cu"]
+        "edge_block_full.cu", "edge_pair.cu", "edge_pair_bwd.cu", "fused_block.cu", "grad.cu",
+        "node_block.cu", "node_block_bwd.cu", "pos_update.cu", "pos_update_bwd.cu"]
     assert "Used 96 registers" in build.build_log[0]
     # a finished build is reused, not rebuilt
     assert build.build() == lib
@@ -107,3 +107,23 @@ def test_trace_summary_keeps_torch_reductions_out_of_port_kernels():
     assert s["port_kernel_ms"] == {"pos_bwd_pair_kernel": pytest.approx(0.008),
                                    "reduce_kernel": pytest.approx(0.004)}
     assert s["other_kernel_ms"] == pytest.approx(0.006)
+
+
+def test_trace_summary_counts_the_whole_block_and_edge_tail_kernels():
+    """The kernels of the whole-block and full-EdgeBlock entry points
+    (fused_block.cu, edge_block_full.cu) count as the port's."""
+    events = [
+        _ev("kernel", "(anonymous namespace)::edge_emb_kernel(EmbArgs)", 0, 2),
+        _ev("kernel", "(anonymous namespace)::node_tail_kernel(NodeTailArgs)", 2, 3),
+        _ev("kernel", "(anonymous namespace)::tail_prep_kernel(TailArgs)", 5, 1),
+        _ev("kernel", "(anonymous namespace)::tail_fwd_kernel(TailArgs)", 6, 4),
+        _ev("kernel", "(anonymous namespace)::tail_bwd_pair_kernel(TailArgs)", 10, 5),
+        _ev("kernel", "(anonymous namespace)::tail_bwd_node_kernel(TailArgs)", 15, 2),
+        _ev("kernel", "void at::native::vectorized_elementwise_kernel<4>", 20, 1),
+    ]
+    s = summarize_trace(events, steps=1, step_ms=1.0)
+    assert s["launches"] == {"all": 7.0, "port": 6.0}
+    assert sorted(s["port_kernel_ms"]) == ["edge_emb_kernel", "node_tail_kernel",
+                                           "tail_bwd_node_kernel", "tail_bwd_pair_kernel",
+                                           "tail_fwd_kernel", "tail_prep_kernel"]
+    assert s["other_kernel_ms"] == pytest.approx(0.001)

@@ -2,8 +2,9 @@
 package, PyYAML, pandas nor ml_dtypes can be imported, as on a machine that
 has only PyTorch and numpy: every module imports, flagship_v2.ckpt loads,
 the demo checkpoint runs MolDiff.forward, one reverse step and one training
-step (on an in-memory corpus) on the CPU, in a fresh interpreter with those
-modules blocked."""
+step (on an in-memory corpus) on the CPU, and the same forward with
+fuse_block and a training step with edge_full, in a fresh interpreter with
+those modules blocked."""
 import json
 import os
 import subprocess
@@ -75,6 +76,24 @@ tstate = trainer.init_from_params(ck["params"])
 recs = make_corpus("./data/synthetic", 10)["train"]
 batch = batch_to_device(next(iter(BucketedLoader(recs, feat, 2, (16, 24, 32), prefetch=0))), "cpu")
 tstate, aux = trainer.train_step(tstate, batch, trainer.draw_noise(batch, g))
+assert tstate.step == 1 and all(bool(torch.isfinite(v)) for v in aux.values()), aux
+
+# the two other routes: a whole-block (fuse_block) forward and an
+# edge_full training step
+import copy
+from moldiff_tpu_torch.ops import kernels
+routed = {}
+for flag in ("fuse_block", "edge_full"):
+    cfg = copy.deepcopy(ck["config"]["model"])
+    cfg["denoiser"][flag] = True
+    routed[flag] = MolDiff(cfg, feat.num_node_types, feat.num_edge_types, device="cpu")
+    assert routed[flag].denoiser_static[flag]
+fused = routed["fuse_block"].forward(ck["params"], state.h_node, state.pos, state.h_halfedge, t,
+                                     node_mask)
+assert all(bool(torch.isfinite(x).all()) for x in fused)
+trainer = Trainer(routed["edge_full"], train_cfg)
+tstate, aux = trainer.train_step(trainer.init_from_params(ck["params"]), batch,
+                                 trainer.draw_noise(batch, g))
 assert tstate.step == 1 and all(bool(torch.isfinite(v)) for v in aux.values()), aux
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded

@@ -180,3 +180,151 @@ def test_reverse_step_given_same_noise(demo, commit):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
     if commit == "nodes":
         assert (out.com_node.numpy() >= 0).sum() > (com_node >= 0).sum()  # a reveal happened
+
+
+# ---------------------------------------------------------------------------
+# the two route knobs: fuse_block (row 2) and edge_full (rows 6, 7)
+# ---------------------------------------------------------------------------
+
+SB, SN, SDN, SDE, SBLOCKS = 3, 8, 64, 32, 2
+
+
+@pytest.fixture(scope="module")
+def small_net():
+    """A narrow 2-block gated denoiser (random weights) and padded inputs
+    (8, 6 and 2 atoms)."""
+    from torch_port_util import np_tree
+
+    params, _ = jden.init_node_edge_net(jax.random.key(5), SDN, SDE, num_blocks=SBLOCKS,
+                                        cutoff=10.0, use_gate=True)
+    rng = np.random.default_rng(9)
+    node_mask = (np.arange(SN)[None] < np.array([8, 6, 2])[:, None]).astype(np.float32)
+    pair = (node_mask[:, :, None] * node_mask[:, None, :]
+            * (1 - np.eye(SN, dtype=np.float32))).astype(np.float32)
+    inputs = (rng.normal(size=(SB, SN, SDN)).astype(np.float32),
+              (rng.normal(size=(SB, SN, 3)) * 2 * node_mask[..., None]).astype(np.float32),
+              rng.normal(size=(SB, SN, SN, SDE)).astype(np.float32),
+              rng.uniform(size=(SB, 1, 1)).astype(np.float32), pair)
+    return np_tree(params), inputs
+
+
+def _small_static(lib, dtype, **flags):
+    return lib.denoiser_static_config(num_blocks=SBLOCKS, cutoff=10.0, use_gate=True,
+                                      dtype=dtype, remat=False, use_pallas=True,
+                                      pallas_bwd=True, **flags)
+
+
+def _jax_net(small_net, dtype, **flags):
+    """JAX's node_edge_net with the flags on its kernel path, every Pallas
+    kernel interpreted."""
+    from moldiff_tpu.ops import pallas_kernels
+
+    params, (h_node, pos, h_edge, tn, pair) = small_net
+    static = _small_static(jden, dtype, **flags)
+    saved = pallas_kernels.INTERPRET
+    pallas_kernels.INTERPRET = True
+    try:
+        out = jax.jit(lambda p, *a: jden.node_edge_net(p, static, *a, remat=False))(
+            params, h_node, pos, h_edge, tn, tn, pair)
+    finally:
+        pallas_kernels.INTERPRET = saved
+    return [to_np(o) for o in out]
+
+
+def _torch_net(small_net, dtype, **flags):
+    from torch_port_util import torch_tree
+
+    params, (h_node, pos, h_edge, tn, pair) = small_net
+    with torch.no_grad():
+        out = tden.node_edge_net(torch_tree(params), _small_static(tden, dtype, **flags),
+                                 *map(torch.tensor, (h_node, pos, h_edge, tn, tn, pair)))
+    return [to_np(o) for o in out]
+
+
+ROUTES = [{"fuse_block": True}, {"edge_full": True}]
+
+
+@pytest.fixture(scope="module")
+def jax_routes(small_net):
+    return {(k, dt): _jax_net(small_net, dt, **{k: True})
+            for k in ("fuse_block", "edge_full") for dt in ("float32", "bfloat16")}
+
+
+@pytest.mark.parametrize("flags", ROUTES, ids=lambda f: next(iter(f)))
+def test_node_edge_net_route_f32(small_net, jax_routes, flags):
+    """float32: node_edge_net with fuse_block (row 2) or edge_full (rows 6,
+    7) equals JAX's node_edge_net with the same flags on its Pallas path,
+    each output to 1e-4 of its range (the kernels' own tolerance)."""
+    want = jax_routes[(next(iter(flags)), "float32")]
+    got = _torch_net(small_net, "float32", **flags)
+    for w, g in zip(want, got):
+        assert g.shape == w.shape
+        assert max_err(g, w) <= 1e-4 * max(np.abs(w).max(), 1.0)
+
+
+@pytest.mark.parametrize("flags", ROUTES, ids=lambda f: next(iter(f)))
+def test_node_edge_net_route_bf16(small_net, jax_routes, flags):
+    """bf16 compute: error against JAX's float32 result with the same flags
+    within 2x that of JAX's bf16 result with them (the bf16 rule above)."""
+    name = next(iter(flags))
+    ref, want = jax_routes[(name, "float32")], jax_routes[(name, "bfloat16")]
+    got = _torch_net(small_net, "bfloat16", **flags)
+    for r, w, g in zip(ref, want, got):
+        assert np.isfinite(g).all()
+        assert max_err(g, r) <= 2 * max_err(w, r)
+
+
+def _count_calls(monkeypatch):
+    """Count the plain versions each route reaches (the wrappers take them
+    for CPU tensors)."""
+    from moldiff_tpu_torch.ops import kernels
+
+    calls = {}
+    for name in ("fused_block_plain", "edge_block_full_plain", "edge_pair_aggregate_plain",
+                 "node_block_aggregate_plain", "pos_update_plain"):
+        def counted(*a, _f=getattr(kernels, name), _n=name):
+            calls[_n] = calls.get(_n, 0) + 1
+            return _f(*a)
+        monkeypatch.setattr(kernels, name, counted)
+    return calls
+
+
+def test_fuse_block_takes_precedence_over_edge_full(small_net, monkeypatch):
+    """With both flags a block that updates edges and positions is the
+    whole-block kernel (denoiser.py:521-535 returns before the EdgeBlock):
+    the result is fuse_block's alone."""
+    calls = _count_calls(monkeypatch)
+    both = _torch_net(small_net, "float32", fuse_block=True, edge_full=True)
+    assert calls == {"fused_block_plain": SBLOCKS}
+    calls.clear()
+    fused = _torch_net(small_net, "float32", fuse_block=True)
+    for a, b in zip(both, fused):
+        np.testing.assert_array_equal(a, b)
+    calls.clear()
+    _torch_net(small_net, "float32", edge_full=True)
+    assert calls == {"node_block_aggregate_plain": SBLOCKS, "edge_block_full_plain": SBLOCKS,
+                     "pos_update_plain": SBLOCKS}
+
+
+def test_bond_predictor_never_takes_row_2(small_net, monkeypatch):
+    """The bond predictor's setting (update_pos false) never takes the
+    whole-block kernel; its edge_full takes rows 6 and 7, as
+    denoiser.py:521-526 and :235-244 read the flags."""
+    from torch_port_util import torch_tree
+
+    from moldiff_tpu_torch.models.bond_predictor import BondPredictor
+
+    params, (h_node, pos, h_edge, tn, pair) = small_net
+    calls = _count_calls(monkeypatch)
+    static = dict(_small_static(tden, "float32", fuse_block=True, edge_full=True),
+                  update_pos=False)
+    with torch.no_grad():
+        out = tden.node_edge_net(torch_tree(params), static,
+                                 *map(torch.tensor, (h_node, pos, h_edge, tn, tn, pair)))
+    assert calls == {"node_block_aggregate_plain": SBLOCKS, "edge_block_full_plain": SBLOCKS}
+    np.testing.assert_array_equal(out[1].numpy(), pos)
+    ck = load_checkpoint("ckpts/bondpred_v2.ckpt", device="cpu")
+    cfg = dict(ck["config"]["model"])
+    cfg["encoder"] = dict(cfg["encoder"], fuse_block=True)
+    bp = BondPredictor(cfg, 8, 6, device="cpu")
+    assert bp.encoder_static["fuse_block"] and not bp.encoder_static["update_pos"]

@@ -183,6 +183,51 @@ def test_every_gradient_bf16_kernel_path(small_params, grads_f32):
         assert e <= max(4 * w, 1e-2), (path, e, w)
 
 
+@pytest.mark.parametrize("flag", ["edge_full", "fuse_block"])
+def test_every_gradient_f32_route(small_params, grads_f32, flag):
+    """float32 with edge_full (rows 6 and 7) or fuse_block (row 2 forward,
+    the partial path's block differentiated): every parameter gradient
+    equals jax.grad of JAX's get_loss (XLA path) to 1e-4 of the leaf's
+    scale, as test_every_gradient_f32."""
+    (_, _, gj), _ = grads_f32
+    cfg = _small_model_cfg("float32")
+    cfg["denoiser"][flag] = True
+    _, _, gt = _torch_grads(cfg, small_params, _batch(0), jax.random.key(7))
+    paths = jax.tree_util.tree_flatten_with_path(gj)[0]
+    assert len(paths) == len(toptim.tree_leaves(gt))
+    for (path, w), g in zip(paths, toptim.tree_leaves(gt)):
+        w = np.asarray(w, np.float32)
+        scale = np.abs(w).max() + 1e-12
+        assert np.abs(to_np(g) - w).max() <= 1e-4 * scale, (jax.tree_util.keystr(path),
+                                                              np.abs(to_np(g) - w).max(), scale)
+
+
+def test_every_gradient_bf16_edge_full_kernel_path(small_params, grads_f32):
+    """bf16 compute with edge_full: the port's full-EdgeBlock path (plain
+    versions on the CPU) against the float32 truth, within 2x the error of
+    JAX's own edge_full path (use_pallas + pallas_bwd + edge_full, Pallas in
+    interpret mode) summed over leaves, and per leaf within 4x (or 1e-2 of
+    the leaf's scale), the rule of test_every_gradient_bf16_kernel_path."""
+    (_, _, truth), _ = grads_f32
+    batch, key = _batch(0), jax.random.key(7)
+    jcfg = _small_model_cfg("bfloat16", pallas=True)
+    jcfg["denoiser"]["edge_full"] = True
+    saved = pallas_kernels.INTERPRET
+    pallas_kernels.INTERPRET = True
+    try:
+        loss_j, _, gj = _jax_grads(jcfg, small_params, batch, key)
+    finally:
+        pallas_kernels.INTERPRET = saved
+    tcfg = _small_model_cfg("bfloat16")
+    tcfg["denoiser"]["edge_full"] = True
+    loss_t, _, gt = _torch_grads(tcfg, small_params, batch, key)
+    assert math.isfinite(loss_t) and loss_t == pytest.approx(loss_j, rel=2e-2)
+    errs = _leaf_errors(gt, gj, truth)
+    assert sum(e for _, e, _ in errs) <= 2 * sum(w for _, _, w in errs)
+    for path, e, w in errs:
+        assert e <= max(4 * w, 1e-2), (path, e, w)
+
+
 def test_loss_on_flagship_weights():
     """The loss on the committed flagship_v2 weights at B = 2, N = 32 (float32)
     equals JAX's, term by term."""
