@@ -4,7 +4,7 @@
   python3 chip_smoke.py                 # the smoke run (one card, < 10 min)
   python3 chip_smoke.py --num-mols 192 --batch-size 128 --budget-s 700
                                         # a longer sampling phase, for the success rate
-  python3 chip_smoke.py --num-mols 8 --guided-num-mols 160 --guided-batch-size 128 \
+  python3 chip_smoke.py --num-mols 8 --guided-num-mols 1000 --guided-batch-size 128 \
       --budget-s 3300                   # a longer guided phase, for its success rate
   python3 chip_smoke.py --fuse-num-mols 1000 --fuse-batch-size 128 --budget-s 3300
                                         # a longer path-B phase (fuse_block), for its rate
@@ -26,14 +26,18 @@ Phases, each asserting and none catching a failure:
      versions on every output (each parameter gradient included), block-0
      weights of ckpts/bondpred_v2.ckpt (rows 3, 5) and of flagship_v2
      (rows 7, 9), B = 16, N = 32 and 40, seeded inputs, cotangents and
-     masks; times by CUDA events;
+     masks; times by CUDA events; rows 3 and 5 also in their inputs-only
+     mode (no parameter gradients, with and without d_t): its outputs
+     equal the full mode's bit for bit and the plain version's within the
+     tolerance, and it launches no grad.cu kernel but the time kernel;
   7. gradient check: one bond_guidance_delta (uncertainty) at B = 16 with
      the kernels against the same delta with the plain versions;
   8. guided sampling: run() with the settings of
      configs/sample/sample_flagship_v2_guided.yml but the model's bonds (as
      the JAX gate results/gate_r5_guided_modelbonds.json): flagship_v2
      steered by bondpred_v2, uncertainty guidance at 1e-4, T = 1000; each
-     backward kernel's launches must equal its launches per call x 8
+     backward kernel's launches must equal its inputs-only launches per
+     call (guidance differentiates positions alone: no grad.cu launch) x 8
      predictor blocks x T x chains, each forward kernel's those of the
      denoiser's 6 blocks plus (node_block, edge_pair) the predictor's 8;
   9. training gradient check: one get_loss + backward of flagship_v2 with
@@ -49,7 +53,8 @@ Phases, each asserting and none catching a failure:
      checkpoint it wrote reloaded in the port;
  11. fine-tuning kernel checks: each of the six kernels at batch 128, N = 40
      on the arguments of its first call in one loss and backward of a
-     corpus batch, against its plain version on every output;
+     corpus batch, against its plain version on every output (rows 3 and 5
+     in both modes);
  12. path B, the whole-block kernel (row 2): flagship_v2 with
      model.denoiser.fuse_block set in memory; phase 4's forward check, then
      run() with the unguided settings, each step's launches 6 x row 2's
@@ -200,6 +205,12 @@ KERNELS = {
     "edge_block_full_bwd": ("moldiff_tpu_torch/csrc/edge_block_full.cu",
                             "moldiff_tpu/ops/pallas_kernels.py:1474"),
 }
+# the backward kernels with an inputs-only mode (guidance: no parameter
+# gradient is read), and the grad.cu launches their full mode makes per
+# call (weight gradients, time, reduction), none of which the inputs-only
+# mode without d_t makes
+INPUTS_ONLY_KERNELS = ("node_block_bwd", "edge_pair_bwd")
+GRAD_CU_LAUNCHES = 3
 # the partial path's kernels (every configuration's default)
 FORWARD_KERNELS = ("node_block", "edge_pair", "pos_update")
 BACKWARD_KERNELS = ("node_block_bwd", "edge_pair_bwd", "pos_update_bwd")
@@ -257,11 +268,13 @@ def _numel(tree) -> int:
     return tree.numel()
 
 
-def work(name: str, blk: dict, b: int, n: int) -> tuple:
+def work(name: str, blk: dict, b: int, n: int, inputs_only: bool = False) -> tuple:
     """(FLOPs, bytes) one call needs: every product of the chain (for a
     backward kernel: the forward recompute, the input-gradient products and
     the weight-gradient products), each input read once and each output
-    written once, bf16 weights read once (float32 gradients written once)."""
+    written once, bf16 weights read once (float32 gradients written once).
+    inputs_only (rows 3 and 5, guidance's mode): no weight-gradient product
+    and no gradient written."""
     nb, eb = blk["node_block"], blk["edge_block"]
     pairs, nodes = b * n * n, b * n
     if name == "fused_block":
@@ -300,6 +313,8 @@ def work(name: str, blk: dict, b: int, n: int) -> tuple:
             return flops, io + 2 * weights
         flops = pairs * (12 * de * h + 18 * h * h) + nodes * (12 * dn * h + 6 * h * h)
         io = pairs * (2 * de + 4 + 2 * de + 4) + nodes * (2 * dn + 2 * h + 2 * dn) + 8 * b
+        if inputs_only:
+            return 2 * flops // 3, io + 2 * weights
         return flops, io + 6 * weights
     if name in ("edge_pair", "edge_pair_bwd"):
         side = eb["bond_ffn_left"]
@@ -316,6 +331,8 @@ def work(name: str, blk: dict, b: int, n: int) -> tuple:
             return flops, io + 2 * weights
         flops = 2 * 3 * (pairs * per_pair + nodes * per_node)
         io = pairs * (2 * de + 4 + 2 * de + 4) + nodes * (2 * dn + 2 * 2 * do + 2 * dn) + 8 * b
+        if inputs_only:
+            return 2 * flops // 3, io + 2 * weights
         return flops, io + 6 * weights
     pb = blk["pos_block"]
     el = pb["edge_lin"]
@@ -581,9 +598,71 @@ def pos_backward_calls(blk: dict, b: int, n: int, seed: int, device) -> dict:
                                     inp["pair_mask"], ct_e)}
 
 
+def as_wrapper(name: str, fn):
+    """fn (a plain version, or any stand-in) in the place of kernel
+    ``name``'s wrapper: rows 3 and 5 take the two backward modes' flags
+    (ops/kernels.py), and fn computes everything; what is not asked for is
+    dropped, as the wrappers drop it."""
+    from moldiff_tpu_torch.ops import kernels as K
+
+    if name not in INPUTS_ONLY_KERNELS:
+        return fn
+    return lambda *args, need_params=True, need_time=True: K._drop(fn(*args), need_params,
+                                                                   need_time, 3)
+
+
+def check_modes(name: str, args: tuple, wblk: dict, results: dict, what: str,
+                keep: bool = False, iters: int = 20) -> None:
+    """Row 3 or 5 in its inputs-only mode (need_params=False; with and
+    without need_time) on the arguments of a full-mode check: every output
+    it forms must equal the full mode's bit for bit (the same arithmetic
+    makes it) and the plain version's under compare(), and it launches no
+    grad.cu kernel but the time kernel when d_t is asked for. Records the
+    launches per call of guidance's mode (no d_t) and, with ``keep``, its
+    time beside its bound."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels as K
+
+    kern_fn = getattr(K, KERNEL_FUNCTIONS[name])
+    plain_fn = getattr(K, KERNEL_FUNCTIONS[name] + "_plain")
+    full_calls = results[name]["per_call"]
+    with torch.no_grad():
+        full = kern_fn(*args)
+        want = plain_fn(*args)
+        for need_time in (True, False):
+            before = K.launch_counts[name]
+            got = kern_fn(*args, need_params=False, need_time=need_time)
+            per_call = K.launch_counts[name] - before
+            torch.cuda.synchronize()
+            assert got[0] is None and (got[3] is None) != need_time, name
+            for k, (g, f, w) in enumerate(zip(got, full, want)):
+                if g is None:
+                    continue
+                assert torch.equal(g, f), (f"{name} {what}: inputs-only output {k} differs "
+                                           "from the full mode's")
+                compare(f"{name} {what} inputs-only output {k}", g, w)
+            # the full mode's grad.cu launches: weight gradients, time, reduction
+            assert per_call == full_calls - (2 if need_time else GRAD_CU_LAUNCHES), (
+                name, need_time, per_call, full_calls)
+        ms = median_ms(lambda: kern_fn(*args, need_params=False, need_time=False), warmup=2,
+                       iters=iters)
+    b, n = args[1].shape[:2]
+    flops, nbytes = work(name, wblk, b, n, inputs_only=True)
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    say(f"kernel {name} {what} inputs-only (bit-equal to the full mode): ms {ms:.4f} bound_ms "
+        f"{bound:.5f} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB) launches/call "
+        f"{per_call} (with d_t: {per_call + 1}; grad.cu: 0)")
+    r = results[name]
+    assert r.setdefault("per_call_guided", per_call) == per_call
+    if keep:
+        r.update(inputs_ms=ms, inputs_bound_ms=bound)
+
+
 def check_backward(blk: dict, pos_blk: dict, device) -> dict:
     """Phase 6: each backward kernel against its plain version on every
     output, B = 16, N = 32 and 40; times at both, the N = 32 ones kept.
+    Rows 3 and 5 in both modes (check_modes).
     NodeBlock and EdgeBlock at the predictor's widths (``blk``), PosUpdate
     and the full EdgeBlock at the denoiser's (``pos_blk``)."""
     results = {}
@@ -594,6 +673,8 @@ def check_backward(blk: dict, pos_blk: dict, device) -> dict:
             pos_blk, 16, n, seed=200 + n, device=device).items()]
         for name, args, wblk in calls:
             check_call(name, args, wblk, results, f"B=16 N={n}", keep=n == 32, plain_iters=3)
+            if name in INPUTS_ONLY_KERNELS:
+                check_modes(name, args, wblk, results, f"B=16 N={n}", keep=n == 32)
     return results
 
 
@@ -623,7 +704,7 @@ def check_gradient(model, bp, bp_params, device) -> None:
              "edge_pair_aggregate_bwd")
     saved = {k: getattr(K, k) for k in names}
     for k in names:
-        setattr(K, k, getattr(K, k + "_plain"))
+        setattr(K, k, as_wrapper(k.replace("_aggregate_bwd", "_bwd"), getattr(K, k + "_plain")))
     try:
         want = bond_guidance_delta(*args)
     finally:
@@ -772,7 +853,8 @@ def check_train_gradient(params, records: list, device, settings: dict, b: int =
     batch = train_batch(records, b, n, device)
     noise = model.draw_loss_noise(b, n, torch.Generator(device=device).manual_seed(9))
     kern = {name: getattr(K, fn) for name, fn in KERNEL_FUNCTIONS.items()}
-    plain = {name: getattr(K, fn + "_plain") for name, fn in KERNEL_FUNCTIONS.items()}
+    plain = {name: as_wrapper(name, getattr(K, fn + "_plain"))
+             for name, fn in KERNEL_FUNCTIONS.items()}
 
     def loss_and_grads(m, use: dict):
         """use: kernel name -> the function its wrapper's name stands for."""
@@ -879,9 +961,9 @@ def check_train_kernels(params, records: list, results: dict, device, settings: 
     captured = {}
 
     def recorder(name):
-        def call(*args):
+        def call(*args, **flags):
             captured.setdefault(name, args)
-            return kern[name](*args)
+            return kern[name](*args, **flags)
         return call
 
     for name, fn in KERNEL_FUNCTIONS.items():
@@ -897,8 +979,10 @@ def check_train_kernels(params, records: list, results: dict, device, settings: 
     blk0 = model.prepare(params)[0]
     assert sorted(captured) == sorted(TRAIN_ROUTES[route(settings)]), sorted(captured)
     for name in names:
-        check_call(name, captured[name], blk0, results,
-                   f"B={b} N={n} (a corpus batch, denoiser widths)", iters=10, plain_iters=3)
+        what = f"B={b} N={n} (a corpus batch, denoiser widths)"
+        check_call(name, captured[name], blk0, results, what, iters=10, plain_iters=3)
+        if name in INPUTS_ONLY_KERNELS:
+            check_modes(name, captured[name], blk0, results, what, iters=10)
 
 
 def fine_tune(corpus: dict, results: dict, device, settings: dict,
@@ -1128,7 +1212,10 @@ def main() -> None:
         per_step = {"node_block": dn_blocks + bp_blocks, "edge_pair": dn_blocks + bp_blocks,
                     "pos_update": dn_blocks, "node_block_bwd": bp_blocks,
                     "edge_pair_bwd": bp_blocks}.get(name, 0)
-        g_expected[name] = results[name]["per_call"] * per_step * steps * g_chains
+        # guidance differentiates positions only: rows 3 and 5 run inputs-only
+        per_call = results[name]["per_call_guided" if name in INPUTS_ONLY_KERNELS
+                                 else "per_call"]
+        g_expected[name] = per_call * per_step * steps * g_chains
     say(f"guided sampling: {g_chains} chains x {steps} steps, launches {g_counts}, "
         f"expected {g_expected}")
     assert g_counts == g_expected, (g_counts, g_expected)
@@ -1193,7 +1280,10 @@ def main() -> None:
          "max_abs_err": results[name]["max_abs_err"],
          "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound_ms"], "bound_by": results[name]["bound_by"],
-         "library_ms": None}
+         "library_ms": None,
+         **({"inputs_ms": results[name]["inputs_ms"],
+             "inputs_bound_ms": results[name]["inputs_bound_ms"]}
+            if name in INPUTS_ONLY_KERNELS else {})}
         for name, (src, replaces) in KERNELS.items()]}
     say(LIBRARY_NOTE)
     say(json.dumps(line))

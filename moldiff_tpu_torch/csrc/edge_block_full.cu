@@ -33,8 +33,9 @@
 // tail backward pair kernel (32 pairs per CTA) that writes d_h, the relu
 // output and the self term of d_bond per pair, a node kernel that forms
 // both sums of d_h in order and the node FFNs' d_node, the chains' backward
-// (7 launches, no prep) and the tail's weight gradients and reductions
-// (2): 14 launches. Every element has one writer; no float atomics.
+// (6 launches, no prep) and the tail's weight gradients and reductions
+// (2): 13 launches. The tail's weight-gradient operands are stored in the
+// form grad.cu's product takes (bf16; float32 ones also as hi + lo planes). Every element has one writer; no float atomics.
 // Outputs go to fresh buffers.
 #include "grad.cuh"
 
@@ -60,12 +61,14 @@ struct TailArgs {
   int residual;        // 1: bf16 adds of the broadcast terms, out = e + delta
   // backward
   const bf16* ct;      // [B,N,N,De] cotangent of the delta
-  float* dct32;        // [B,N,N,De] ct as float32 (the out weight's gradient operand)
+  bf16* dct;           // [B,N,N,De] ct, the out weight's gradient operand
   bf16* r;             // [B,N,N,De] relu output
   float* dh;           // [B,N,N,De] cotangent of h
+  md::Split dhs;       // the same as the self_ffn weight's gradient operand
   float* dbond;        // [B,N,N,De] d_h @ Wsf^T
   float* vecpart;      // [pair tiles, kTailVecs, De]
   float* dproj;        // [2,B,N,De] d_h summed over columns (0) and rows (1)
+  md::Split dprojs;    // the same as the node FFNs' gradient operand
   float* dnode;        // [B,N,Dn] the node FFNs' d_node
   float* nodepart;     // [node tiles, 2, De] column sums of dproj
   int B, N, Dn, De;
@@ -210,7 +213,7 @@ __global__ void __launch_bounds__(md::kThreads) tail_bwd_pair_kernel(const TailA
         if (r < ri) {
           const size_t o = (p0 + r) * De + c;
           a.r[o] = h;
-          a.dct32[o] = md::bf(sCt[r * ldb + c]);
+          a.dct[o] = sCt[r * ldb + c];
         }
       }
   }
@@ -238,7 +241,10 @@ __global__ void __launch_bounds__(md::kThreads) tail_bwd_pair_kernel(const TailA
           const float d = r < ri ? dy[q] : 0.0f;
           acc[3][q] += d;
           X[2][r * ldb + c] = md::tobf(d);
-          if (r < ri) a.dh[(p0 + r) * De + c] = d;
+          if (r < ri) {
+            a.dh[(p0 + r) * De + c] = d;
+            md::put(a.dhs, (p0 + r) * De + c, d);
+          }
         }
     }
     md::flush_columns<kTailVecs>(acc, nq, sPart, a.vecpart + (size_t)blockIdx.x * kTailVecs * De,
@@ -277,6 +283,8 @@ __global__ void __launch_bounds__(md::kThreads) tail_bwd_node_kernel(const TailA
       }
       a.dproj[node * De + c] = sl;
       a.dproj[((size_t)total + node) * De + c] = sr;
+      md::put(a.dprojs, node * De + c, sl);
+      md::put(a.dprojs, ((size_t)total + node) * De + c, sr);
     }
     X0[r * ldb + c] = md::tobf(sl);
     X1[r * ldb + c] = md::tobf(sr);
@@ -320,12 +328,14 @@ struct FullBwdWork {
   float* gpre;
   bf16* tu;
   bf16* proj;
-  float* dct32;
+  bf16* dct;
   bf16* r;
   float* dh;
+  md::Split dhs;
   float* dbond;
   float* vecpart;
   float* dproj;
+  md::Split dprojs;
   float* dnode;
   float* nodepart;
   float* slots[4];
@@ -357,19 +367,21 @@ FullBwdWork carve_full(unsigned char* base, int B, int N, int Dn, int De, int I,
   w.gpre = cv.take<float>(2 * BN * G);
   w.tu = cv.take<bf16>(2 * BN * De);
   w.proj = cv.take<bf16>(2 * BN * De);
-  w.dct32 = cv.take<float>(P * De);
+  w.dct = cv.take<bf16>(P * De);
   w.r = cv.take<bf16>(P * De);
   w.dh = cv.take<float>(P * De);
+  w.dhs = cv.split(P * De);
   w.dbond = cv.take<float>(P * De);
   w.vecpart = cv.take<float>(tiles * kTailVecs * De);
   w.dproj = cv.take<float>(2 * BN * De);
+  w.dprojs = cv.split(2 * BN * De);
   w.dnode = cv.take<float>(BN * Dn);
   w.nodepart = cv.take<float>(ntiles * 2 * De);
   TailJob jobs[4];
   tail_jobs(B, N, Dn, De, jobs);
   for (int k = 0; k < 4; ++k)
     w.slots[k] = cv.take<float>(md::wgrad_slot_floats(jobs[k].rows, jobs[k].k1, jobs[k].k2));
-  w.chain = cv.take<unsigned char>(md::edge_chain_bwd_bytes(B, N, Dn, De, I, G, De));
+  w.chain = cv.take<unsigned char>(md::edge_chain_bwd_bytes(B, N, Dn, De, I, G, De, 1));
   w.bytes = cv.off;
   return w;
 }
@@ -463,12 +475,14 @@ int md_edge_block_full_backward(const void* const* p, int B, int N, int Dn, int 
   a.tu = w.tu;
   a.proj = w.proj;
   a.ct = static_cast<const bf16*>(p[42]);
-  a.dct32 = w.dct32;
+  a.dct = w.dct;
   a.r = w.r;
   a.dh = w.dh;
+  a.dhs = w.dhs;
   a.dbond = w.dbond;
   a.vecpart = w.vecpart;
   a.dproj = w.dproj;
+  a.dprojs = w.dprojs;
   a.dnode = w.dnode;
   a.nodepart = w.nodepart;
   a.B = B; a.N = N; a.Dn = Dn; a.De = De;
@@ -529,10 +543,11 @@ int md_edge_block_full_backward(const void* const* p, int B, int N, int Dn, int 
   TailJob tj[4];
   tail_jobs(B, N, Dn, De, tj);
   md::WgradJob jobs[4] = {
-      {w.r, w.dct32, w.slots[0], tj[0].rows, De, De, De, De, 0},
-      {e, w.dh, w.slots[1], tj[1].rows, De, De, De, De, 0},
-      {x, w.dproj, w.slots[2], tj[2].rows, Dn, De, Dn, De, 0},
-      {x, w.dproj + (size_t)BN * De, w.slots[3], tj[3].rows, Dn, De, Dn, De, 0}};
+      {w.r, nullptr, w.dct, nullptr, w.slots[0], tj[0].rows, De, De, De, De},
+      {e, nullptr, w.dhs.hi, w.dhs.lo, w.slots[1], tj[1].rows, De, De, De, De},
+      {x, nullptr, w.dprojs.hi, w.dprojs.lo, w.slots[2], tj[2].rows, Dn, De, Dn, De},
+      {x, nullptr, w.dprojs.hi + (size_t)BN * De, w.dprojs.lo + (size_t)BN * De, w.slots[3],
+       tj[3].rows, Dn, De, Dn, De}};
   err = md::launch_wgrad(jobs, 4, s);
   if (err != cudaSuccess) return err;
   ++*launched;

@@ -1,21 +1,24 @@
-// Shared pieces of the backward pair kernels (node_block_bwd.cu,
+// Shared pieces of the backward kernels (node_block_bwd.cu,
 // edge_pair_bwd.cu, pos_update_bwd.cu, edge_block_full.cu): transposed-weight
 // tile products, the float32 split into two bf16 halves, the LayerNorm
-// backward of one row held by a warp, per-tile column sums, the host
-// launchers of the weight-gradient, reduction and time kernels of grad.cu,
-// and the host launchers that the full-EdgeBlock and whole-block entry
-// points (edge_block_full.cu, fused_block.cu) share with the others.
+// backward of one row held by a warp, per-tile column sums (the node-level
+// kernels and the PosUpdate and EdgeBlock-tail kernels, on 32-row tiles;
+// the redesigned NodeBlock and EdgeBlock pair kernels use wgmma.cuh), the
+// weight-gradient operands' form, the host launchers of the
+// weight-gradient, reduction and time kernels of grad.cu, and the host
+// launchers that the full-EdgeBlock and whole-block entry points
+// (edge_block_full.cu, fused_block.cu) share with the others.
 //
 // Parameter gradients are sums over every pair of the batch. A CTA of the
-// pair kernels owns one tile of at most kBwdRows pairs and has no room for
-// 256 x 256 float32 accumulators, and the TPU's pattern (accumulating into
-// one output block across a sequential grid) has no counterpart on a
-// parallel grid. So the pair kernels write, per pair, the activations and
-// cotangents that the weight gradients need, and a weight-gradient kernel
-// computes each A^T B over all pairs in split-K slices, each slice into a
-// slot of its own; a reduction kernel then adds the slots in a fixed order.
-// Bias and LayerNorm gradients (column sums) are summed per tile the same
-// way. No float atomics anywhere: every result is reproducible.
+// pair kernels owns one tile of pairs and has no room for 256 x 256 float32
+// accumulators, and the TPU's pattern (accumulating into one output block
+// across a sequential grid) has no counterpart on a parallel grid. So the
+// pair kernels write, per pair, the activations and cotangents that the
+// weight gradients need, and a weight-gradient kernel computes each A^T B
+// over all pairs in split-K slices, each slice into a slot of its own; a
+// reduction kernel then adds the slots in a fixed order. Bias and
+// LayerNorm gradients (column sums) are summed per tile the same way. No
+// float atomics anywhere: every result is reproducible.
 #pragma once
 
 #include "common.cuh"
@@ -162,22 +165,61 @@ __device__ __forceinline__ void flush_columns(const float (&acc)[NV][kMaxPerLane
 
 constexpr int kMaxWgradJobs = 16;
 constexpr int kMaxReduceJobs = 32;
+constexpr int kMaxTimeJobs = 2;
 
-// slots[s] = A[rows of slice s]^T @ B[rows of slice s]  ([k1 x k2] float32).
-// A: bf16 (a_f32 = 0) or float32 (a_f32 = 1), row stride lda; B: float32,
-// row stride ldb. k1, k2: multiples of 16.
+// A float32 operand of the weight-gradient product, stored as two bf16
+// planes of the same shape: hi = bf16(v), lo = bf16(v - hi). hi + lo holds
+// v to about 2^-16 of its size.
+struct Split {
+  bf16* hi;
+  bf16* lo;
+};
+__device__ __forceinline__ void put(const Split& s, size_t i, float v) {
+  const bf16 h = tobf(v);
+  s.hi[i] = h;
+  s.lo[i] = tobf(v - bf(h));
+}
+// bf16 of two neighbouring values (p 4-byte aligned)
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  __nv_bfloat162 h;
+  h.x = tobf(v0);
+  h.y = tobf(v1);
+  *reinterpret_cast<__nv_bfloat162*>(p) = h;
+}
+
+// slots[s] = A[rows of slice s]^T @ B[rows of slice s]  ([k1 x k2] float32)
+// with A = a (+ a_lo) and B = b (+ b_lo): bf16 planes, row-major with row
+// strides lda, ldb (elements, multiples of 8; rows 16-byte aligned). A
+// plane pair is a float32 operand split (Split); a_lo, b_lo may be null.
+// The product adds hi*hi + hi*lo (+ lo*hi for a split A): within ~2^-16 of
+// float32. k1, k2: multiples of 32.
 struct WgradJob {
-  const void* a;
-  const float* b;
+  const bf16* a;
+  const bf16* a_lo;
+  const bf16* b;
+  const bf16* b_lo;
   float* slots;
-  int rows, k1, k2, lda, ldb, a_f32;
+  int rows, k1, k2, lda, ldb;
 };
 
-// out[i] = sum_{s < S} src[s * stride + i], i < n, s in order.
+// out[i] = sum_{s < S} src[s * stride + i], i < n, in a fixed order (eight
+// runs of consecutive s, each in order, then the runs in order).
 struct ReduceJob {
   const float* src;
   float* out;
   int S, n, stride;
+};
+
+// The time row of a gate's first layer, per molecule b: tot[c] = sum over
+// its per_mol partials part[(b * per_mol + k) * stride + c] (c < n, k in
+// order); d_t[b] gets tot . wt (bf16 row) summed over the jobs in order;
+// dwpart[b * n + c] = t[b] * tot[c] (null: not formed), which a reduction
+// job adds over molecules into the weight's gradient row.
+struct TimeJob {
+  const float* part;
+  const bf16* wt;
+  float* dwpart;
+  int stride, per_mol, n;
 };
 
 // Split-K slices of a weight-gradient job over `rows` rows.
@@ -190,12 +232,28 @@ __host__ __device__ inline int wgrad_slices(int rows) {
 size_t wgrad_slot_floats(int rows, int k1, int k2);
 cudaError_t launch_wgrad(const WgradJob* jobs, int njobs, cudaStream_t s);
 cudaError_t launch_reduce(const ReduceJob* jobs, int njobs, cudaStream_t s);
-// Per molecule b: tot = sum over its tiles_per_mol tiles of part[tile *
-// stride + c] (c < n); d_t[b] (+)= tot . wt (bf16 row); dwt[c] =
-// sum_b t[b] * tot[c]. One CTA; accumulate adds to d_t.
-cudaError_t launch_time(const float* part, int stride, int tiles_per_mol, int n, int B,
-                        const bf16* wt, const float* t, float* d_t, float* dwt, int accumulate,
+// One CTA per molecule; d_t may be null (not formed).
+cudaError_t launch_time(const TimeJob* jobs, int njobs, int B, const float* t, float* d_t,
                         cudaStream_t s);
+
+// Carve 256-byte aligned buffers out of a workspace; with base == nullptr it
+// only counts the bytes.
+struct Carve {
+  unsigned char* base;
+  size_t off = 0;
+  template <typename T>
+  T* take(size_t count) {
+    T* p = base ? reinterpret_cast<T*>(base + off) : nullptr;
+    off += (count * sizeof(T) + 255) / 256 * 256;
+    return p;
+  }
+  Split split(size_t count) {
+    Split s;
+    s.hi = take<bf16>(count);
+    s.lo = take<bf16>(count);
+    return s;
+  }
+};
 
 // The node-level prep kernels of the forward entry points (node_block.cu,
 // edge_pair.cu, pos_update.cu), which the backward entry points reuse.
@@ -247,12 +305,13 @@ struct EdgeChainBwd {
   const float* dnode_add;
   bf16* d_bond;
   bf16* d_node;
-  float* d_time;
+  float* d_time;                // null: not formed
   float* d_mask;
-  float* const* grads;          // 28 float32 outputs in the weights' order
+  float* const* grads;          // 28 float32 outputs in the weights' order; null: not formed
   void* workspace;              // edge_chain_bwd_bytes
 };
-size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do);
+size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do,
+                            int need_params);
 cudaError_t edge_chain_bwd(const EdgeChainBwd& c, int B, int N, int Dn, int De, int I, int G,
                            int Do, cudaStream_t s, int* launched);
 
@@ -266,18 +325,5 @@ cudaError_t edge_chain_bwd(const EdgeChainBwd& c, int B, int N, int Dn, int De, 
 cudaError_t edge_tail_forward(const void* const* weights, const bf16* e, const bf16* x,
                               const bf16* tu, bf16* proj, bf16* out, int residual, int B, int N,
                               int Dn, int De, cudaStream_t s, int* launched);
-
-// Carve 256-byte aligned buffers out of a workspace; with base == nullptr it
-// only counts the bytes.
-struct Carve {
-  unsigned char* base;
-  size_t off = 0;
-  template <typename T>
-  T* take(size_t count) {
-    T* p = base ? reinterpret_cast<T*>(base + off) : nullptr;
-    off += (count * sizeof(T) + 255) / 256 * 256;
-    return p;
-  }
-};
 
 }  // namespace md

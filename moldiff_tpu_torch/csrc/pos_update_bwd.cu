@@ -36,7 +36,7 @@
 //   split-K slots, and the reduction adds slots and per-tile column sums in
 //   a fixed order. No float atomics.
 // Launches per call: prep (pos_update.cu), pair, node, weight gradients,
-// reduction, time = 6.
+// time, reduction = 6.
 #include "grad.cuh"
 
 using md::bf16;
@@ -73,17 +73,17 @@ struct PosBwdArgs {
   float* d_mask;       // [B,N,N]
   // workspace
   bf16* lr;            // [2,B*N,Dl] L and R
-  float* inter0;       // [P,I]
-  float* dh1;          // [P,I]
-  float* dbp;          // [P,I]
-  float* dnp;          // [P,I]
-  float* dg1;          // [P,G]
+  md::Split inter0;    // [P,I]
+  md::Split dh1;       // [P,I]
+  md::Split dbp;       // [P,I]
+  md::Split dnp;       // [P,I]
+  md::Split dg1;       // [P,G]
   bf16* xp;            // [P,Dl]
   float* dxp;          // [P,Dl]
   float* vecpart;      // [tiles, kVecs, I]
-  float* dout;         // [2,B*N,Dl] d_L, d_R
+  md::Split dout;      // [2,B*N,Dl] d_L, d_R
   bf16* r1n;           // [2,B*N,Dl]
-  float* dh1n;         // [2,B*N,Dl]
+  md::Split dh1n;      // [2,B*N,Dl]
   float* nodepart;     // [node tiles, 2, kNodeVecs, Dl]
   int B, N, Dn, De, Dl, I, G, nch;
 };
@@ -161,7 +161,7 @@ __global__ void __launch_bounds__(md::kThreads) pos_bwd_pair_kernel(const PosBwd
     const int r = idx / I, c = idx % I;
     const float inter0 = F[0][r * ldf + c] * F[1][r * ldf + c];
     XA[r * ldb + c] = md::tobf(inter0);
-    if (r < ri) a.inter0[(pair0 + r) * I + c] = inter0;
+    if (r < ri) md::put(a.inter0, (pair0 + r) * I + c, inter0);
   }
   __syncthreads();
   md::cta_gemm(XA, ldb, W.w1, I, I, F[2], ldf, mt, md::kStore);    // h1 - b1
@@ -253,7 +253,7 @@ __global__ void __launch_bounds__(md::kThreads) pos_bwd_pair_kernel(const PosBwd
         const int c = lane + 32 * q;
         accG[0][q] += dy[q];
         XG[r * ldg + c] = md::tobf(dy[q]);
-        if (r < ri) a.dg1[(pair0 + r) * G + c] = dy[q];
+        if (r < ri) md::put(a.dg1, (pair0 + r) * G + c, dy[q]);
       }
 
     // inter MLP: d_r1 = bf16(d_out) w2, relu, LayerNorm backward -> d_h1
@@ -275,7 +275,7 @@ __global__ void __launch_bounds__(md::kThreads) pos_bwd_pair_kernel(const PosBwd
         const int c = lane + 32 * q;
         accI[0][q] += dy[q];
         XB[r * ldb + c] = md::tobf(dy[q]);
-        if (r < ri) a.dh1[(pair0 + r) * I + c] = dy[q];
+        if (r < ri) md::put(a.dh1, (pair0 + r) * I + c, dy[q]);
       }
   }
   __syncthreads();
@@ -296,8 +296,8 @@ __global__ void __launch_bounds__(md::kThreads) pos_bwd_pair_kernel(const PosBwd
     XA[r * ldb + c] = md::tobf(dbp);
     XB[r * ldb + c] = md::tobf(dnp);
     if (r < ri) {
-      a.dbp[(pair0 + r) * I + c] = dbp;
-      a.dnp[(pair0 + r) * I + c] = dnp;
+      md::put(a.dbp, (pair0 + r) * I + c, dbp);
+      md::put(a.dnp, (pair0 + r) * I + c, dnp);
     }
   }
   __syncthreads();
@@ -362,7 +362,7 @@ __global__ void __launch_bounds__(md::kThreads) pos_bwd_node_kernel(const PosBwd
           const size_t p = side == 0 ? ((size_t)nd * N + j) : ((mol + j) * N + k);
           s += a.dxp[p * Dl + c] * md::bf(other[(mol + j) * Dl + c]);
         }
-        a.dout[((size_t)side * BN + nd) * Dl + c] = s;
+        md::put(a.dout, ((size_t)side * BN + nd) * Dl + c, s);
       }
       FD[r * ldl + c] = s;
       XD[r * ldd + c] = md::tobf(s);
@@ -396,7 +396,7 @@ __global__ void __launch_bounds__(md::kThreads) pos_bwd_node_kernel(const PosBwd
           const int c = lane + 32 * q;
           acc[0][q] += dy[q];
           XH[r * ldd + c] = md::tobf(dy[q]);
-          if (r < rows) a.dh1n[((size_t)side * BN + n0 + r) * Dl + c] = dy[q];
+          if (r < rows) md::put(a.dh1n, ((size_t)side * BN + n0 + r) * Dl + c, dy[q]);
         }
     }
     md::flush_columns<kNodeVecs>(
@@ -413,6 +413,7 @@ __global__ void __launch_bounds__(md::kThreads) pos_bwd_node_kernel(const PosBwd
 
 struct PosBwdWork {
   float* slots[9];
+  float* dwt;          // [B, G] per-molecule shares of the gate's time row
   size_t bytes;
 };
 
@@ -423,22 +424,23 @@ PosBwdWork carve(PosBwdArgs& a, unsigned char* base, int B, int N, int Dn, int D
   const int nch = (N + md::kBwdRows - 1) / md::kBwdRows;
   const size_t tiles = BN * nch, ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
   a.lr = cv.take<bf16>(2 * BN * Dl);
-  a.inter0 = cv.take<float>(P * I);
-  a.dh1 = cv.take<float>(P * I);
-  a.dbp = cv.take<float>(P * I);
-  a.dnp = cv.take<float>(P * I);
-  a.dg1 = cv.take<float>(P * G);
+  a.inter0 = cv.split(P * I);
+  a.dh1 = cv.split(P * I);
+  a.dbp = cv.split(P * I);
+  a.dnp = cv.split(P * I);
+  a.dg1 = cv.split(P * G);
   a.xp = cv.take<bf16>(P * Dl);
   a.dxp = cv.take<float>(P * Dl);
   a.vecpart = cv.take<float>(tiles * kVecs * I);
-  a.dout = cv.take<float>(2 * BN * Dl);
+  a.dout = cv.split(2 * BN * Dl);
   a.r1n = cv.take<bf16>(2 * BN * Dl);
-  a.dh1n = cv.take<float>(2 * BN * Dl);
+  a.dh1n = cv.split(2 * BN * Dl);
   a.nodepart = cv.take<float>(ntiles * 2 * kNodeVecs * Dl);
   const int P_ = (int)P, BN_ = (int)BN;
   const int dims[9][3] = {{P_, De, I}, {P_, Dl, I},  {P_, I, I},    {P_, De, G},   {P_, Dl, G},
                           {BN_, Dn, Dl}, {BN_, Dl, Dl}, {BN_, Dn, Dl}, {BN_, Dl, Dl}};
   PosBwdWork w;
+  w.dwt = cv.take<float>((size_t)B * G);
   for (int k = 0; k < 9; ++k)
     w.slots[k] = cv.take<float>(md::wgrad_slot_floats(dims[k][0], dims[k][1], dims[k][2]));
   a.nch = nch;
@@ -513,15 +515,17 @@ int md_pos_update_backward(const void* const* p, int B, int N, int Dn, int De, i
   enum { FWb = 12, FWn, FW1, FB1, FS1, FB1n, FW2, FB2, FWg1, FBg1, FSg1, FBg1n, FWg2, FBg2 };
   const size_t BNs = (size_t)BN;
   md::WgradJob jobs[9] = {
-      {a.e, a.dbp, ws.slots[0], P, De, I, De, I, 0},
-      {a.xp, a.dnp, ws.slots[1], P, Dl, I, Dl, I, 0},
-      {a.inter0, a.dh1, ws.slots[2], P, I, I, I, I, 1},
-      {a.e, a.dg1, ws.slots[3], P, De, G, De, G, 0},
-      {a.xp, a.dg1, ws.slots[4], P, Dl, G, Dl, G, 0},
-      {a.x, a.dh1n, ws.slots[5], BN, Dn, Dl, Dn, Dl, 0},
-      {a.r1n, a.dout, ws.slots[6], BN, Dl, Dl, Dl, Dl, 0},
-      {a.x, a.dh1n + BNs * Dl, ws.slots[7], BN, Dn, Dl, Dn, Dl, 0},
-      {a.r1n + BNs * Dl, a.dout + BNs * Dl, ws.slots[8], BN, Dl, Dl, Dl, Dl, 0},
+      {a.e, nullptr, a.dbp.hi, a.dbp.lo, ws.slots[0], P, De, I, De, I},
+      {a.xp, nullptr, a.dnp.hi, a.dnp.lo, ws.slots[1], P, Dl, I, Dl, I},
+      {a.inter0.hi, a.inter0.lo, a.dh1.hi, a.dh1.lo, ws.slots[2], P, I, I, I, I},
+      {a.e, nullptr, a.dg1.hi, a.dg1.lo, ws.slots[3], P, De, G, De, G},
+      {a.xp, nullptr, a.dg1.hi, a.dg1.lo, ws.slots[4], P, Dl, G, Dl, G},
+      {a.x, nullptr, a.dh1n.hi, a.dh1n.lo, ws.slots[5], BN, Dn, Dl, Dn, Dl},
+      {a.r1n, nullptr, a.dout.hi, a.dout.lo, ws.slots[6], BN, Dl, Dl, Dl, Dl},
+      {a.x, nullptr, a.dh1n.hi + BNs * Dl, a.dh1n.lo + BNs * Dl, ws.slots[7], BN, Dn, Dl, Dn,
+       Dl},
+      {a.r1n + BNs * Dl, nullptr, a.dout.hi + BNs * Dl, a.dout.lo + BNs * Dl, ws.slots[8], BN,
+       Dl, Dl, Dl, Dl},
   };
   float* job_out[9] = {g[FWb], g[FWn], g[FW1], g[FWg1], g[FWg1] + (size_t)De * G,
                        g[W1], g[W2], g[6 + W1], g[6 + W2]};
@@ -529,7 +533,15 @@ int md_pos_update_backward(const void* const* p, int B, int N, int Dn, int De, i
   if (err != cudaSuccess) return err;
   ++*launched;
 
-  md::ReduceJob red[27];
+  // d_time and the molecules' shares of the gate weight's time row
+  const size_t trow = (size_t)(De + Dl) * G;
+  const md::TimeJob tj = {a.vecpart + (size_t)kBg1 * I, a.f.wg1 + trow, ws.dwt, kVecs * I,
+                          N * a.nch, G};
+  err = md::launch_time(&tj, 1, B, a.t, d_time, s);
+  if (err != cudaSuccess) return err;
+  ++*launched;
+
+  md::ReduceJob red[28];
   int nr = 0;
   for (int k = 0; k < 9; ++k) {
     const int n = jobs[k].k1 * jobs[k].k2;
@@ -544,14 +556,8 @@ int md_pos_update_backward(const void* const* p, int B, int N, int Dn, int De, i
     for (int v = 0; v < kNodeVecs; ++v)
       red[nr++] = {a.nodepart + (size_t)(sd * kNodeVecs + v) * Dl, g[6 * sd + node_out[v]],
                    ntiles, Dl, 2 * kNodeVecs * Dl};
+  red[nr++] = {ws.dwt, g[FWg1] + trow, B, G, G};
   err = md::launch_reduce(red, nr, s);
-  if (err != cudaSuccess) return err;
-  ++*launched;
-
-  // d_time and the gate weight's time row
-  const size_t trow = (size_t)(De + Dl) * G;
-  err = md::launch_time(a.vecpart + (size_t)kBg1 * I, kVecs * I, N * a.nch, G, B, a.f.wg1 + trow,
-                        a.t, d_time, g[FWg1] + trow, 0, s);
   if (err != cudaSuccess) return err;
   ++*launched;
   return cudaSuccess;

@@ -34,8 +34,9 @@ SIGNATURES = {
     "md_node_block_forward": [_P, _I, _I, _I, _I, _I, _P, _P],
     "md_edge_pair_forward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "md_pos_update_forward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "md_node_block_backward": [_P, _I, _I, _I, _I, _I, _P, _P],
-    "md_edge_pair_backward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # ..., need_params, need_time, stream, launched
+    "md_node_block_backward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "md_edge_pair_backward": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "md_pos_update_backward": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "md_edge_block_full_forward": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "md_edge_block_full_backward": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -44,8 +45,9 @@ SIGNATURES = {
 }
 # bytes of workspace a backward call needs, from its widths
 WORKSPACE_SIGNATURES = {
-    "md_node_block_backward_workspace": [_I] * 5,
-    "md_edge_pair_backward_workspace": [_I] * 7,
+    # the widths, then need_params
+    "md_node_block_backward_workspace": [_I] * 6,
+    "md_edge_pair_backward_workspace": [_I] * 8,
     "md_pos_update_backward_workspace": [_I] * 7,
     "md_edge_block_full_backward_workspace": [_I] * 6,
     "md_fused_block_forward_workspace": [_P],

@@ -35,11 +35,17 @@ float32 masks, times, relative vectors and distances.
 function reports them: each forward call launches two kernels, a
 node-level prep kernel and the pair kernel; a backward call launches the
 kernels its C entry point lists. Nothing else changes it.
+
+The NodeBlock and EdgeBlock backward wrappers take ``need_params`` and
+``need_time``; their autograd Functions set them from
+``ctx.needs_input_grad``. Guidance differentiates positions alone, so its
+backward forms no parameter gradient (no weight-gradient or reduction
+launch) and no d_t; what is formed equals the full mode's bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -649,8 +655,10 @@ def _require_cuda(kernel: str, device: torch.device) -> None:
                          "the plain version on the CPU")
 
 
-def _pointers(tensors: List[torch.Tensor]):
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+def _pointers(tensors: List[Optional[torch.Tensor]]):
+    """The tensors' addresses as a C array of pointers (None: a null one)."""
+    return (ctypes.c_void_p * len(tensors))(*[None if t is None else t.data_ptr()
+                                              for t in tensors])
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -827,6 +835,14 @@ def _pos_update_tree(leaves: Sequence[torch.Tensor]) -> dict:
             "edge_lin": _bond_ffn_tree(leaves[12:26])}
 
 
+def _leaf_grads(d_params, leaves_of, need: Sequence[bool]) -> list:
+    """The leaves' gradients in autograd's order, None where none is asked
+    for (d_params is None when no leaf needs one)."""
+    if d_params is None:
+        return [None] * len(need)
+    return [g if nd else None for g, nd in zip(leaves_of(d_params), need)]
+
+
 class _NodeBlockAggregate(torch.autograd.Function):
     """node_block_aggregate with the NodeBlock backward kernel as its
     gradient; saves only the inputs, the backward recomputes."""
@@ -840,9 +856,11 @@ class _NodeBlockAggregate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, edge_attr, node_time, pair_mask, *leaves = ctx.saved_tensors
+        need = ctx.needs_input_grad
         d_params, dx, d_edge, d_t, d_mask = node_block_aggregate_bwd(
-            _node_block_tree(leaves), x, edge_attr, node_time, pair_mask, dout.contiguous())
-        return (dx, d_edge, d_t, d_mask, *_node_block_leaves(d_params))
+            _node_block_tree(leaves), x, edge_attr, node_time, pair_mask, dout.contiguous(),
+            need_params=any(need[4:]), need_time=need[2])
+        return (dx, d_edge, d_t, d_mask, *_leaf_grads(d_params, _node_block_leaves, need[4:]))
 
 
 class _EdgePairAggregate(torch.autograd.Function):
@@ -858,10 +876,13 @@ class _EdgePairAggregate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dt_ct, du_ct):
         h_bond, h_node, bond_time, pair_mask, *leaves = ctx.saved_tensors
+        need = ctx.needs_input_grad
         d_params, d_bond, d_node, d_time, d_mask = edge_pair_aggregate_bwd(
             _edge_pair_tree(leaves), h_bond, h_node, bond_time, pair_mask,
-            dt_ct.contiguous(), du_ct.contiguous())
-        return (d_bond, d_node, d_time, d_mask, *_edge_pair_leaves(d_params))
+            dt_ct.contiguous(), du_ct.contiguous(), need_params=any(need[4:]),
+            need_time=need[2])
+        return (d_bond, d_node, d_time, d_mask,
+                *_leaf_grads(d_params, _edge_pair_leaves, need[4:]))
 
 
 class _PosUpdate(torch.autograd.Function):
@@ -905,10 +926,26 @@ def _grad_buffers(shapes: List[Sequence[int]], device) -> List[torch.Tensor]:
     return [torch.empty(tuple(s), dtype=torch.float32, device=device) for s in shapes]
 
 
-def node_block_aggregate_bwd(params, x, edge_attr, node_time, pair_mask, dout):
-    """NodeBlock backward (see node_block_aggregate_bwd_plain)."""
+def _drop(out: tuple, need_params: bool, need_time: bool, time_at: int) -> tuple:
+    """A backward's cotangents with what is not asked for left out (None)."""
+    out = list(out)
+    if not need_params:
+        out[0] = None
+    if not need_time:
+        out[time_at] = None
+    return tuple(out)
+
+
+def node_block_aggregate_bwd(params, x, edge_attr, node_time, pair_mask, dout,
+                             need_params: bool = True, need_time: bool = True):
+    """NodeBlock backward (see node_block_aggregate_bwd_plain). Without
+    need_params the parameter gradients are not formed (d_params is None,
+    and the kernel launches neither grad.cu's weight-gradient nor its
+    reduction kernel); without need_time d_t is not formed (None). Every
+    output that is formed equals the full mode's."""
     if x.device.type == "cpu":
-        return node_block_aggregate_bwd_plain(params, x, edge_attr, node_time, pair_mask, dout)
+        return _drop(node_block_aggregate_bwd_plain(params, x, edge_attr, node_time, pair_mask,
+                                                    dout), need_params, need_time, 3)
     from . import build
 
     dev = x.device
@@ -925,31 +962,37 @@ def node_block_aggregate_bwd(params, x, edge_attr, node_time, pair_mask, dout):
     _check("node_block_bwd dout", dout, (b, n, h), torch.bfloat16, dev)
     t = _check_pairs("node_block_bwd", b, n, dev, pair_mask, node_time)
     _require_cuda("node_block_bwd", dev)
+    if (h, de) != (256, 64):
+        raise ValueError(f"node_block_bwd: H = {h}, De = {de}; the kernel is built for the "
+                         "model's widths H = 256, De = 64")
     lib = build.library()
     dx = torch.empty_like(x)
     d_edge = torch.empty_like(edge_attr)
-    d_t = torch.empty((b,), dtype=torch.float32, device=dev)
+    d_t = torch.empty((b,), dtype=torch.float32, device=dev) if need_time else None
     d_mask = torch.empty((b, n, n), dtype=torch.float32, device=dev)
-    grads = _grad_buffers(shapes, dev)
-    ws = torch.empty((lib.md_node_block_backward_workspace(b, n, dn, de, h),),
+    grads = _grad_buffers(shapes, dev) if need_params else [None] * len(shapes)
+    ws = torch.empty((lib.md_node_block_backward_workspace(b, n, dn, de, h, int(need_params)),),
                      dtype=torch.uint8, device=dev)
     launched = ctypes.c_int(0)
     rc = lib.md_node_block_backward(
         _pointers(leaves + [x, edge_attr, pair_mask, t, dout, dx, d_edge, d_t, d_mask]
                   + grads + [ws]),
-        b, n, dn, de, h, _stream(dev), ctypes.byref(launched))
+        b, n, dn, de, h, int(need_params), int(need_time), _stream(dev), ctypes.byref(launched))
     build.check(lib, rc, "node_block_bwd")
     launch_counts["node_block_bwd"] += launched.value
-    d_params = _cast_like(_node_block_tree(grads), params)
-    return (d_params, dx, d_edge, d_t.reshape(node_time.shape).to(node_time.dtype),
-            d_mask.to(pair_mask.dtype))
+    d_params = _cast_like(_node_block_tree(grads), params) if need_params else None
+    if need_time:
+        d_t = d_t.reshape(node_time.shape).to(node_time.dtype)
+    return d_params, dx, d_edge, d_t, d_mask.to(pair_mask.dtype)
 
 
-def edge_pair_aggregate_bwd(params, h_bond, h_node, bond_time, pair_mask, dt_ct, du_ct):
-    """EdgeBlock pair backward (see edge_pair_aggregate_bwd_plain)."""
+def edge_pair_aggregate_bwd(params, h_bond, h_node, bond_time, pair_mask, dt_ct, du_ct,
+                            need_params: bool = True, need_time: bool = True):
+    """EdgeBlock pair backward (see edge_pair_aggregate_bwd_plain); the two
+    modes as node_block_aggregate_bwd's."""
     if h_bond.device.type == "cpu":
-        return edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask,
-                                             dt_ct, du_ct)
+        return _drop(edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask,
+                                                   dt_ct, du_ct), need_params, need_time, 3)
     from . import build
 
     dev = h_bond.device
@@ -972,24 +1015,31 @@ def edge_pair_aggregate_bwd(params, h_bond, h_node, bond_time, pair_mask, dt_ct,
     _check("edge_pair_bwd du_ct", du_ct, (b, n, do), torch.bfloat16, dev)
     t = _check_pairs("edge_pair_bwd", b, n, dev, pair_mask, bond_time)
     _require_cuda("edge_pair_bwd", dev)
+    if (de, i_dim, g, do) != (64, 128, 32, 64):
+        raise ValueError(f"edge_pair_bwd: De, I, G, Do = {de}, {i_dim}, {g}, {do}; the kernel "
+                         "is built for the model's widths 64, 128, 32, 64")
     lib = build.library()
     d_bond = torch.empty_like(h_bond)
     d_node = torch.empty_like(h_node)
-    d_time = torch.empty((b,), dtype=torch.float32, device=dev)
+    d_time = torch.empty((b,), dtype=torch.float32, device=dev) if need_time else None
     d_mask = torch.empty((b, n, n), dtype=torch.float32, device=dev)
-    grads = _grad_buffers(shapes + shapes, dev)
-    ws = torch.empty((lib.md_edge_pair_backward_workspace(b, n, dn, de, i_dim, g, do),),
+    grads = (_grad_buffers(shapes + shapes, dev) if need_params
+             else [None] * (2 * len(shapes)))
+    ws = torch.empty((lib.md_edge_pair_backward_workspace(b, n, dn, de, i_dim, g, do,
+                                                          int(need_params)),),
                      dtype=torch.uint8, device=dev)
     launched = ctypes.c_int(0)
     rc = lib.md_edge_pair_backward(
         _pointers(leaves + [h_bond, h_node, pair_mask, t, dt_ct, du_ct, d_bond, d_node,
                             d_time, d_mask] + grads + [ws]),
-        b, n, dn, de, i_dim, g, do, _stream(dev), ctypes.byref(launched))
+        b, n, dn, de, i_dim, g, do, int(need_params), int(need_time), _stream(dev),
+        ctypes.byref(launched))
     build.check(lib, rc, "edge_pair_bwd")
     launch_counts["edge_pair_bwd"] += launched.value
-    d_params = _cast_like(_edge_pair_tree(grads), params)
-    return (d_params, d_bond, d_node, d_time.reshape(bond_time.shape).to(bond_time.dtype),
-            d_mask.to(pair_mask.dtype))
+    d_params = _cast_like(_edge_pair_tree(grads), params) if need_params else None
+    if need_time:
+        d_time = d_time.reshape(bond_time.shape).to(bond_time.dtype)
+    return d_params, d_bond, d_node, d_time, d_mask.to(pair_mask.dtype)
 
 
 def pos_update_bwd(params, h_node, h_edge, rel_vec, distance, edge_time, pair_mask, ct):

@@ -46,9 +46,30 @@ def test_build_is_one_nvcc_call_over_every_source(build_env, tmp_path):
         "edge_block_full.cu", "edge_pair.cu", "edge_pair_bwd.cu", "fused_block.cu", "grad.cu",
         "node_block.cu", "node_block_bwd.cu", "pos_update.cu", "pos_update_bwd.cu"]
     assert "Used 96 registers" in build.build_log[0]
+    # the headers (wgmma.cuh among them) are part of the version built
+    assert "wgmma.cuh" in [p.name for p in build.CSRC.glob("*.cuh")]
     # a finished build is reused, not rebuilt
     assert build.build() == lib
     assert len(args_file.read_text().splitlines()) == 1
+
+
+def test_ctypes_signatures_match_the_c_definitions():
+    """Every exported function's ctypes argument list has as many entries as
+    its C definition has parameters (a pointer where the C side takes one):
+    a missing int shifts every later argument."""
+    import re
+
+    text = "".join(p.read_text() for p in build.sources())
+    for name, argtypes in {**build.SIGNATURES, **build.WORKSPACE_SIGNATURES}.items():
+        found = re.search(r"\b(?:int|long long) " + name + r"\(([^)]*)\)", text)
+        assert found, name
+        params = [p.strip() for p in found.group(1).split(",")]
+        assert len(params) == len(argtypes), (name, params)
+        for param, argtype in zip(params, argtypes):
+            assert ("*" in param) == (argtype is build._P), (name, param)
+    # the two backward entry points take the modes' flags before the stream
+    assert build.SIGNATURES["md_node_block_backward"][-4:-2] == [build._I, build._I]
+    assert build.SIGNATURES["md_edge_pair_backward"][-4:-2] == [build._I, build._I]
 
 
 def test_build_failure_raises_with_the_compiler_output(build_env):

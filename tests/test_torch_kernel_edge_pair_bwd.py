@@ -141,6 +141,44 @@ def test_autograd_function_equals_plain_backward(case):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
+@pytest.mark.parametrize("time_grad", [True, False], ids=["with_d_t", "without_d_t"])
+@pytest.mark.parametrize("leaves_grad", [True, False], ids=["full", "inputs_only"])
+def test_autograd_asks_only_for_what_it_reads(case, monkeypatch, leaves_grad, time_grad):
+    """The Function passes need_params / need_time to the backward wrapper
+    from what needs a gradient: without need_params d_params comes back as
+    None (no leaf gets a gradient), without need_time d_time is not formed,
+    and every gradient formed equals the full mode's (the plain backward
+    with everything asked for)."""
+    params, e, x, t, mask, ct = case
+    calls = []
+    wrapper = kernels.edge_pair_aggregate_bwd
+
+    def record(*args, **flags):
+        out = wrapper(*args, **flags)
+        calls.append((flags, out))
+        return out
+
+    monkeypatch.setattr(kernels, "edge_pair_aggregate_bwd", record)
+    tp = torch_tree(params)
+    leaves = kernels._edge_pair_leaves(tp)
+    for leaf in leaves:
+        leaf.requires_grad_(leaves_grad)
+    et, xt = torch.tensor(e, requires_grad=True), torch.tensor(x, requires_grad=True)
+    tt = torch.tensor(t, requires_grad=time_grad)
+    out = kernels.edge_pair_aggregate_ad(tp, et, xt, tt, torch.tensor(mask))
+    wrt = [et, xt] + [tt] * time_grad + leaves * leaves_grad
+    grads = torch.autograd.grad(out, wrt, (torch.tensor(ct[0]), torch.tensor(ct[1])))
+    [(flags, (d_params, _, _, d_time, _))] = calls
+    assert flags == {"need_params": leaves_grad, "need_time": time_grad}
+    assert (d_params is None) != leaves_grad and (d_time is None) != time_grad
+    full_params, d_bond, d_node, full_time, _ = _torch_bwd(case, torch.float32)
+    want = ([d_bond, d_node] + [full_time] * time_grad
+            + kernels._edge_pair_leaves(full_params) * leaves_grad)
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        np.testing.assert_array_equal(g.numpy(), w.reshape(g.shape).numpy())
+
+
 def test_wrapper_refuses_devices_without_kernel(case):
     """Off the CPU the backward wrapper launches the CUDA kernel or raises."""
     params, e, x, t, mask, ct = case
