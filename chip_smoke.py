@@ -26,7 +26,10 @@ Phases, each asserting and none catching a failure:
      versions on every output (each parameter gradient included), block-0
      weights of ckpts/bondpred_v2.ckpt (rows 3, 5) and of flagship_v2
      (rows 7, 9), B = 16, N = 32 and 40, seeded inputs, cotangents and
-     masks; times by CUDA events; rows 3 and 5 also in their inputs-only
+     masks, then all four again with the weights of the demo pair
+     (ckpts/demo_bondpred_4k.ckpt, demo_synthetic_30k.ckpt: node_dim 128,
+     edge_dim 32, the pair kernels' other instantiation); times by CUDA
+     events; rows 3 and 5 also in their inputs-only
      mode (no parameter gradients, with and without d_t): its outputs
      equal the full mode's bit for bit and the plain version's within the
      tolerance, and it launches no grad.cu kernel but the time kernel;
@@ -118,6 +121,10 @@ FORWARD_MAX_FRAC = 1e-2
 # configs/sample/sample_flagship_v2_guided.yml without add_edge: distance,
 # i.e. the model's bonds (a CPU test holds the two equal)
 BOND_PREDICTOR = "ckpts/bondpred_v2.ckpt"
+# configs/sample/sample_demo_guided.yml's pair at the demo widths (node_dim
+# 128, edge_dim 32): the backward pair kernels' second instantiation
+DEMO_CHECKPOINT = "ckpts/demo_synthetic_30k.ckpt"
+DEMO_BOND_PREDICTOR = "ckpts/demo_bondpred_4k.ckpt"
 GUIDED_SETTINGS = {
     "model": {"checkpoint": CHECKPOINT},
     "bond_predictor": BOND_PREDICTOR,
@@ -351,8 +358,9 @@ def work(name: str, blk: dict, b: int, n: int, inputs_only: bool = False) -> tup
     return flops, 2 * io + nodes * 2 * dn + 6 * weights
 
 
-def kernel_inputs(b: int, n: int, seed: int, device):
-    """Seeded activations at flagship width with random molecule sizes."""
+def kernel_inputs(b: int, n: int, seed: int, device, dn: int = 256, de: int = 64):
+    """Seeded activations (node width dn, edge width de: flagship's by
+    default) with random molecule sizes."""
     import torch
 
     from moldiff_tpu_torch.ops import graph_ops
@@ -364,8 +372,8 @@ def kernel_inputs(b: int, n: int, seed: int, device):
     pair_mask = graph_ops.pair_mask_from_node_mask(node_mask)
     pos = torch.randn((b, n, 3), generator=g) * 3.0
     rel = pos[:, :, None, :] - pos[:, None, :, :]
-    x = torch.randn((b, n, 256), generator=g).to(torch.bfloat16)
-    e = torch.randn((b, n, n, 64), generator=g).to(torch.bfloat16)
+    x = torch.randn((b, n, dn), generator=g).to(torch.bfloat16)
+    e = torch.randn((b, n, n, de), generator=g).to(torch.bfloat16)
     t = torch.rand((b, 1, 1), generator=g)
     dist = safe_distance(rel)
     # flagship_v2's distance features: 16 Gaussians up to its cutoff of 15
@@ -567,9 +575,10 @@ def backward_calls(blk: dict, b: int, n: int, seed: int, device) -> dict:
     inputs, cotangents and masks: rows 3 and 5 at ``blk``'s widths."""
     import torch
 
-    inp = kernel_inputs(b, n, seed, device)
-    g = torch.Generator(device="cpu").manual_seed(seed + 1)
     nb, eb = blk["node_block"], blk["edge_block"]
+    inp = kernel_inputs(b, n, seed, device, dn=nb["node_net"]["layers"][0]["lin"]["w"].shape[0],
+                        de=nb["edge_net"]["layers"][0]["lin"]["w"].shape[0])
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
     nb_p = {k: nb[k] for k in ("node_net", "edge_net", "msg_net", "gate")}
     eb_p = {"left": eb["bond_ffn_left"], "right": eb["bond_ffn_right"]}
     h = nb["msg_net"]["w"].shape[1]
@@ -588,7 +597,9 @@ def pos_backward_calls(blk: dict, b: int, n: int, seed: int, device) -> dict:
     widths."""
     import torch
 
-    inp = kernel_inputs(b, n, seed, device)
+    side = blk["edge_block"]["bond_ffn_left"]
+    inp = kernel_inputs(b, n, seed, device, dn=side["node_linear"]["w"].shape[0],
+                        de=side["bond_linear"]["w"].shape[0])
     g = torch.Generator(device="cpu").manual_seed(seed + 2)
     ct = torch.randn((b, n, 3), generator=g).to(device)
     ct_e = torch.randn(tuple(inp["e"].shape), generator=g).to(torch.bfloat16).to(device)
@@ -596,19 +607,6 @@ def pos_backward_calls(blk: dict, b: int, n: int, seed: int, device) -> dict:
                                inp["t"], inp["pair_mask"], ct),
             "edge_block_full_bwd": (blk["edge_block"], inp["e"], inp["x"], inp["t"],
                                     inp["pair_mask"], ct_e)}
-
-
-def as_wrapper(name: str, fn):
-    """fn (a plain version, or any stand-in) in the place of kernel
-    ``name``'s wrapper: rows 3 and 5 take the two backward modes' flags
-    (ops/kernels.py), and fn computes everything; what is not asked for is
-    dropped, as the wrappers drop it."""
-    from moldiff_tpu_torch.ops import kernels as K
-
-    if name not in INPUTS_ONLY_KERNELS:
-        return fn
-    return lambda *args, need_params=True, need_time=True: K._drop(fn(*args), need_params,
-                                                                   need_time, 3)
 
 
 def check_modes(name: str, args: tuple, wblk: dict, results: dict, what: str,
@@ -659,22 +657,28 @@ def check_modes(name: str, args: tuple, wblk: dict, results: dict, what: str,
         r.update(inputs_ms=ms, inputs_bound_ms=bound)
 
 
-def check_backward(blk: dict, pos_blk: dict, device) -> dict:
+def check_backward(blk: dict, pos_blk: dict, demo: tuple, device) -> dict:
     """Phase 6: each backward kernel against its plain version on every
     output, B = 16, N = 32 and 40; times at both, the N = 32 ones kept.
     Rows 3 and 5 in both modes (check_modes).
     NodeBlock and EdgeBlock at the predictor's widths (``blk``), PosUpdate
-    and the full EdgeBlock at the denoiser's (``pos_blk``)."""
+    and the full EdgeBlock at the denoiser's (``pos_blk``); then all four
+    again at the demo widths (``demo``: the blocks of that pair), the
+    pair kernels' other instantiation."""
     results = {}
-    for n in (32, 40):
-        calls = [(name, args, blk) for name, args in backward_calls(
-            blk, 16, n, seed=100 + n, device=device).items()]
-        calls += [(name, args, pos_blk) for name, args in pos_backward_calls(
-            pos_blk, 16, n, seed=200 + n, device=device).items()]
-        for name, args, wblk in calls:
-            check_call(name, args, wblk, results, f"B=16 N={n}", keep=n == 32, plain_iters=3)
-            if name in INPUTS_ONLY_KERNELS:
-                check_modes(name, args, wblk, results, f"B=16 N={n}", keep=n == 32)
+    for tag, (b_blk, p_blk), keep in (("", (blk, pos_blk), True),
+                                      (", demo widths", demo, False)):
+        for n in (32, 40):
+            calls = [(name, args, b_blk) for name, args in backward_calls(
+                b_blk, 16, n, seed=100 + n, device=device).items()]
+            calls += [(name, args, p_blk) for name, args in pos_backward_calls(
+                p_blk, 16, n, seed=200 + n, device=device).items()]
+            what = f"B=16 N={n}{tag}"
+            for name, args, wblk in calls:
+                check_call(name, args, wblk, results, what, keep=keep and n == 32,
+                           plain_iters=3)
+                if name in INPUTS_ONLY_KERNELS:
+                    check_modes(name, args, wblk, results, what, keep=keep and n == 32)
     return results
 
 
@@ -704,7 +708,7 @@ def check_gradient(model, bp, bp_params, device) -> None:
              "edge_pair_aggregate_bwd")
     saved = {k: getattr(K, k) for k in names}
     for k in names:
-        setattr(K, k, as_wrapper(k.replace("_aggregate_bwd", "_bwd"), getattr(K, k + "_plain")))
+        setattr(K, k, getattr(K, k + "_plain"))
     try:
         want = bond_guidance_delta(*args)
     finally:
@@ -853,8 +857,7 @@ def check_train_gradient(params, records: list, device, settings: dict, b: int =
     batch = train_batch(records, b, n, device)
     noise = model.draw_loss_noise(b, n, torch.Generator(device=device).manual_seed(9))
     kern = {name: getattr(K, fn) for name, fn in KERNEL_FUNCTIONS.items()}
-    plain = {name: as_wrapper(name, getattr(K, fn + "_plain"))
-             for name, fn in KERNEL_FUNCTIONS.items()}
+    plain = {name: getattr(K, fn + "_plain") for name, fn in KERNEL_FUNCTIONS.items()}
 
     def loss_and_grads(m, use: dict):
         """use: kernel name -> the function its wrapper's name stands for."""
@@ -1191,10 +1194,14 @@ def main() -> None:
     assert summary["success_rate_classified"] >= 0.25, summary
     report("sampling", summary, steps)
 
-    # 6. the backward kernels at the predictor's widths, block-0 weights
+    # 6. the backward kernels at the predictor's widths, block-0 weights,
+    # then at the demo pair's
     bp, bp_params = cli.load_bond_predictor(BOND_PREDICTOR, sampler.featurizer, device)
     bp_blk0 = bp.prepare(bp_params)[0]
-    results.update(check_backward(bp_blk0, blk0, device))
+    d_sampler, d_params = cli.build_sampler(DEMO_CHECKPOINT, SAMPLE_SETTINGS["sample"], device)
+    d_bp, d_bp_params = cli.load_bond_predictor(DEMO_BOND_PREDICTOR, d_sampler.featurizer, device)
+    demo = (d_bp.prepare(d_bp_params)[0], d_sampler.model.prepare(d_params)[0])
+    results.update(check_backward(bp_blk0, blk0, demo, device))
 
     # 7. the guidance gradient, kernels against plain versions
     check_gradient(model, bp, bp_params, device)

@@ -450,9 +450,11 @@ long long md_edge_block_full_backward_workspace(int B, int N, int Dn, int De, in
 // the outputs d_bond, d_node, d_time, d_mask and the 38 float32 parameter
 // gradients in the weights' order (each gate's first-layer weight as one
 // [De+Dn+1, G] matrix), then the workspace
-// (md_edge_block_full_backward_workspace bytes).
+// (md_edge_block_full_backward_workspace bytes). The chains' pair kernel is
+// built for the widths of md::edge_chain_bwd_built.
 int md_edge_block_full_backward(const void* const* p, int B, int N, int Dn, int De, int I, int G,
                                 void* stream, int* launched) {
+  if (!md::edge_chain_bwd_built(De, I, G, De)) return cudaErrorInvalidValue;
   const bf16* e = static_cast<const bf16*>(p[38]);
   const bf16* x = static_cast<const bf16*>(p[39]);
   const float* mask = static_cast<const float*>(p[40]);

@@ -520,9 +520,33 @@ EdgeBwdWork carve(EdgeBwdArgs& a, unsigned char* base, int B, int N, int Dn, int
   return w;
 }
 
+// The pair kernel is instantiated for the widths of the repo's models
+// (edge_dim 64 and 32: De = Do = edge_dim, I = 2 edge_dim, G = 32);
+// ops/kernels.py's EDGE_BWD_WIDTHS lists the same.
+template <int DE, int I, int G, int DO>
+cudaError_t launch_pair(const EdgeBwdArgs& a, int tiles, cudaStream_t s, int* launched) {
+  constexpr size_t ps = pair_smem<DE, I>();
+  cudaError_t err = cudaFuncSetAttribute(edge_bwd_pair_kernel<DE, I, G, DO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(ps));
+  if (err != cudaSuccess) return err;
+  for (int side = 0; side < 2; ++side) {
+    edge_bwd_pair_kernel<DE, I, G, DO><<<tiles, 256, ps, s>>>(a, side);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 namespace md {
+
+bool edge_chain_bwd_built(int De, int I, int G, int Do) {
+  return (De == 64 && I == 128 && G == 32 && Do == 64) ||
+         (De == 32 && I == 64 && G == 32 && Do == 32);
+}
 
 size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do, int need_params) {
   EdgeBwdArgs a = {};
@@ -531,7 +555,7 @@ size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do, 
 
 cudaError_t edge_chain_bwd(const EdgeChainBwd& c, int B, int N, int Dn, int De, int I, int G,
                            int Do, cudaStream_t s, int* launched) {
-  if (De != 64 || I != 128 || G != 32 || Do != 64) return cudaErrorInvalidValue;
+  if (!edge_chain_bwd_built(De, I, G, Do)) return cudaErrorInvalidValue;
   EdgeBwdArgs a = {};
   const bf16** w = &a.side[0].wb;
   for (int k = 0; k < 28; ++k) w[k] = static_cast<const bf16*>(c.weights[k]);
@@ -568,17 +592,10 @@ cudaError_t edge_chain_bwd(const EdgeChainBwd& c, int B, int N, int Dn, int De, 
   const int BN = B * N, P = BN * N;
   const int tiles = (P + wg::kTileRows - 1) / wg::kTileRows;
   const int ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
-  constexpr size_t ps = pair_smem<64, 128>();
-  const size_t ns = node_smem(Dn, I);
-  err = cudaFuncSetAttribute(edge_bwd_pair_kernel<64, 128, 32, 64>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(ps));
+  err = De == 64 ? launch_pair<64, 128, 32, 64>(a, tiles, s, launched)
+                 : launch_pair<32, 64, 32, 32>(a, tiles, s, launched);
   if (err != cudaSuccess) return err;
-  for (int side = 0; side < 2; ++side) {
-    edge_bwd_pair_kernel<64, 128, 32, 64><<<tiles, 256, ps, s>>>(a, side);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    ++*launched;
-  }
+  const size_t ns = node_smem(Dn, I);
   err = cudaFuncSetAttribute(edge_bwd_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(ns));
   if (err != cudaSuccess) return err;
@@ -661,8 +678,8 @@ long long md_edge_pair_backward_workspace(int B, int N, int Dn, int De, int I, i
 // as one [De+Dn+1, G] matrix), then the workspace
 // (md_edge_pair_backward_workspace bytes). need_params = 0: the parameter
 // gradients are not formed (their pointers may be null); need_time = 0:
-// d_time is not formed (may be null). The redesigned pair kernel is built
-// for De = Do = 64, I = 128, G = 32.
+// d_time is not formed (may be null). The pair kernel is built for the
+// widths of md::edge_chain_bwd_built.
 int md_edge_pair_backward(const void* const* p, int B, int N, int Dn, int De, int I, int G,
                           int Do, int need_params, int need_time, void* stream, int* launched) {
   float* grads[28];

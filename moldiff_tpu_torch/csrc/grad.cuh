@@ -312,6 +312,9 @@ struct EdgeChainBwd {
 };
 size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do,
                             int need_params);
+// Whether the chains' pair kernel is instantiated for these widths (else
+// edge_chain_bwd returns cudaErrorInvalidValue before any launch).
+bool edge_chain_bwd_built(int De, int I, int G, int Do);
 cudaError_t edge_chain_bwd(const EdgeChainBwd& c, int B, int N, int Dn, int De, int I, int G,
                            int Do, cudaStream_t s, int* launched);
 

@@ -553,6 +553,22 @@ NodeBwdWork carve(NodeBwdArgs& a, unsigned char* base, int B, int N, int Dn, int
   return w;
 }
 
+// The pair kernel is instantiated for the widths of the repo's models
+// (node_dim / edge_dim 256 / 64 and 128 / 32: H = node_dim, De = edge_dim);
+// ops/kernels.py's NODE_BWD_WIDTHS lists the same.
+bool pair_built(int H, int De) { return (H == 256 && De == 64) || (H == 128 && De == 32); }
+
+template <int H, int DE>
+cudaError_t launch_pair(const NodeBwdArgs& a, int tiles, cudaStream_t s) {
+  constexpr size_t ps = pair_smem<H, DE>();
+  cudaError_t err = cudaFuncSetAttribute(node_bwd_pair_kernel<H, DE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(ps));
+  if (err != cudaSuccess) return err;
+  node_bwd_pair_kernel<H, DE><<<tiles, 256, ps, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -568,11 +584,11 @@ long long md_node_block_backward_workspace(int B, int N, int Dn, int De, int H,
 // the weights' order (the gate's first-layer weight as one [De+Dn+1, H]
 // matrix), then the workspace (md_node_block_backward_workspace bytes).
 // need_params = 0: the parameter gradients are not formed (their pointers
-// may be null); need_time = 0: d_t is not formed (may be null). The
-// redesigned pair kernel is built for H = 256, De = 64.
+// may be null); need_time = 0: d_t is not formed (may be null). The pair
+// kernel is built for the widths of pair_built.
 int md_node_block_backward(const void* const* p, int B, int N, int Dn, int De, int H,
                            int need_params, int need_time, void* stream, int* launched) {
-  if (H != 256 || De != 64) return cudaErrorInvalidValue;
+  if (!pair_built(H, De)) return cudaErrorInvalidValue;
   NodeBwdArgs a = {};
   const bf16** w = &a.we1;
   for (int k = 0; k < 20; ++k) w[k] = static_cast<const bf16*>(p[k]);
@@ -602,16 +618,11 @@ int md_node_block_backward(const void* const* p, int B, int N, int Dn, int De, i
   const int BN = B * N, P = BN * N;
   const int tiles = (P + wg::kTileRows - 1) / wg::kTileRows;
   const int ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
-  constexpr size_t ps = pair_smem<256, 64>();
-  const size_t ns = node_smem(Dn, H);
-  err = cudaFuncSetAttribute(node_bwd_pair_kernel<256, 64>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(ps));
-  if (err != cudaSuccess) return err;
-  node_bwd_pair_kernel<256, 64><<<tiles, 256, ps, s>>>(a);
-  err = cudaGetLastError();
+  err = H == 256 ? launch_pair<256, 64>(a, tiles, s) : launch_pair<128, 32>(a, tiles, s);
   if (err != cudaSuccess) return err;
   ++*launched;
 
+  const size_t ns = node_smem(Dn, H);
   err = cudaFuncSetAttribute(node_bwd_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(ns));
   if (err != cudaSuccess) return err;

@@ -214,9 +214,23 @@ def _cast_like(grads, params):
     return grads.to(params.dtype)
 
 
-def node_block_aggregate_bwd_plain(params, x, edge_attr, node_time, pair_mask, dout):
+def _drop(out: tuple, need_params: bool, need_time: bool) -> tuple:
+    """Rows 3 and 5's cotangents (d_params, ..., d_time at 3, d_mask) with
+    what is not asked for left out (None)."""
+    out = list(out)
+    if not need_params:
+        out[0] = None
+    if not need_time:
+        out[3] = None
+    return tuple(out)
+
+
+def node_block_aggregate_bwd_plain(params, x, edge_attr, node_time, pair_mask, dout,
+                                   need_params: bool = True, need_time: bool = True):
     """pallas_kernels.py:_node_block_bwd_kernel (as _pallas_node_block_bwd
-    wraps it) -> (d_params, dx, d_edge, d_time, d_mask)."""
+    wraps it) -> (d_params, dx, d_edge, d_time, d_mask); d_params (without
+    need_params) and d_time (without need_time) are None, as the kernel's
+    wrapper leaves them."""
     dt = x.dtype
     de, dn = edge_attr.shape[-1], x.shape[-1]
     pe0, pe1 = params["edge_net"]["layers"]
@@ -279,9 +293,9 @@ def node_block_aggregate_bwd_plain(params, x, edge_attr, node_time, pair_mask, d
                        (t[:, None] * d_g1_tot).sum(dim=0)[None]], dim=0),
             _rows(d_g1), _rows(dsg_rows), _rows(d_lng), _wgrad(rg, d_g2), _rows(d_g2)),
     }
-    return (_cast_like(d_params, params), (d_x_node + d_x_gate).to(dt),
-            (d_e_edge + d_e_gate).to(dt), d_t.reshape(node_time.shape).to(node_time.dtype),
-            d_mask.to(pair_mask.dtype))
+    return _drop((_cast_like(d_params, params), (d_x_node + d_x_gate).to(dt),
+                  (d_e_edge + d_e_gate).to(dt), d_t.reshape(node_time.shape).to(node_time.dtype),
+                  d_mask.to(pair_mask.dtype)), need_params, need_time)
 
 
 def _bond_chain_bwd(p, e, x, t, mask4, d_red, node_axis: int, dt):
@@ -341,11 +355,13 @@ def _bond_chain_bwd(p, e, x, t, mask4, d_red, node_axis: int, dt):
     return d_params, d_e, d_x, d_time, d_mask
 
 
-def edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask, dt_ct, du_ct):
+def edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask, dt_ct, du_ct,
+                                  need_params: bool = True, need_time: bool = True):
     """pallas_kernels.py:_edge_pair_bwd_kernel (as _pallas_edge_pair_bwd
     wraps it): cotangents dt_ct, du_ct [B,N,Do] of (t, u) -> (d_params,
     d_bond, d_node, d_time, d_mask). t sums over rows, so its cotangent
-    broadcasts back over rows; u's over columns."""
+    broadcasts back over rows; u's over columns. The two flags as
+    node_block_aggregate_bwd_plain's."""
     dt = h_bond.dtype
     mask4 = pair_mask.float()[..., None]
     left = _bond_chain_bwd(params["left"], h_bond, h_node, bond_time, mask4,
@@ -353,9 +369,9 @@ def edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask, 
     right = _bond_chain_bwd(params["right"], h_bond, h_node, bond_time, mask4,
                             du_ct.float()[:, :, None, :], 2, dt)
     d_params = _cast_like({"left": left[0], "right": right[0]}, params)
-    return (d_params, (left[1] + right[1]).to(dt), (left[2] + right[2]).to(dt),
-            (left[3] + right[3]).reshape(bond_time.shape).to(bond_time.dtype),
-            (left[4] + right[4]).to(pair_mask.dtype))
+    return _drop((d_params, (left[1] + right[1]).to(dt), (left[2] + right[2]).to(dt),
+                  (left[3] + right[3]).reshape(bond_time.shape).to(bond_time.dtype),
+                  (left[4] + right[4]).to(pair_mask.dtype)), need_params, need_time)
 
 
 def _mlp2_parts(x: torch.Tensor, p: dict, dt: torch.dtype):
@@ -649,6 +665,21 @@ def _check_width(kernel: str, **widths: int) -> None:
             raise ValueError(f"{kernel}: {name} = {w}; the kernel takes multiples of 32 up to 256")
 
 
+# The widths for which csrc/node_block_bwd.cu, (H, De), and
+# csrc/edge_pair_bwd.cu, (De, I, G, Do), instantiate their pair kernels:
+# those of every model in configs/ and ckpts/ (node_dim / edge_dim 256 / 64
+# and 128 / 32; H = node_dim, I = 2 edge_dim, G = 32, Do = De = edge_dim).
+# Row 7 (edge_block_full_bwd) runs the EdgeBlock pair kernel too.
+NODE_BWD_WIDTHS = ((256, 64), (128, 32))
+EDGE_BWD_WIDTHS = ((64, 128, 32, 64), (32, 64, 32, 32))
+
+
+def _check_built(kernel: str, names: str, widths: tuple, built: tuple) -> None:
+    if widths not in built:
+        raise ValueError(f"{kernel}: {names} = {widths}; the pair kernel is built for "
+                         f"{' and '.join(map(str, built))}")
+
+
 def _require_cuda(kernel: str, device: torch.device) -> None:
     if device.type != "cuda":
         raise ValueError(f"{kernel}: tensors on {device}; the kernel runs on CUDA, "
@@ -926,16 +957,6 @@ def _grad_buffers(shapes: List[Sequence[int]], device) -> List[torch.Tensor]:
     return [torch.empty(tuple(s), dtype=torch.float32, device=device) for s in shapes]
 
 
-def _drop(out: tuple, need_params: bool, need_time: bool, time_at: int) -> tuple:
-    """A backward's cotangents with what is not asked for left out (None)."""
-    out = list(out)
-    if not need_params:
-        out[0] = None
-    if not need_time:
-        out[time_at] = None
-    return tuple(out)
-
-
 def node_block_aggregate_bwd(params, x, edge_attr, node_time, pair_mask, dout,
                              need_params: bool = True, need_time: bool = True):
     """NodeBlock backward (see node_block_aggregate_bwd_plain). Without
@@ -944,8 +965,8 @@ def node_block_aggregate_bwd(params, x, edge_attr, node_time, pair_mask, dout,
     reduction kernel); without need_time d_t is not formed (None). Every
     output that is formed equals the full mode's."""
     if x.device.type == "cpu":
-        return _drop(node_block_aggregate_bwd_plain(params, x, edge_attr, node_time, pair_mask,
-                                                    dout), need_params, need_time, 3)
+        return node_block_aggregate_bwd_plain(params, x, edge_attr, node_time, pair_mask, dout,
+                                              need_params=need_params, need_time=need_time)
     from . import build
 
     dev = x.device
@@ -962,9 +983,7 @@ def node_block_aggregate_bwd(params, x, edge_attr, node_time, pair_mask, dout,
     _check("node_block_bwd dout", dout, (b, n, h), torch.bfloat16, dev)
     t = _check_pairs("node_block_bwd", b, n, dev, pair_mask, node_time)
     _require_cuda("node_block_bwd", dev)
-    if (h, de) != (256, 64):
-        raise ValueError(f"node_block_bwd: H = {h}, De = {de}; the kernel is built for the "
-                         "model's widths H = 256, De = 64")
+    _check_built("node_block_bwd", "(H, De)", (h, de), NODE_BWD_WIDTHS)
     lib = build.library()
     dx = torch.empty_like(x)
     d_edge = torch.empty_like(edge_attr)
@@ -991,8 +1010,9 @@ def edge_pair_aggregate_bwd(params, h_bond, h_node, bond_time, pair_mask, dt_ct,
     """EdgeBlock pair backward (see edge_pair_aggregate_bwd_plain); the two
     modes as node_block_aggregate_bwd's."""
     if h_bond.device.type == "cpu":
-        return _drop(edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask,
-                                                   dt_ct, du_ct), need_params, need_time, 3)
+        return edge_pair_aggregate_bwd_plain(params, h_bond, h_node, bond_time, pair_mask,
+                                             dt_ct, du_ct, need_params=need_params,
+                                             need_time=need_time)
     from . import build
 
     dev = h_bond.device
@@ -1003,8 +1023,6 @@ def edge_pair_aggregate_bwd(params, h_bond, h_node, bond_time, pair_mask, dt_ct,
     g = left["gate"]["layers"][0]["lin"]["w"].shape[1]
     do = left["inter"]["layers"][1]["lin"]["w"].shape[1]
     _check_width("edge_pair_bwd", Dn=dn, De=de, I=i_dim, G=g, Do=do)
-    if g > i_dim or do > i_dim or de > i_dim:
-        raise ValueError("edge_pair_bwd: the gate, output and edge widths must not exceed I")
     shapes = ([(de, i_dim), (dn, i_dim)] + _mlp_shapes(i_dim, i_dim, do)
               + _mlp_shapes(de + dn + 1, g, do))
     leaves = _edge_pair_leaves(params)
@@ -1015,9 +1033,7 @@ def edge_pair_aggregate_bwd(params, h_bond, h_node, bond_time, pair_mask, dt_ct,
     _check("edge_pair_bwd du_ct", du_ct, (b, n, do), torch.bfloat16, dev)
     t = _check_pairs("edge_pair_bwd", b, n, dev, pair_mask, bond_time)
     _require_cuda("edge_pair_bwd", dev)
-    if (de, i_dim, g, do) != (64, 128, 32, 64):
-        raise ValueError(f"edge_pair_bwd: De, I, G, Do = {de}, {i_dim}, {g}, {do}; the kernel "
-                         "is built for the model's widths 64, 128, 32, 64")
+    _check_built("edge_pair_bwd", "(De, I, G, Do)", (de, i_dim, g, do), EDGE_BWD_WIDTHS)
     lib = build.library()
     d_bond = torch.empty_like(h_bond)
     d_node = torch.empty_like(h_node)
@@ -1197,6 +1213,7 @@ def edge_block_full_bwd(params, h_bond, h_node, bond_time, pair_mask, ct):
                                                   bond_time, pair_mask)
     _check("edge_block_full_bwd ct", ct, (b, n, n, de), torch.bfloat16, dev)
     _require_cuda("edge_block_full_bwd", dev)
+    _check_built("edge_block_full_bwd", "(De, I, G, Do)", (de, i_dim, g, de), EDGE_BWD_WIDTHS)
     lib = build.library()
     d_bond = torch.empty_like(h_bond)
     d_node = torch.empty_like(h_node)

@@ -2,6 +2,9 @@
 version of the CUDA EdgeBlock pair backward kernel) against the Pallas
 backward kernel in interpret mode, and the autograd Function against it, on
 the same numpy inputs, weights and cotangents."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +14,7 @@ import torch
 from moldiff_tpu.models.denoiser import init_edge_block
 from moldiff_tpu.ops.pallas_kernels import _pallas_edge_pair_bwd, _xla_edge_pair_aggregate
 from moldiff_tpu_torch.ops import kernels
-from torch_port_util import jax_tree, np_tree, to_np, torch_tree
+from torch_port_util import TRAIN_CONFIGS, config_blocks, jax_tree, np_tree, to_np, torch_tree
 
 B, N, DN, DE = 3, 8, 64, 32
 
@@ -190,3 +193,26 @@ def test_wrapper_refuses_devices_without_kernel(case):
                                         meta(t), meta(mask), meta(ct[0], torch.bfloat16),
                                         meta(ct[1], torch.bfloat16))
     assert kernels.launch_counts == before
+
+
+@pytest.mark.parametrize("config", TRAIN_CONFIGS, ids=lambda p: Path(p).stem)
+def test_pair_kernel_is_built_for_every_configured_model(config):
+    """The EdgeBlock chain widths (De, I, G, Do) of every model that
+    configs/train/ defines are among those the pair kernel is instantiated
+    for (rows 5 and 7 both run it)."""
+    side = config_blocks(config)["edge_block"]["bond_ffn_left"]
+    de, i_dim = side["bond_linear"]["w"].shape[-2:]
+    widths = (de, i_dim, side["gate"]["layers"][0]["lin"]["w"].shape[-1],
+              side["inter"]["layers"][1]["lin"]["w"].shape[-1])
+    assert widths in kernels.EDGE_BWD_WIDTHS
+
+
+def test_built_widths_are_the_c_sources():
+    """EDGE_BWD_WIDTHS lists the widths csrc/edge_pair_bwd.cu accepts and
+    dispatches on, no more and no fewer."""
+    src = (Path(kernels.__file__).parent.parent / "csrc" / "edge_pair_bwd.cu").read_text()
+    accepted = re.search(r"bool edge_chain_bwd_built\(.*?\) \{(.*?)\}", src, re.S).group(1)
+    want = [tuple(map(str, w)) for w in kernels.EDGE_BWD_WIDTHS]
+    assert re.findall(r"De == (\d+) && I == (\d+) && G == (\d+) && Do == (\d+)",
+                      accepted) == want
+    assert sorted(re.findall(r"launch_pair<(\d+), (\d+), (\d+), (\d+)>\(a", src)) == sorted(want)

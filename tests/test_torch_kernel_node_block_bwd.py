@@ -2,6 +2,9 @@
 version of the CUDA NodeBlock backward kernel) against the Pallas backward
 kernel in interpret mode, and the autograd Function against it, on the same
 numpy inputs, weights and cotangent."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +14,7 @@ import torch
 from moldiff_tpu.models.denoiser import init_node_block
 from moldiff_tpu.ops.pallas_kernels import _pallas_node_block_bwd, _xla_node_block_aggregate
 from moldiff_tpu_torch.ops import kernels
-from torch_port_util import jax_tree, np_tree, to_np, torch_tree
+from torch_port_util import TRAIN_CONFIGS, config_blocks, jax_tree, np_tree, to_np, torch_tree
 
 B, N, DN, DE = 3, 8, 64, 32
 KEYS = ("node_net", "edge_net", "msg_net", "gate")
@@ -188,3 +191,23 @@ def test_wrapper_refuses_devices_without_kernel(case):
         kernels.node_block_aggregate_bwd(mp, meta(x, torch.bfloat16), meta(e, torch.bfloat16),
                                          meta(t), meta(mask), meta(dout, torch.bfloat16))
     assert kernels.launch_counts == before
+
+
+@pytest.mark.parametrize("config", TRAIN_CONFIGS, ids=lambda p: Path(p).stem)
+def test_pair_kernel_is_built_for_every_configured_model(config):
+    """The NodeBlock widths (H, De) of every model that configs/train/
+    defines are among those the pair kernel is instantiated for."""
+    nb = config_blocks(config)["node_block"]
+    widths = (nb["msg_net"]["w"].shape[-1], nb["edge_net"]["layers"][0]["lin"]["w"].shape[-2])
+    assert widths in kernels.NODE_BWD_WIDTHS
+
+
+def test_built_widths_are_the_c_sources():
+    """NODE_BWD_WIDTHS lists the widths csrc/node_block_bwd.cu accepts and
+    dispatches on, no more and no fewer."""
+    src = (Path(kernels.__file__).parent.parent / "csrc" / "node_block_bwd.cu").read_text()
+    accepted = re.search(r"bool pair_built\(int H, int De\) \{(.*?)\}", src, re.S).group(1)
+    assert re.findall(r"H == (\d+) && De == (\d+)", accepted) == [
+        (str(h), str(de)) for h, de in kernels.NODE_BWD_WIDTHS]
+    assert sorted(re.findall(r"launch_pair<(\d+), (\d+)>\(a", src)) == sorted(
+        (str(h), str(de)) for h, de in kernels.NODE_BWD_WIDTHS)
