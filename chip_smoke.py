@@ -15,7 +15,10 @@ Phases, each asserting and none catching a failure:
   3. kernel checks: each forward kernel (rows 1, 2, 4, 6, 8) against its
      plain PyTorch version on the card, at flagship widths, N = 32 and 40,
      B = 16, block-0 weights of ckpts/flagship_v2.ckpt, seeded inputs and
-     random masks; times by CUDA events;
+     random masks; times by CUDA events; then all five again with the
+     block-0 weights of the demo denoiser (ckpts/demo_synthetic_30k.ckpt:
+     node_dim 128, edge_dim 32, the NodeBlock and EdgeBlock pair kernels'
+     other instantiation, which rows 2 and 6 run too);
   4. forward check: one MolDiff.forward with the kernels against the same
      forward with the plain versions, on the card;
   5. sampling: the sample CLI's run() with the settings of
@@ -122,7 +125,7 @@ FORWARD_MAX_FRAC = 1e-2
 # i.e. the model's bonds (a CPU test holds the two equal)
 BOND_PREDICTOR = "ckpts/bondpred_v2.ckpt"
 # configs/sample/sample_demo_guided.yml's pair at the demo widths (node_dim
-# 128, edge_dim 32): the backward pair kernels' second instantiation
+# 128, edge_dim 32): the pair kernels' second instantiation
 DEMO_CHECKPOINT = "ckpts/demo_synthetic_30k.ckpt"
 DEMO_BOND_PREDICTOR = "ckpts/demo_bondpred_4k.ckpt"
 GUIDED_SETTINGS = {
@@ -527,14 +530,18 @@ def check_call(name: str, args: tuple, wblk: dict, results: dict, what: str,
                  bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_kernels(blk: dict, device) -> dict:
-    """Phase 3: each forward kernel at B = 16, N = 32 and 40; the N = 32
-    times (the sampling phase's shape) kept."""
+def check_kernels(blk: dict, demo_blk: dict, device) -> dict:
+    """Phase 3: each forward kernel at B = 16, N = 32 and 40, at flagship
+    widths (``blk``; the N = 32 times, the sampling phase's shape, kept),
+    then at the demo denoiser's (``demo_blk``)."""
     results = {}
-    for n in (32, 40):
-        inp = kernel_inputs(16, n, seed=n, device=device)
-        for name, args in kernel_calls(blk, inp).items():
-            check_call(name, args, blk, results, f"B=16 N={n}", keep=n == 32)
+    for tag, wblk, keep in (("", blk, True), (", demo widths", demo_blk, False)):
+        nb = wblk["node_block"]
+        dn, de = nb["node_net"]["layers"][0]["lin"]["w"].shape[0], wblk["edge_emb"]["w"].shape[1]
+        for n in (32, 40):
+            inp = kernel_inputs(16, n, seed=n, device=device, dn=dn, de=de)
+            for name, args in kernel_calls(wblk, inp).items():
+                check_call(name, args, wblk, results, f"B=16 N={n}{tag}", keep=keep and n == 32)
     return results
 
 
@@ -1168,11 +1175,13 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             say(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
 
-    # 3. kernel checks at flagship widths, block-0 weights
+    # 3. kernel checks at flagship widths, then the demo denoiser's; block-0 weights
     sampler, params = cli.build_sampler(CHECKPOINT, SAMPLE_SETTINGS["sample"], device)
     model = sampler.model
     blk0 = model.prepare(params)[0]
-    results = check_kernels(blk0, device)
+    d_sampler, d_params = cli.build_sampler(DEMO_CHECKPOINT, SAMPLE_SETTINGS["sample"], device)
+    d_blk0 = d_sampler.model.prepare(d_params)[0]
+    results = check_kernels(blk0, d_blk0, device)
 
     # 4. one full forward, kernels against plain versions
     check_forward(model, params, device)
@@ -1198,9 +1207,8 @@ def main() -> None:
     # then at the demo pair's
     bp, bp_params = cli.load_bond_predictor(BOND_PREDICTOR, sampler.featurizer, device)
     bp_blk0 = bp.prepare(bp_params)[0]
-    d_sampler, d_params = cli.build_sampler(DEMO_CHECKPOINT, SAMPLE_SETTINGS["sample"], device)
     d_bp, d_bp_params = cli.load_bond_predictor(DEMO_BOND_PREDICTOR, d_sampler.featurizer, device)
-    demo = (d_bp.prepare(d_bp_params)[0], d_sampler.model.prepare(d_params)[0])
+    demo = (d_bp.prepare(d_bp_params)[0], d_blk0)
     results.update(check_backward(bp_blk0, blk0, demo, device))
 
     # 7. the guidance gradient, kernels against plain versions

@@ -520,9 +520,7 @@ EdgeBwdWork carve(EdgeBwdArgs& a, unsigned char* base, int B, int N, int Dn, int
   return w;
 }
 
-// The pair kernel is instantiated for the widths of the repo's models
-// (edge_dim 64 and 32: De = Do = edge_dim, I = 2 edge_dim, G = 32);
-// ops/kernels.py's EDGE_BWD_WIDTHS lists the same.
+// The pair kernel is instantiated for the widths of md::edge_pair_built.
 template <int DE, int I, int G, int DO>
 cudaError_t launch_pair(const EdgeBwdArgs& a, int tiles, cudaStream_t s, int* launched) {
   constexpr size_t ps = pair_smem<DE, I>();
@@ -543,11 +541,6 @@ cudaError_t launch_pair(const EdgeBwdArgs& a, int tiles, cudaStream_t s, int* la
 
 namespace md {
 
-bool edge_chain_bwd_built(int De, int I, int G, int Do) {
-  return (De == 64 && I == 128 && G == 32 && Do == 64) ||
-         (De == 32 && I == 64 && G == 32 && Do == 32);
-}
-
 size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do, int need_params) {
   EdgeBwdArgs a = {};
   return carve(a, nullptr, B, N, Dn, De, I, G, Do, need_params).bytes;
@@ -555,7 +548,7 @@ size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do, 
 
 cudaError_t edge_chain_bwd(const EdgeChainBwd& c, int B, int N, int Dn, int De, int I, int G,
                            int Do, cudaStream_t s, int* launched) {
-  if (!edge_chain_bwd_built(De, I, G, Do)) return cudaErrorInvalidValue;
+  if (!edge_pair_built(De, I, G, Do)) return cudaErrorInvalidValue;
   EdgeBwdArgs a = {};
   const bf16** w = &a.side[0].wb;
   for (int k = 0; k < 28; ++k) w[k] = static_cast<const bf16*>(c.weights[k]);
@@ -679,7 +672,7 @@ long long md_edge_pair_backward_workspace(int B, int N, int Dn, int De, int I, i
 // (md_edge_pair_backward_workspace bytes). need_params = 0: the parameter
 // gradients are not formed (their pointers may be null); need_time = 0:
 // d_time is not formed (may be null). The pair kernel is built for the
-// widths of md::edge_chain_bwd_built.
+// widths of md::edge_pair_built.
 int md_edge_pair_backward(const void* const* p, int B, int N, int Dn, int De, int I, int G,
                           int Do, int need_params, int need_time, void* stream, int* launched) {
   float* grads[28];

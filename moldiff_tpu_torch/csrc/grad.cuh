@@ -268,6 +268,12 @@ cudaError_t edge_pair_prep(const void* const* weights, const bf16* x, const floa
 cudaError_t pos_update_prep(const void* const* weights, const bf16* x, bf16* lr, int B, int N,
                             int Dn, int Dl, cudaStream_t s);
 
+// Whether the NodeBlock and EdgeBlock pair kernels, forward and backward, are
+// instantiated for these widths (else node_block_run / edge_pair_run and the
+// backward entry points return cudaErrorInvalidValue before any launch).
+bool node_block_built(int H, int De);
+bool edge_pair_built(int De, int I, int G, int Do);
+
 // The three forward kernels whole (prep, then pair), each adding its
 // launches to *launched; the flags select the whole-block kernel's
 // roundings (fused_block.cu): node_block's sum as float32 into out32 (out
@@ -312,9 +318,6 @@ struct EdgeChainBwd {
 };
 size_t edge_chain_bwd_bytes(int B, int N, int Dn, int De, int I, int G, int Do,
                             int need_params);
-// Whether the chains' pair kernel is instantiated for these widths (else
-// edge_chain_bwd returns cudaErrorInvalidValue before any launch).
-bool edge_chain_bwd_built(int De, int I, int G, int Do);
 cudaError_t edge_chain_bwd(const EdgeChainBwd& c, int B, int N, int Dn, int De, int I, int G,
                            int Do, cudaStream_t s, int* launched);
 

@@ -18,17 +18,42 @@
 //     N = 32: 168 KB           N = 40: 252 KB   (+ 0.86 MB of weights per call)
 //   At B = 16: 7.72 GFLOP / 3.55 MB (N = 32), 12.00 GFLOP / 4.89 MB (N = 40):
 //   bound by operations, 7.8 us and 12.1 us (chip_smoke.py work()).
-// The simple design: a node-level kernel computes the sender MLP xn[j] and
-// the sender part of the gate's first layer once per node; then one CTA per
-// (molecule, group of receivers) holds up to 64 pairs in shared memory and
-// runs the five pair products on tensor cores (WMMA, not wgmma), reading
-// weights from L2. The sum over senders closes inside the CTA, so no CTA
-// waits on another and the result is deterministic. It moves no [N, N, H]
-// intermediate through device memory; its distance from the bound is the
-// WMMA path, the weight reloads per CTA and one CTA per SM.
+//
+// Design (redesigned for Hopper's tensor cores, after node_block_bwd.cu).
+// A node-level kernel computes the sender MLP xn[j] and the sender part of
+// the gate's first layer once per node (not redesigned: a small share of
+// the call). The pair kernel takes the pairs in
+// receiver-major order (row rho = (b * N + i) * N + j, e's own order) cut
+// into tiles of 64 rows, one wgmma M, so no row idles but a CTA's last
+// tile's: at N = 32 a tile holds two whole receivers, at N = 40 parts of
+// two or three. A CTA is two warpgroups; each of the five products runs
+// as wgmma with the 64-row activation tile (bf16, shared memory) as A and
+// a weight as B, the warpgroups splitting the output columns; the
+// weights' K-slices are staged into shared memory by cp.async,
+// double-buffered and shared by both warpgroups (wgmma.cuh cta_mma), and
+// the accumulators stay in registers. The epilogues (bias, LayerNorm with
+// its statistics across the two warpgroups, relu, the bilinear h * xn[j],
+// the message bias, the sigmoid gate and the mask) run on the registers;
+// only the bf16 A operand of the next product goes to shared memory. The
+// grid is persistent (one CTA per SM): a CTA takes an even share of whole
+// receivers and walks their rows tile by tile, so a receiver's sum over
+// senders closes inside the CTA, its rows added one by one in sender order
+// (wgmma.cuh tile_sums, carried from the tile where the receiver began to
+// the next), with no float atomics and no further launch. Launches: prep,
+// pair = 2. The LayerNorm statistics (wgmma.cuh ln_stats_seq) and the sums
+// take md::warp_layernorm's and a serial loop's order, as a warp-per-row
+// design takes them, so the outputs equal that design's bit for bit: the
+// tensor cores' products already do, and a bf16 training gradient can move
+// a leaf by half its scale from one-ulp differences at a few outputs
+// (chip_smoke.py phase 9). A deeper weight pipeline (a four-buffer ring
+// streaming across products and tiles) and 128-row tiles with each
+// warpgroup owning whole rows (half the weight traffic per pair) each read
+// the same time at B = 128, N = 40 (PERF.md), so the simple form stays.
 #include "grad.cuh"
+#include "wgmma.cuh"
 
 using md::bf16;
+namespace wg = md::wg;
 
 namespace {
 
@@ -106,106 +131,140 @@ __global__ void __launch_bounds__(md::kThreads) node_prep_kernel(const NodeBlock
   }
 }
 
-// One CTA per (molecule b, group of R receivers); row r of the tile is the
-// pair (i0 + r / N, r % N).
-__global__ void __launch_bounds__(md::kThreads) node_pair_kernel(const NodeBlockArgs a) {
+template <int H, int DE>
+constexpr size_t pair_smem() {
+  return (size_t)wg::kTileRows * (DE + H) * sizeof(bf16) +
+         (size_t)2 * wg::kSlice * wg::kRingCols * sizeof(bf16) +
+         (size_t)(2 * 64 + H) * sizeof(float);
+}
+
+// A persistent CTA (two warpgroups) per share of the receivers; it walks
+// their rows in tiles of 64 (wgmma.cuh tile_range): row rho = (b * N + i)
+// * N + j is the pair (receiver i, sender j) of molecule b.
+template <int H, int DE>
+__global__ void __launch_bounds__(256, 1) node_pair_kernel(const NodeBlockArgs a) {
+  constexpr int R = wg::kTileRows;
+  constexpr int NW = H / 2, NA = NW / 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lde = a.De + 8, lda = a.H + 8, ldc = a.H + 4;
-  size_t off = 0;
-  bf16* sE = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kMaxRows, lde, 2);
-  bf16* sAct = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kMaxRows, lda, 2);
-  bf16* sMsg = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kMaxRows, lda, 2);
-  float* sC = reinterpret_cast<float*>(smem + off);
+  bf16* sE = reinterpret_cast<bf16*>(smem);
+  bf16* XA = sE + R * DE;
+  bf16* ring = XA + R * H;
+  float* red = reinterpret_cast<float*>(ring + 2 * wg::kSlice * wg::kRingCols);
+  float* carry = red + 2 * 64;
+  // the values summed over senders, float32, in XA and the ring (free
+  // between the message product and the next tile's first product)
+  float* V = reinterpret_cast<float*>(XA);
+  constexpr int ldv = H + 8;
+  // LayerNorm's lane sums, in the ring (free between products)
+  float* lnbuf = reinterpret_cast<float*>(ring);
+  static_assert(R * ldv * sizeof(float) <= (R * H + 2 * wg::kSlice * wg::kRingCols) * sizeof(bf16),
+                "V overruns XA and the ring");
 
-  const int N = a.N, H = a.H;
-  const int R = md::groups_per_cta(N);
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * R;
-  const int nrec = min(R, N - i0);
-  const int rows = nrec * N;
-  const int mt = (rows + 15) / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nq = H / 32;
-  const size_t pair0 = ((size_t)b * N + i0) * N;  // first pair of the tile
-
-  md::load_rows(sE, lde, rows, mt * 16, a.De,
-                [&](int r) { return a.e + (pair0 + r) * a.De; });
-  __syncthreads();
-
-  // edge MLP: Linear -> LN -> relu
-  md::cta_gemm(sE, lde, a.we1, a.De, H, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  for (int r = warp; r < mt * 16; r += md::kWarps) {
-    float v[md::kMaxPerLane];
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) v[q] = sC[r * ldc + lane + 32 * q] + md::bf(a.be1[lane + 32 * q]);
-    md::warp_layernorm(v, nq, a.se1, a.be1n, lane);
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) sAct[r * lda + lane + 32 * q] = md::tobf(fmaxf(v[q], 0.0f));
-  }
-  __syncthreads();
-  // edge MLP second layer, then the bilinear product with the sender MLP
-  md::cta_gemm(sAct, lda, a.we2, H, H, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < mt * 16 * H; idx += blockDim.x) {
-    const int r = idx / H, c = idx % H;
-    float hh = 0.0f;
-    if (r < rows) {
-      const float h = md::rbf(sC[r * ldc + c] + md::bf(a.be2[c]));
-      hh = h * md::bf(a.xn[((size_t)b * N + r % N) * H + c]);
-    }
-    sAct[r * lda + c] = md::tobf(hh);
-  }
-  __syncthreads();
-  // message
-  md::cta_gemm(sAct, lda, a.wm, H, H, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < mt * 16 * H; idx += blockDim.x) {
-    const int r = idx / H, c = idx % H;
-    sMsg[r * lda + c] = md::tobf(sC[r * ldc + c] + md::bf(a.bm[c]));
-  }
-  __syncthreads();
-  // gate: edge part of the first layer + precomputed sender/time part
-  md::cta_gemm(sE, lde, a.wg1, a.De, H, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  for (int r = warp; r < mt * 16; r += md::kWarps) {
-    const float* gp = a.gpre + ((size_t)b * N + (r < rows ? r % N : 0)) * H;
-    float v[md::kMaxPerLane];
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) v[q] = sC[r * ldc + lane + 32 * q] + gp[lane + 32 * q];
-    md::warp_layernorm(v, nq, a.sg1, a.bg1n, lane);
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) sAct[r * lda + lane + 32 * q] = md::tobf(fmaxf(v[q], 0.0f));
-  }
-  __syncthreads();
-  md::cta_gemm(sAct, lda, a.wg2, H, H, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  // gated, masked message (float32), in place of the gate logits
-  for (int idx = threadIdx.x; idx < rows * H; idx += blockDim.x) {
-    const int r = idx / H, c = idx % H;
-    const float g = md::rbf(md::sigmoidf(sC[r * ldc + c] + md::bf(a.bg2[c])));
-    const float gated = md::rbf(md::bf(sMsg[r * lda + c]) * g);
-    sC[r * ldc + c] = gated * a.mask[pair0 + r];
-  }
-  __syncthreads();
-  // sum over senders j, in order, per receiver
-  for (int idx = threadIdx.x; idx < nrec * H; idx += blockDim.x) {
-    const int rec = idx / H, c = idx % H;
-    float s = 0.0f;
-    for (int j = 0; j < N; ++j) s += sC[(rec * N + j) * ldc + c];
-    const size_t o = ((size_t)b * N + i0 + rec) * H + c;
+  const uint32_t N = a.N, NN = N * N;
+  const wg::TileRange range = wg::tile_range(a.B * N, N);
+  const int g = threadIdx.x >> 7;
+  auto col = [&](int i) { return g * NW + wg::acc_col(i); };
+  auto write = [&](uint32_t node, int c, float v) {
+    const size_t o = (size_t)node * H + c;
     if (a.out32 != nullptr)
-      a.out32[o] = s;
+      a.out32[o] = v;
     else
-      a.out[o] = md::tobf(s);
+      a.out[o] = md::tobf(v);
+  };
+#define ROW(i) (((i) >> 1) & 1)
+  for (uint32_t rho0 = range.begin; rho0 < range.end; rho0 += R) {
+    const int nv = min((uint32_t)R, range.end - rho0);
+    for (int idx = threadIdx.x; idx < R * (DE / 8); idx += blockDim.x) {
+      const int r = idx / (DE / 8), c = (idx % (DE / 8)) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nv) v = *reinterpret_cast<const uint4*>(a.e + (size_t)(rho0 + r) * DE + c);
+      *reinterpret_cast<uint4*>(sE + wg::kmaj(r, c, DE)) = v;
+    }
+    int rw[2];
+    uint32_t snd[2];  // the row's sender, b * N + j (B * N * N < 2^32)
+    float msk[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rw[h] = wg::acc_row(2 * h);
+      const bool ok = rw[h] < nv;
+      const uint32_t rho = ok ? rho0 + rw[h] : 0;
+      snd[h] = rho / NN * N + rho % N;
+      msk[h] = ok ? a.mask[rho] : 0.0f;
+    }
+    float acc[NA], sig[NA], inv[2];
+
+    // gate: edge part of the first layer + the sender and time part, LN,
+    // relu, second layer; its sigmoid (rounded to bf16) kept in sig
+    wg::cta_mma<NW, 0>(acc, sE, DE, a.wg1, ring, false);
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const float2 gp = *reinterpret_cast<const float2*>(a.gpre + snd[ROW(i)] * H + col(i));
+      acc[i] += gp.x;
+      acc[i + 1] += gp.y;
+    }
+    wg::ln_stats_seq(acc, inv, lnbuf, red);
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int c = col(i);
+      const float g0 = fmaxf(acc[i] * md::bf(a.sg1[c]) + md::bf(a.bg1n[c]), 0.0f);
+      const float g1 = fmaxf(acc[i + 1] * md::bf(a.sg1[c + 1]) + md::bf(a.bg1n[c + 1]), 0.0f);
+      md::store2(XA + wg::kmaj(rw[ROW(i)], c, H), g0, g1);
+    }
+    wg::cta_mma<NW, 0>(acc, XA, H, a.wg2, ring, false);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) sig[i] = md::rbf(md::sigmoidf(acc[i] + md::bf(a.bg2[col(i)])));
+
+    // edge MLP: Linear -> LN -> relu -> Linear, then h * xn[j]
+    wg::cta_mma<NW, 0>(acc, sE, DE, a.we1, ring, false);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] += md::bf(a.be1[col(i)]);
+    wg::ln_stats_seq(acc, inv, lnbuf, red);
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int c = col(i);
+      const float r0 = fmaxf(acc[i] * md::bf(a.se1[c]) + md::bf(a.be1n[c]), 0.0f);
+      const float r1 = fmaxf(acc[i + 1] * md::bf(a.se1[c + 1]) + md::bf(a.be1n[c + 1]), 0.0f);
+      md::store2(XA + wg::kmaj(rw[ROW(i)], c, H), r0, r1);
+    }
+    wg::cta_mma<NW, 0>(acc, XA, H, a.we2, ring, false);
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int c = col(i), h = ROW(i);
+      const __nv_bfloat162 xn = *reinterpret_cast<const __nv_bfloat162*>(a.xn + snd[h] * H + c);
+      const float h0 = md::rbf(acc[i] + md::bf(a.be2[c]));
+      const float h1 = md::rbf(acc[i + 1] + md::bf(a.be2[c + 1]));
+      md::store2(XA + wg::kmaj(rw[h], c, H), h0 * md::bf(xn.x), h1 * md::bf(xn.y));
+    }
+
+    // message, gated and masked (float32), summed over the senders
+    wg::cta_mma<NW, 0>(acc, XA, H, a.wm, ring, false);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const float msg = md::rbf(acc[i] + md::bf(a.bm[col(i)]));
+      acc[i] = md::rbf(msg * sig[i]) * msk[ROW(i)];
+    }
+    wg::tile_values<NW>(V, ldv, [&](int i) { return acc[i]; });
+    __syncthreads();
+    wg::tile_sums(V, ldv, H, rho0, nv, N, carry, write);
   }
+#undef ROW
+}
+
+template <int H, int DE>
+cudaError_t launch_pair(const NodeBlockArgs& a, cudaStream_t s) {
+  constexpr size_t ps = pair_smem<H, DE>();
+  // one CTA per SM (the occupancy its registers allow), at most one per receiver
+  static int slots = 0;
+  if (slots == 0) {
+    cudaError_t err = cudaFuncSetAttribute(node_pair_kernel<H, DE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(ps));
+    if (err != cudaSuccess) return err;
+    slots = wg::persistent_slots(node_pair_kernel<H, DE>, ps);
+    if (slots == 0) return cudaErrorInvalidConfiguration;
+  }
+  node_pair_kernel<H, DE><<<min(slots, a.B * a.N), 256, ps, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -235,10 +294,17 @@ cudaError_t node_block_prep(const void* const* weights, const bf16* x, const flo
   return cudaGetLastError();
 }
 
+// The forward and backward pair kernels (here and in node_block_bwd.cu) are
+// instantiated for the widths of the repo's models (node_dim / edge_dim
+// 256 / 64 and 128 / 32: H = node_dim, De = edge_dim); ops/kernels.py's
+// NODE_WIDTHS lists the same.
+bool node_block_built(int H, int De) { return (H == 256 && De == 64) || (H == 128 && De == 32); }
+
 cudaError_t node_block_run(const void* const* weights, const bf16* x, const bf16* e,
                            const float* mask, const float* t, bf16* xn, float* gpre, bf16* out,
                            float* out32, int B, int N, int Dn, int De, int H, cudaStream_t s,
                            int* launched) {
+  if (!node_block_built(H, De)) return cudaErrorInvalidValue;
   NodeBlockArgs a;
   const bf16** w = &a.we1;
   for (int k = 0; k < 20; ++k) w[k] = static_cast<const bf16*>(weights[k]);
@@ -256,16 +322,7 @@ cudaError_t node_block_run(const void* const* weights, const bf16* x, const bf16
   if (err != cudaSuccess) return err;
   ++*launched;
 
-  const size_t pair_smem = md::smem_bytes(md::kMaxRows, De + 8, 2) +
-                           2 * md::smem_bytes(md::kMaxRows, H + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, H + 4, 4);
-  err = cudaFuncSetAttribute(node_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(pair_smem));
-  if (err != cudaSuccess) return err;
-  const int R = md::groups_per_cta(N);
-  dim3 grid((N + R - 1) / R, B);
-  node_pair_kernel<<<grid, md::kThreads, pair_smem, s>>>(a);
-  err = cudaGetLastError();
+  err = H == 256 ? launch_pair<256, 64>(a, s) : launch_pair<128, 32>(a, s);
   if (err == cudaSuccess) ++*launched;
   return err;
 }
@@ -280,7 +337,8 @@ const char* md_error_name(int code) {
 
 // p: 20 weight pointers in NodeBlockArgs order, then x, e, mask, t, xn, gpre, out.
 // *launched: the kernels this call launched (the prep kernel, then the pair
-// kernel).
+// kernel). The pair kernel is built for the widths of md::node_block_built
+// (else cudaErrorInvalidValue, before any launch).
 int md_node_block_forward(const void* const* p, int B, int N, int Dn, int De, int H,
                           void* stream, int* launched) {
   *launched = 0;

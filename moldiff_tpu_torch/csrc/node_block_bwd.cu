@@ -553,11 +553,6 @@ NodeBwdWork carve(NodeBwdArgs& a, unsigned char* base, int B, int N, int Dn, int
   return w;
 }
 
-// The pair kernel is instantiated for the widths of the repo's models
-// (node_dim / edge_dim 256 / 64 and 128 / 32: H = node_dim, De = edge_dim);
-// ops/kernels.py's NODE_BWD_WIDTHS lists the same.
-bool pair_built(int H, int De) { return (H == 256 && De == 64) || (H == 128 && De == 32); }
-
 template <int H, int DE>
 cudaError_t launch_pair(const NodeBwdArgs& a, int tiles, cudaStream_t s) {
   constexpr size_t ps = pair_smem<H, DE>();
@@ -585,10 +580,10 @@ long long md_node_block_backward_workspace(int B, int N, int Dn, int De, int H,
 // matrix), then the workspace (md_node_block_backward_workspace bytes).
 // need_params = 0: the parameter gradients are not formed (their pointers
 // may be null); need_time = 0: d_t is not formed (may be null). The pair
-// kernel is built for the widths of pair_built.
+// kernel is built for the widths of md::node_block_built.
 int md_node_block_backward(const void* const* p, int B, int N, int Dn, int De, int H,
                            int need_params, int need_time, void* stream, int* launched) {
-  if (!pair_built(H, De)) return cudaErrorInvalidValue;
+  if (!md::node_block_built(H, De)) return cudaErrorInvalidValue;
   NodeBwdArgs a = {};
   const bf16** w = &a.we1;
   for (int k = 0; k < 20; ++k) w[k] = static_cast<const bf16*>(p[k]);

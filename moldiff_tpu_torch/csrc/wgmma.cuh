@@ -1,6 +1,7 @@
 // Hopper's warpgroup tensor-core products (wgmma) and asynchronous copies
-// (cp.async, mbarrier), as the redesigned backward kernels use them
-// (node_block_bwd.cu, edge_pair_bwd.cu, grad.cu).
+// (cp.async, mbarrier), as the redesigned pair kernels use them
+// (node_block.cu, edge_pair.cu, node_block_bwd.cu, edge_pair_bwd.cu,
+// grad.cu).
 //
 // Shared-memory operands use wgmma's no-swizzle layout: a "core matrix" is
 // 8 rows of 16 bytes (8 bf16), 128 contiguous bytes. A tile is a grid of
@@ -193,6 +194,18 @@ struct Mma<128, TA, TB> {
 };
 
 
+// CTAs of a persistent grid for kernel (256 threads, smem bytes of dynamic
+// shared memory): the SMs times the CTAs one SM holds; 0 on an error.
+template <typename Kernel>
+int persistent_slots(Kernel kernel, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256, smem) != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
 // ---- the pair kernels' products: a CTA of two warpgroups on a 64-row tile ----
 
 constexpr int kTileRows = 64;    // rows (pairs) of a tile: one wgmma M
@@ -267,6 +280,58 @@ __device__ __forceinline__ void cta_mma(float (&acc)[NW / 2], const bf16* A, int
     fence_acc(acc);
     __syncthreads();
   }
+}
+
+// Copy the bf16 rows of a 64-row activation tile into shared memory in
+// the K-major layout (kmaj, K columns) by cp.async, without committing:
+// tile row r < nv comes from src(r) (16-byte aligned), the rest are zeros.
+template <typename Src>
+__device__ __forceinline__ void tile_in_async(bf16* dst, int K, int nv, Src src) {
+  const int kc = K >> 3;
+  for (int idx = threadIdx.x; idx < kTileRows * kc; idx += blockDim.x) {
+    const int r = idx / kc, c = (idx % kc) * 8;
+    const bf16* from = src(r < nv ? r : 0) + c;
+    cp16(dst + kmaj(r, c, K), from, r < nv ? 16 : 0);
+  }
+}
+
+// Stage a weight W [K][nout] (x @ W) whole into shared memory at dst as
+// consecutive K-slices of kSlice rows, each the MN-major tile that
+// cta_mma's ring holds (the layout res_mma reads): ceil(K / kSlice) slices,
+// K * nout values. Asynchronous: the caller commits the copies and waits
+// for them (cp_commit, cp_wait) before the first product reads dst.
+__device__ __forceinline__ void stage_resident(bf16* dst, const bf16* W, int K, int nout) {
+  for (int k0 = 0; k0 < K; k0 += kSlice)
+    stage_weight<0>(dst + k0 * nout, W, k0, min(K - k0, kSlice), K, nout);
+}
+
+// acc = A @ W for this warpgroup's columns [g * NW, (g + 1) * NW) of nout =
+// 2 * NW, g = threadIdx.x / 128, with W resident in shared memory (Ws,
+// stage_resident's layout) and A a bf16 K-major tile [64][K] (kmaj), K a
+// multiple of 16. Called by all 256 threads; the caller's shared-memory
+// writes before the call are visible to the product, and A may be
+// overwritten on return.
+template <int NW>
+__device__ __forceinline__ void res_mma(float (&acc)[NW / 2], const bf16* A, int K,
+                                        const bf16* Ws) {
+  const int g = threadIdx.x >> 7;
+  proxy_fence();
+  __syncthreads();
+  fence_acc(acc);
+  fence();
+  for (int k0 = 0; k0 < K; k0 += kSlice) {
+    const int ks = min(K - k0, kSlice);
+    const bf16* buf = Ws + k0 * 2 * NW;
+    for (int kk = 0; kk < ks; kk += 16) {
+      const uint64_t da = desc(A + kmaj(0, k0 + kk, K), 128, (K >> 3) * 128);
+      const uint64_t db = desc(buf + mnmaj(kk, g * NW, ks), 128, (ks >> 3) * 128);
+      Mma<NW, 0, 1>::run(acc, da, db, (k0 > 0 || kk > 0) ? 1 : 0);
+    }
+  }
+  commit();
+  wait_all();
+  fence_acc(acc);
+  __syncthreads();
 }
 
 // Copy a bf16 tile [64][K] (kmaj layout, shared memory) to global rows:
@@ -345,6 +410,70 @@ __device__ __forceinline__ void col_sums(Val val, int nseg, Seg seg, Out out, fl
   }
 }
 
+// The pair kernels' forward tiles: rows rho = o * N + m of one chain, in
+// output-major order (o the flattened output node b * N + k, whose sum
+// runs over the partners m), cut into tiles of 64 rows. A CTA takes an
+// even share of the output nodes, [o0, o1) with o0 = blockIdx.x * BN /
+// gridDim.x, and walks its rows tile by tile; tile_range gives its rows
+// [begin, end). A node's rows end in the tile where they began or in the
+// next one (N <= 64), so its sum closes inside the CTA: tile_sums carries
+// the open part from one tile to the next in shared memory (carry: one
+// float per column), with no atomics.
+struct TileRange {
+  uint32_t begin, end;
+};
+__device__ __forceinline__ TileRange tile_range(uint32_t BN, uint32_t N) {
+  const uint32_t o0 = (uint32_t)((uint64_t)blockIdx.x * BN / gridDim.x);
+  const uint32_t o1 = (uint32_t)((uint64_t)(blockIdx.x + 1) * BN / gridDim.x);
+  return {o0 * N, o1 * N};
+}
+
+// The sums over each output node's rows of one tile starting at row rho0
+// with nv valid rows, column by column: V holds the tile's float32 values
+// [64][ld] in shared memory (ld >= ncol), put there by tile_values; the
+// rows of a node are added one by one in row (partner) order, from 0 or
+// from the part carried over from the previous tile, as a single loop
+// over the node's N rows would add them. write(node, c, sum) receives each
+// node's total once it closes; one thread adds one (node, column). Called
+// by all 256 threads after a barrier that follows tile_values, with ncol
+// <= 256; returns after one, so V may be written again. The first
+// segment's carried part is read into a register before a barrier, since
+// another thread may write the last segment's carry[c] (ncol < 256).
+template <typename Write>
+__device__ __forceinline__ void tile_sums(const float* V, int ld, int ncol, uint32_t rho0,
+                                          int nv, uint32_t N, float* carry, Write write) {
+  const uint32_t node0 = rho0 / N;
+  const int nseg = (int)((rho0 + nv - 1) / N - node0) + 1;
+  // segment 0's column c is idx = c < ncol <= blockDim.x: thread c adds it
+  const float carried =
+      (rho0 % N != 0 && (int)threadIdx.x < ncol) ? carry[threadIdx.x] : 0.0f;
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < nseg * ncol; idx += blockDim.x) {
+    const int s = idx / ncol, c = idx % ncol;
+    const uint32_t node = node0 + s;
+    const int lo = s == 0 ? 0 : (int)(node * N - rho0);
+    const int hi = min(nv, (int)((node + 1) * N - rho0));
+    float v = s == 0 ? carried : 0.0f;
+    for (int r = lo; r < hi; ++r) v += V[r * ld + c];
+    if ((rho0 + hi) % N != 0)
+      carry[c] = v;  // the node goes on in the next tile
+    else
+      write(node, c, v);
+  }
+  __syncthreads();
+}
+
+// The values val(i) of this thread's accumulator elements (the warpgroups
+// splitting 2 * NW columns) into V [64][ld] float32, for tile_sums.
+template <int NW, typename Val>
+__device__ __forceinline__ void tile_values(float* V, int ld, Val val) {
+  const int g = threadIdx.x >> 7;
+#pragma unroll
+  for (int i = 0; i < NW / 2; i += 2)
+    *reinterpret_cast<float2*>(V + acc_row(i) * ld + g * NW + acc_col(i)) =
+        make_float2(val(i), val(i + 1));
+}
+
 // LayerNorm statistics of the accumulator rows (width columns over both
 // warpgroups; pallas _ln_fwd_stats): v becomes xhat = (v - mean) * inv,
 // inv[h] is row h's 1 / std. Two passes, float32. red: see row_sums.
@@ -364,6 +493,122 @@ __device__ __forceinline__ void ln_stats(float (&v)[NA], float (&inv)[2], int wi
   row_sums<1>(q, red);
 #pragma unroll
   for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(q[h][0] / width + 1e-5f);
+#pragma unroll
+  for (int i = 0; i < NA; ++i) v[i] = (v[i] - mean[(i >> 1) & 1]) * inv[(i >> 1) & 1];
+}
+
+// The 64 accumulator row sums of f(i) (one value per element i of this
+// thread's warpgroup, the warpgroups splitting 2 * NW columns) in
+// md::warp_layernorm's order: for each lane l of a warp holding a row, the
+// columns l, l + 32, l + 64, ... added one by one from 0, then the 32 lane
+// sums in warp_sum's tree (xor 16, 8, 4, 2, 1). SQ: the sum of squared
+// deviations from m[row half] instead, each term added as fmaf(d, d, s)
+// as the compiler contracts s += d * d. out[h]: row acc_row(2 h)'s sum.
+// A thread holds, for each of its rows, lanes l = 8 mm + 2 (t % 4) + e.
+// For NW >= 32 warpgroup 0 holds the lower columns of every lane and adds
+// first, and warpgroup 1 goes on from its sums and closes the tree; for
+// NW = 16 each lane's one column lies in one warpgroup, and warpgroup 0
+// closes the tree with warpgroup 1's lanes 16-31. The tree's levels 16, 8
+// and 1 are a thread's own values, 4 and 2 its lane quad's. buf: 64 * 33
+// floats, S: 64 floats of shared memory (S is read on return: the next
+// call writes it only after a barrier). Called by all 256 threads; buf is
+// free on return.
+template <int NW, bool SQ, typename F>
+__device__ __forceinline__ void row_sums_seq(F f, const float (&m)[2], float (&out)[2],
+                                             float* buf, float* S) {
+  constexpr int NJ = NW / 8;                // column groups of 8 in a warpgroup
+  constexpr int NM = NJ < 4 ? NJ : 4;       // lane groups of 8 a thread holds
+  constexpr int CLOSER = NW >= 32 ? 1 : 0;  // the warpgroup that closes the tree
+  const int g = threadIdx.x >> 7, ql = threadIdx.x & 3;
+  const int row[2] = {acc_row(0), acc_row(2)};
+  const int first = (g * NJ) & 3;  // the lane group of this warpgroup's first column group
+  float p[2][4][2] = {};
+  auto slot = [&](int h, int mm, int e) { return row[h] * 33 + 8 * mm + 2 * ql + e; };
+  // p[h][jj][e]: lane group first + jj (jj < NM; first is 0 where NM = 4),
+  // so that every index is known at compile time
+  auto add = [&]() {  // this warpgroup's columns, in column order
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int mm = j & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = f(4 * j + 2 * h + e);
+          if (SQ) {
+            const float d = x - m[h];
+            p[h][mm][e] = fmaf(d, d, p[h][mm][e]);
+          } else {
+            p[h][mm][e] += x;
+          }
+        }
+    }
+  };
+  if (g != CLOSER) {  // add this warpgroup's columns from 0 and hand the lane sums over
+    add();
+#pragma unroll
+    for (int j = 0; j < NM; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) buf[slot(h, (first + j) & 3, e)] = p[h][j][e];
+  }
+  __syncthreads();
+  if (g == CLOSER) {
+    if (NW >= 32) {  // go on from warpgroup 0's lane sums: its columns come first
+#pragma unroll
+      for (int mm = 0; mm < 4; ++mm)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) p[h][mm][e] = buf[slot(h, mm, e)];
+      add();
+    } else {  // own lane groups 0, 1; warpgroup 1's 2, 3
+      add();
+#pragma unroll
+      for (int mm = 2; mm < 4; ++mm)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) p[h][mm][e] = buf[slot(h, mm, e)];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float y[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float u0 = p[h][0][e] + p[h][2][e];  // xor 16
+        const float u1 = p[h][1][e] + p[h][3][e];
+        y[e] = u0 + u1;                                      // xor 8
+        y[e] = y[e] + __shfl_xor_sync(0xffffffffu, y[e], 2);  // xor 4
+        y[e] = y[e] + __shfl_xor_sync(0xffffffffu, y[e], 1);  // xor 2
+      }
+      if (ql == 0) S[row[h]] = y[0] + y[1];  // xor 1
+    }
+  }
+  __syncthreads();
+  out[0] = S[row[0]];
+  out[1] = S[row[1]];
+}
+
+// LayerNorm statistics of the accumulator rows (width = 2 * NW columns over
+// both warpgroups) in md::warp_layernorm's order (row_sums_seq), so that
+// they equal that function's bit for bit: v becomes xhat = (v - mean) *
+// inv, inv[h] is row h's 1 / std; two passes, float32. buf, S: see
+// row_sums_seq.
+template <int NA>
+__device__ __forceinline__ void ln_stats_seq(float (&v)[NA], float (&inv)[2], float* buf,
+                                             float* S) {
+  constexpr int NW = 2 * NA;
+  const float width = 2.0f * NW;
+  const float zero[2] = {0.0f, 0.0f};
+  float mean[2], sq[2];
+  row_sums_seq<NW, false>([&](int i) { return v[i]; }, zero, mean, buf, S);
+  mean[0] /= width;
+  mean[1] /= width;
+  row_sums_seq<NW, true>([&](int i) { return v[i]; }, mean, sq, buf, S);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(sq[h] / width + 1e-5f);
 #pragma unroll
   for (int i = 0; i < NA; ++i) v[i] = (v[i] - mean[(i >> 1) & 1]) * inv[(i >> 1) & 1];
 }

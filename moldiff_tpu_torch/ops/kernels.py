@@ -665,13 +665,16 @@ def _check_width(kernel: str, **widths: int) -> None:
             raise ValueError(f"{kernel}: {name} = {w}; the kernel takes multiples of 32 up to 256")
 
 
-# The widths for which csrc/node_block_bwd.cu, (H, De), and
-# csrc/edge_pair_bwd.cu, (De, I, G, Do), instantiate their pair kernels:
+# The widths for which the NodeBlock pair kernels, forward and backward
+# (csrc/node_block.cu, node_block_bwd.cu: (H, De)), and the EdgeBlock pair
+# kernels (csrc/edge_pair.cu, edge_pair_bwd.cu: (De, I, G, Do)) are
+# instantiated, as md::node_block_built and md::edge_pair_built accept them:
 # those of every model in configs/ and ckpts/ (node_dim / edge_dim 256 / 64
 # and 128 / 32; H = node_dim, I = 2 edge_dim, G = 32, Do = De = edge_dim).
-# Row 7 (edge_block_full_bwd) runs the EdgeBlock pair kernel too.
-NODE_BWD_WIDTHS = ((256, 64), (128, 32))
-EDGE_BWD_WIDTHS = ((64, 128, 32, 64), (32, 64, 32, 32))
+# The whole-block kernel (fused_block, row 2) runs both forward ones, the
+# full-EdgeBlock kernels (rows 6, 7) the EdgeBlock's.
+NODE_WIDTHS = ((256, 64), (128, 32))
+EDGE_WIDTHS = ((64, 128, 32, 64), (32, 64, 32, 32))
 
 
 def _check_built(kernel: str, names: str, widths: tuple, built: tuple) -> None:
@@ -729,6 +732,7 @@ def node_block_aggregate(params, x, edge_attr, node_time, pair_mask):
     gpre = torch.empty((b, n, h), dtype=torch.float32, device=dev)
     out = torch.empty((b, n, h), dtype=torch.bfloat16, device=dev)
     _require_cuda("node_block", dev)
+    _check_built("node_block", "(H, De)", (h, de), NODE_WIDTHS)
     lib = build.library()
     launched = ctypes.c_int(0)
     rc = lib.md_node_block_forward(
@@ -753,8 +757,6 @@ def edge_pair_aggregate(params, h_bond, h_node, bond_time, pair_mask):
     g = left["gate"]["layers"][0]["lin"]["w"].shape[1]
     do = left["inter"]["layers"][1]["lin"]["w"].shape[1]
     _check_width("edge_pair", Dn=dn, De=de, I=i_dim, G=g, Do=do)
-    if g > i_dim or do > i_dim:
-        raise ValueError("edge_pair: the gate and output widths must not exceed I")
     shapes = ([(de, i_dim), (dn, i_dim)] + _mlp_shapes(i_dim, i_dim, do)
               + _mlp_shapes(de + dn + 1, g, do))
     leaves = _bond_ffn_leaves(left) + _bond_ffn_leaves(params["right"])
@@ -766,6 +768,7 @@ def edge_pair_aggregate(params, h_bond, h_node, bond_time, pair_mask):
     gpre = torch.empty((2, b, n, g), dtype=torch.float32, device=dev)
     out = torch.empty((2, b, n, do), dtype=torch.bfloat16, device=dev)
     _require_cuda("edge_pair", dev)
+    _check_built("edge_pair", "(De, I, G, Do)", (de, i_dim, g, do), EDGE_WIDTHS)
     lib = build.library()
     launched = ctypes.c_int(0)
     rc = lib.md_edge_pair_forward(
@@ -983,7 +986,7 @@ def node_block_aggregate_bwd(params, x, edge_attr, node_time, pair_mask, dout,
     _check("node_block_bwd dout", dout, (b, n, h), torch.bfloat16, dev)
     t = _check_pairs("node_block_bwd", b, n, dev, pair_mask, node_time)
     _require_cuda("node_block_bwd", dev)
-    _check_built("node_block_bwd", "(H, De)", (h, de), NODE_BWD_WIDTHS)
+    _check_built("node_block_bwd", "(H, De)", (h, de), NODE_WIDTHS)
     lib = build.library()
     dx = torch.empty_like(x)
     d_edge = torch.empty_like(edge_attr)
@@ -1033,7 +1036,7 @@ def edge_pair_aggregate_bwd(params, h_bond, h_node, bond_time, pair_mask, dt_ct,
     _check("edge_pair_bwd du_ct", du_ct, (b, n, do), torch.bfloat16, dev)
     t = _check_pairs("edge_pair_bwd", b, n, dev, pair_mask, bond_time)
     _require_cuda("edge_pair_bwd", dev)
-    _check_built("edge_pair_bwd", "(De, I, G, Do)", (de, i_dim, g, do), EDGE_BWD_WIDTHS)
+    _check_built("edge_pair_bwd", "(De, I, G, Do)", (de, i_dim, g, do), EDGE_WIDTHS)
     lib = build.library()
     d_bond = torch.empty_like(h_bond)
     d_node = torch.empty_like(h_node)
@@ -1185,6 +1188,7 @@ def edge_block_full(params, h_bond, h_node, bond_time, pair_mask):
     i_dim, g, leaves, t = _edge_block_full_checks("edge_block_full", params, h_bond, h_node,
                                                   bond_time, pair_mask)
     _require_cuda("edge_block_full", dev)
+    _check_built("edge_block_full", "(De, I, G, Do)", (de, i_dim, g, de), EDGE_WIDTHS)
     lib = build.library()
     np_ = torch.empty((2, b, n, i_dim), dtype=torch.float32, device=dev)
     gpre = torch.empty((2, b, n, g), dtype=torch.float32, device=dev)
@@ -1213,7 +1217,7 @@ def edge_block_full_bwd(params, h_bond, h_node, bond_time, pair_mask, ct):
                                                   bond_time, pair_mask)
     _check("edge_block_full_bwd ct", ct, (b, n, n, de), torch.bfloat16, dev)
     _require_cuda("edge_block_full_bwd", dev)
-    _check_built("edge_block_full_bwd", "(De, I, G, Do)", (de, i_dim, g, de), EDGE_BWD_WIDTHS)
+    _check_built("edge_block_full_bwd", "(De, I, G, Do)", (de, i_dim, g, de), EDGE_WIDTHS)
     lib = build.library()
     d_bond = torch.empty_like(h_bond)
     d_node = torch.empty_like(h_node)
@@ -1260,8 +1264,6 @@ def fused_block(blk, h_node, h_edge, h_dist, rel_vec, distance, node_time, pair_
     _check_width("fused_block", Dn=dn, De=de, H=h, I=i_dim, G=g, Dl=dl, Ip=ip, Gp=gp)
     if dh % 16 or not 16 <= dh <= 256:
         raise ValueError(f"fused_block: Dh = {dh}; the kernel takes multiples of 16 up to 256")
-    if g > i_dim or de > i_dim:
-        raise ValueError("fused_block: the EdgeBlock's gate and edge widths must not exceed I")
     if blk["pos_block"]["left_lin_edge"]["layers"][0]["lin"]["w"].shape[1] != dl:
         raise ValueError("fused_block: the node MLPs' hidden width must equal their output")
     shapes = ([(de + dh, de), (de,)]
@@ -1279,6 +1281,8 @@ def fused_block(blk, h_node, h_edge, h_dist, rel_vec, distance, node_time, pair_
     _check("fused_block distance", distance, (b, n, n), torch.float32, dev, align=4)
     t = _check_pairs("fused_block", b, n, dev, pair_mask, node_time)
     _require_cuda("fused_block", dev)
+    _check_built("fused_block", "NodeBlock (H, De)", (h, de), NODE_WIDTHS)
+    _check_built("fused_block", "EdgeBlock (De, I, G, Do)", (de, i_dim, g, de), EDGE_WIDTHS)
     lib = build.library()
     dims_c = (ctypes.c_int * len(dims))(*dims)
     node_out = torch.empty_like(h_node)

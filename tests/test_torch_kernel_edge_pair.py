@@ -1,6 +1,9 @@
 """moldiff_tpu_torch/ops/kernels.py edge_pair_aggregate (the plain version
 of the CUDA EdgeBlock pair kernel) against the JAX XLA composition and the
 Pallas kernel in interpret mode, on the same numpy inputs and weights."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +16,8 @@ from moldiff_tpu.ops.pallas_kernels import (
     _xla_edge_pair_aggregate,
 )
 from moldiff_tpu_torch.ops import kernels
-from torch_port_util import jax_tree, max_err, np_tree, torch_tree
+from torch_port_util import (TRAIN_CONFIGS, config_blocks, jax_tree, max_err, np_tree,
+                             torch_tree)
 
 B, N, DN, DE = 3, 8, 64, 32
 
@@ -84,3 +88,26 @@ def test_sums_run_over_rows_and_columns(results):
     assert np.all(t_out.numpy()[2, 2:] == 0.0)
     assert np.all(u_out.numpy()[2, 2:] == 0.0)
     assert np.abs(t_out.numpy()[0]).max() > 0
+
+
+@pytest.mark.parametrize("config", TRAIN_CONFIGS, ids=lambda p: Path(p).stem)
+def test_pair_kernel_is_built_for_every_configured_model(config):
+    """The EdgeBlock chain widths (De, I, G, Do) of every model that
+    configs/train/ defines are among those the forward pair kernel is
+    instantiated for (rows 4, 2 and 6 run it)."""
+    side = config_blocks(config)["edge_block"]["bond_ffn_left"]
+    de, i_dim = side["bond_linear"]["w"].shape[-2:]
+    widths = (de, i_dim, side["gate"]["layers"][0]["lin"]["w"].shape[-1],
+              side["inter"]["layers"][1]["lin"]["w"].shape[-1])
+    assert widths in kernels.EDGE_WIDTHS
+
+
+def test_built_widths_are_the_c_sources():
+    """EDGE_WIDTHS lists the widths csrc/edge_pair.cu accepts and
+    dispatches on, no more and no fewer."""
+    src = (Path(kernels.__file__).parent.parent / "csrc" / "edge_pair.cu").read_text()
+    accepted = re.search(r"bool edge_pair_built\(.*?\) \{(.*?)\}", src, re.S).group(1)
+    want = [tuple(map(str, w)) for w in kernels.EDGE_WIDTHS]
+    assert re.findall(r"De == (\d+) && I == (\d+) && G == (\d+) && Do == (\d+)",
+                      accepted) == want
+    assert sorted(re.findall(r"launch_pair<(\d+), (\d+), (\d+), (\d+)>\(a", src)) == sorted(want)

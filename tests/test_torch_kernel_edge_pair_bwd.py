@@ -204,15 +204,19 @@ def test_pair_kernel_is_built_for_every_configured_model(config):
     de, i_dim = side["bond_linear"]["w"].shape[-2:]
     widths = (de, i_dim, side["gate"]["layers"][0]["lin"]["w"].shape[-1],
               side["inter"]["layers"][1]["lin"]["w"].shape[-1])
-    assert widths in kernels.EDGE_BWD_WIDTHS
+    assert widths in kernels.EDGE_WIDTHS
 
 
 def test_built_widths_are_the_c_sources():
-    """EDGE_BWD_WIDTHS lists the widths csrc/edge_pair_bwd.cu accepts and
-    dispatches on, no more and no fewer."""
-    src = (Path(kernels.__file__).parent.parent / "csrc" / "edge_pair_bwd.cu").read_text()
-    accepted = re.search(r"bool edge_chain_bwd_built\(.*?\) \{(.*?)\}", src, re.S).group(1)
-    want = [tuple(map(str, w)) for w in kernels.EDGE_BWD_WIDTHS]
-    assert re.findall(r"De == (\d+) && I == (\d+) && G == (\d+) && Do == (\d+)",
-                      accepted) == want
+    """EDGE_WIDTHS lists the widths csrc/edge_pair_bwd.cu (and row 7's
+    csrc/edge_block_full.cu) accepts and dispatches on, no more and no
+    fewer: both accept those of the forward kernel's predicate,
+    md::edge_pair_built, and the pair kernel is instantiated for the same."""
+    csrc = Path(kernels.__file__).parent.parent / "csrc"
+    src = (csrc / "edge_pair_bwd.cu").read_text()
+    gate = r"if \(!(\S+)\(De, I, G, D[oe]\)\) return cudaErrorInvalidValue"
+    assert re.findall(gate, src) == ["edge_pair_built"]
+    assert re.findall(gate, (csrc / "edge_block_full.cu").read_text()) == [
+        "md::edge_pair_built"]
+    want = [tuple(map(str, w)) for w in kernels.EDGE_WIDTHS]
     assert sorted(re.findall(r"launch_pair<(\d+), (\d+), (\d+), (\d+)>\(a", src)) == sorted(want)

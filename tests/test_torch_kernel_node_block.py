@@ -1,6 +1,9 @@
 """moldiff_tpu_torch/ops/kernels.py node_block_aggregate (the plain version
 of the CUDA NodeBlock kernel) against the JAX XLA composition and the Pallas
 kernel in interpret mode, on the same numpy inputs and weights."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,7 +16,8 @@ from moldiff_tpu.ops.pallas_kernels import (
     _xla_node_block_aggregate,
 )
 from moldiff_tpu_torch.ops import kernels
-from torch_port_util import jax_tree, max_err, np_tree, torch_tree
+from torch_port_util import (TRAIN_CONFIGS, config_blocks, jax_tree, max_err, np_tree,
+                             torch_tree)
 
 B, N, DN, DE = 3, 8, 64, 32
 KEYS = ("node_net", "edge_net", "msg_net", "gate")
@@ -93,3 +97,23 @@ def test_wrapper_refuses_devices_without_kernel(case):
         kernels.node_block_aggregate(mp, meta(x, torch.bfloat16), meta(e, torch.bfloat16),
                                      meta(t), meta(mask))
     assert kernels.launch_counts == before
+
+
+@pytest.mark.parametrize("config", TRAIN_CONFIGS, ids=lambda p: Path(p).stem)
+def test_pair_kernel_is_built_for_every_configured_model(config):
+    """The NodeBlock widths (H, De) of every model that configs/train/
+    defines are among those the forward pair kernel is instantiated for
+    (rows 1 and 2 both run it)."""
+    nb = config_blocks(config)["node_block"]
+    widths = (nb["msg_net"]["w"].shape[-1], nb["edge_net"]["layers"][0]["lin"]["w"].shape[-2])
+    assert widths in kernels.NODE_WIDTHS
+
+
+def test_built_widths_are_the_c_sources():
+    """NODE_WIDTHS lists the widths csrc/node_block.cu accepts and
+    dispatches on, no more and no fewer."""
+    src = (Path(kernels.__file__).parent.parent / "csrc" / "node_block.cu").read_text()
+    accepted = re.search(r"bool node_block_built\(int H, int De\) \{(.*?)\}", src, re.S).group(1)
+    want = [tuple(map(str, w)) for w in kernels.NODE_WIDTHS]
+    assert re.findall(r"H == (\d+) && De == (\d+)", accepted) == want
+    assert sorted(re.findall(r"launch_pair<(\d+), (\d+)>\(a", src)) == sorted(want)

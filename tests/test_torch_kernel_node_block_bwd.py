@@ -199,15 +199,15 @@ def test_pair_kernel_is_built_for_every_configured_model(config):
     defines are among those the pair kernel is instantiated for."""
     nb = config_blocks(config)["node_block"]
     widths = (nb["msg_net"]["w"].shape[-1], nb["edge_net"]["layers"][0]["lin"]["w"].shape[-2])
-    assert widths in kernels.NODE_BWD_WIDTHS
+    assert widths in kernels.NODE_WIDTHS
 
 
 def test_built_widths_are_the_c_sources():
-    """NODE_BWD_WIDTHS lists the widths csrc/node_block_bwd.cu accepts and
-    dispatches on, no more and no fewer."""
+    """NODE_WIDTHS lists the widths csrc/node_block_bwd.cu accepts and
+    dispatches on, no more and no fewer: it accepts those of the forward
+    kernel's predicate, md::node_block_built, and instantiates the same."""
     src = (Path(kernels.__file__).parent.parent / "csrc" / "node_block_bwd.cu").read_text()
-    accepted = re.search(r"bool pair_built\(int H, int De\) \{(.*?)\}", src, re.S).group(1)
-    assert re.findall(r"H == (\d+) && De == (\d+)", accepted) == [
-        (str(h), str(de)) for h, de in kernels.NODE_BWD_WIDTHS]
+    assert re.findall(r"if \(!(\S+)\(H, De\)\) return cudaErrorInvalidValue", src) == [
+        "md::node_block_built"]
     assert sorted(re.findall(r"launch_pair<(\d+), (\d+)>\(a", src)) == sorted(
-        (str(h), str(de)) for h, de in kernels.NODE_BWD_WIDTHS)
+        (str(h), str(de)) for h, de in kernels.NODE_WIDTHS)

@@ -1,5 +1,6 @@
 """Helpers of the tests that hold moldiff_tpu_torch against moldiff_tpu:
 numpy trees in, one tree for each framework out."""
+import functools
 from pathlib import Path
 
 import jax
@@ -37,6 +38,7 @@ TRAIN_CONFIGS = sorted(str(p) for p in (Path(__file__).resolve().parent.parent
                                         / "configs" / "train").glob("*.yml"))
 
 
+@functools.lru_cache(maxsize=None)
 def config_blocks(path: str) -> dict:
     """The shapes of the block weights (node_block, edge_block; leading axis
     the blocks) of the model a train config defines, denoiser or bond
