@@ -71,7 +71,14 @@ Phases, each asserting and none catching a failure:
  13. path A, the full-EdgeBlock kernels (rows 6, 7): phase 10 with
      model.denoiser.edge_full (no launch of rows 4, 5), the checkpoint's
      config carrying edge_full; phase 9 with edge_full; phase 11 for rows 6
-     and 7 at batch 128, N = 40.
+     and 7 at batch 128, N = 40;
+ 14. grid-size invariance: the persistent pair kernels (rows 1, 4 and 8,
+     and row 2, which runs them) rerun with their grid capped at 1, 7 and
+     33 CTAs and at the card's own, GRID_REPEATS times each, at both
+     widths, N = 32 and 40, B = 16: every output equals the first run's bit
+     for bit. Each node's sum is added in partner order whatever tiles its
+     CTA takes, so a difference is a race or a tile-boundary fault (no race
+     detector runs on the card machine).
 The last line is {"ok": true, "device": {...}}. A hang ends in a traceback
 and a non-zero exit (faulthandler) before the budget runs out. The script
 imports only torch, numpy, the standard library and moldiff_tpu_torch.
@@ -240,6 +247,11 @@ FUSE_SETTINGS = dict(SAMPLE_SETTINGS, model={"checkpoint": CHECKPOINT,
                                              "denoiser": {"fuse_block": True}})
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes these fused "
                 "MLP-gate-sum chains")
+# phase 14: the persistent kernels (and row 2, which runs them), the grid
+# caps (0: the card's own) and the reruns at each
+PERSISTENT_KERNELS = ("node_block", "edge_pair", "pos_update", "fused_block")
+GRID_CAPS = (0, 1, 7, 33)
+GRID_REPEATS = 3
 
 
 def say(*args) -> None:
@@ -543,6 +555,46 @@ def check_kernels(blk: dict, demo_blk: dict, device) -> dict:
             for name, args in kernel_calls(wblk, inp).items():
                 check_call(name, args, wblk, results, f"B=16 N={n}{tag}", keep=keep and n == 32)
     return results
+
+
+def check_grid_invariance(blk: dict, demo_blk: dict, device) -> None:
+    """Phase 14: the persistent kernels' outputs at each grid cap of
+    GRID_CAPS, GRID_REPEATS times, against their first run at the card's own
+    grid, bit for bit; both widths, N = 32 and 40, B = 16."""
+    import torch
+
+    from moldiff_tpu_torch.ops import build
+    from moldiff_tpu_torch.ops import kernels as K
+
+    lib = build.library()
+    runs = 0
+    try:
+        for tag, wblk in (("", blk), (", demo widths", demo_blk)):
+            nb = wblk["node_block"]
+            dn = nb["node_net"]["layers"][0]["lin"]["w"].shape[0]
+            de = wblk["edge_emb"]["w"].shape[1]
+            for n in (32, 40):
+                calls = kernel_calls(wblk, kernel_inputs(16, n, seed=300 + n, device=device,
+                                                         dn=dn, de=de))
+                first = {}
+                with torch.no_grad():
+                    for cap in GRID_CAPS:
+                        build.check(lib, lib.md_set_persistent_slots(cap), "grid cap")
+                        for _ in range(GRID_REPEATS):
+                            for name in PERSISTENT_KERNELS:
+                                out = _outputs(getattr(K, KERNEL_FUNCTIONS[name])(*calls[name]))
+                                torch.cuda.synchronize()
+                                want = first.setdefault(name, out)
+                                for k, (a, w) in enumerate(zip(out, want)):
+                                    assert torch.equal(a, w), (
+                                        f"{name} B=16 N={n}{tag}: output {k} at a grid of "
+                                        f"{cap or 'the card'} CTAs differs from the first run")
+                                runs += 1
+    finally:
+        build.check(lib, lib.md_set_persistent_slots(0), "grid cap")
+    say(f"grid-size invariance: {', '.join(PERSISTENT_KERNELS)} at grid caps {GRID_CAPS} "
+        f"(0: the card's own) x {GRID_REPEATS}, both widths, N = 32 and 40, B = 16: {runs} "
+        "runs, every output bit-equal to the first")
 
 
 def check_forward(model, params, device) -> None:
@@ -1287,6 +1339,11 @@ def main() -> None:
     ws = build.library().md_edge_block_full_backward_workspace(128, 40, 256, 64, 128, 32)
     say(f"row 7's workspace at B=128 N=40, flagship widths: {ws / 1e9:.3f} GB")
     say(f"phase 13 (path A, edge_full): {time.time() - t0:.1f} s")
+
+    # 14. the persistent kernels at other grid sizes, bit for bit
+    t0 = time.time()
+    check_grid_invariance(blk0, d_blk0, device)
+    say(f"phase 14 (grid-size invariance): {time.time() - t0:.1f} s")
 
     main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts)
     line = {"kernels": [

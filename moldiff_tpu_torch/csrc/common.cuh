@@ -1,9 +1,8 @@
 // Shared device helpers of the kernels still on synchronous WMMA: the
-// node-level prep kernels (node_block.cu, edge_pair.cu, pos_update.cu),
-// the PosUpdate pair kernels forward and backward, the node-level backward
-// kernels and the whole-block and full-EdgeBlock kernels' own kernels.
-// (The NodeBlock and EdgeBlock pair kernels, forward and backward, run on
-// wgmma: wgmma.cuh.)
+// node-level prep kernels (node_block.cu, edge_pair.cu, pos_update.cu), the
+// node-level backward kernels and the whole-block and full-EdgeBlock
+// kernels' own kernels. (The NodeBlock, EdgeBlock and PosUpdate pair
+// kernels, forward and backward, run on wgmma: wgmma.cuh.)
 //
 // Every kernel here works on a tile of at most kMaxRows rows (pairs or
 // nodes) held in shared memory, and runs a chain of small matrix products

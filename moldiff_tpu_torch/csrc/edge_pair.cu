@@ -271,7 +271,8 @@ cudaError_t launch_pair(const EdgePairArgs& a, cudaStream_t s) {
     slots = wg::persistent_slots(edge_pair_kernel<DE, I, G, DO>, ps);
     if (slots < 2) return cudaErrorInvalidConfiguration;
   }
-  edge_pair_kernel<DE, I, G, DO><<<dim3(min(slots / 2, a.B * a.N), 2), 256, ps, s>>>(a);
+  const int ctas = min(wg::capped(slots / 2), a.B * a.N);
+  edge_pair_kernel<DE, I, G, DO><<<dim3(ctas, 2), 256, ps, s>>>(a);
   return cudaGetLastError();
 }
 

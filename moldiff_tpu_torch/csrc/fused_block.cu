@@ -183,8 +183,9 @@ int md_fused_block_forward(const void* const* p, const int* dims, void* stream, 
   const int B = dims[kB], N = dims[kN], Dn = dims[kDn], De = dims[kDe], Dh = dims[kDh];
   const int H = dims[kH], I = dims[kI], G = dims[kG], Dl = dims[kDl], Ip = dims[kIp];
   const int Gp = dims[kGp];
-  // the NodeBlock and EdgeBlock pair kernels' widths, before any launch
-  if (!md::node_block_built(H, De) || !md::edge_pair_built(De, I, G, De))
+  // the NodeBlock, EdgeBlock and PosUpdate pair kernels' widths, before any launch
+  if (!md::node_block_built(H, De) || !md::edge_pair_built(De, I, G, De) ||
+      !md::pos_update_built(Dn, De, Dl, Ip, Gp))
     return cudaErrorInvalidValue;
   const bf16* x = static_cast<const bf16*>(p[92]);
   const bf16* e = static_cast<const bf16*>(p[93]);

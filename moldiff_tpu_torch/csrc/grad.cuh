@@ -2,8 +2,8 @@
 // edge_pair_bwd.cu, pos_update_bwd.cu, edge_block_full.cu): transposed-weight
 // tile products, the float32 split into two bf16 halves, the LayerNorm
 // backward of one row held by a warp, per-tile column sums (the node-level
-// kernels and the PosUpdate and EdgeBlock-tail kernels, on 32-row tiles;
-// the redesigned NodeBlock and EdgeBlock pair kernels use wgmma.cuh), the
+// kernels and the EdgeBlock-tail kernels, on 32-row tiles; the redesigned
+// pair kernels use wgmma.cuh), the
 // weight-gradient operands' form, the host launchers of the
 // weight-gradient, reduction and time kernels of grad.cu, and the host
 // launchers that the full-EdgeBlock and whole-block entry points
@@ -273,6 +273,10 @@ cudaError_t pos_update_prep(const void* const* weights, const bf16* x, bf16* lr,
 // backward entry points return cudaErrorInvalidValue before any launch).
 bool node_block_built(int H, int De);
 bool edge_pair_built(int De, int I, int G, int Do);
+// Whether the PosUpdate pair kernels, forward and backward, are instantiated
+// for these widths (else pos_update_run and the backward entry point return
+// cudaErrorInvalidValue before any launch).
+bool pos_update_built(int Dn, int De, int Dl, int I, int G);
 
 // The three forward kernels whole (prep, then pair), each adding its
 // launches to *launched; the flags select the whole-block kernel's

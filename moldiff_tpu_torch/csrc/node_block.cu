@@ -263,13 +263,18 @@ cudaError_t launch_pair(const NodeBlockArgs& a, cudaStream_t s) {
     slots = wg::persistent_slots(node_pair_kernel<H, DE>, ps);
     if (slots == 0) return cudaErrorInvalidConfiguration;
   }
-  node_pair_kernel<H, DE><<<min(slots, a.B * a.N), 256, ps, s>>>(a);
+  node_pair_kernel<H, DE><<<min(wg::capped(slots), a.B * a.N), 256, ps, s>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 namespace md {
+
+int& wg::persistent_cap() {
+  static int cap = 0;
+  return cap;
+}
 
 // The prep kernel alone (xn, gpre), for the backward entry point.
 cudaError_t node_block_prep(const void* const* weights, const bf16* x, const float* t,
@@ -333,6 +338,15 @@ extern "C" {
 
 const char* md_error_name(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Caps the grid of every persistent pair kernel (rows 1, 4 and 8, and the
+// whole-block and full-EdgeBlock kernels that run them) at slots CTAs; 0:
+// the card's own (wgmma.cuh persistent_cap). For checks only: the outputs
+// do not depend on it.
+int md_set_persistent_slots(int slots) {
+  md::wg::persistent_cap() = slots > 0 ? slots : 0;
+  return 0;
 }
 
 // p: 20 weight pointers in NodeBlockArgs order, then x, e, mask, t, xn, gpre, out.

@@ -19,15 +19,43 @@
 //     N = 32: 168 KB           N = 40: 258 KB   (+ 0.29 MB of weights per call)
 //   At B = 16: 3.41 GFLOP / 2.98 MB (N = 32), 5.31 GFLOP / 4.41 MB (N = 40):
 //   bound by operations, 3.4 us and 5.4 us (chip_smoke.py work()).
-// The simple design: a node-level kernel computes L and R once per node;
-// then one CTA per (molecule, group of receivers) builds xp for its pairs in
-// shared memory and runs the pair chain there, the widest pair products
-// (64 x 256 and 256 x 256) on tensor cores (WMMA), the two one-column
-// layers as warp dot products. The force sum over senders closes inside
-// the CTA: no CTA waits on another, and the result is deterministic.
+//
+// Design (redesigned for Hopper's tensor cores, after node_block.cu and
+// edge_pair.cu). A node-level kernel computes L and R once per node (not
+// redesigned: two small MLPs over B * N rows). The pair kernel takes the
+// pairs in receiver-major order (row rho = (b * N + i) * N + j, e's own
+// order) cut into tiles of 64 rows, one wgmma M, so no row idles but a
+// CTA's last tile's. A CTA is two warpgroups; each product runs as wgmma
+// with the 64-row activation tile (bf16, shared memory) as A and a weight
+// as B, the warpgroups splitting the output columns, float32 accumulators
+// in registers. Wb, Wn and the gate's e and xp rows (72 KB of bf16 at
+// flagship widths) are staged once into shared memory and stay there
+// while the CTA walks its tiles; W1 (128 KB) does not fit beside them and
+// the tiles, so it streams through the double-buffered cp.async ring
+// (wgmma.cuh cta_mma). The next tile's e rows load by cp.async while this
+// one runs; xp = bf16(L[i] R[j]) is built per tile from the prep's L and R.
+// The bilinear inter = bf16((e @ Wb) * (xp @ Wn)) multiplies the two
+// products' float32 accumulators before it rounds, both alive at once (128
+// registers a thread at I = 256; nothing else is). The per-column
+// parameters (biases, LayerNorm scales, the one-column weights) are staged
+// once as float32 in shared memory, where the epilogues read them per
+// element. The grid is persistent (one CTA
+// per SM): a CTA takes an even share of whole receivers (wgmma.cuh
+// tile_range), so a receiver's force closes inside it, its senders' terms
+// added one by one in sender order from 0 (wgmma.cuh tile_sums), with no
+// atomics and no further launch. Launches: prep, pair = 2.
+// The outputs equal those of the first design (a warp per row, WMMA
+// products) bit for bit, as a bf16 training gradient can move a leaf by
+// half its scale from one-ulp forward differences (chip_smoke.py phase 9):
+// the tensor cores' products equal WMMA's, both LayerNorms take md::warp_layernorm's order
+// (wgmma.cuh ln_stats_seq), the two one-column layers its lane sums and
+// warp_sum tree (row_sums_seq, kSeqDot), and the force sum the serial
+// sender order.
 #include "grad.cuh"
+#include "wgmma.cuh"
 
 using md::bf16;
+namespace wg = md::wg;
 
 namespace {
 
@@ -94,116 +122,187 @@ __global__ void __launch_bounds__(md::kThreads) pos_prep_kernel(const PosArgs a)
   }
 }
 
-// One CTA per (group of R receivers, molecule b); row r of the tile is the
-// pair (i0 + r / N, r % N).
-__global__ void __launch_bounds__(md::kThreads) pos_pair_kernel(const PosArgs a) {
+template <int DE, int DL, int I, int G>
+constexpr size_t pair_smem() {
+  return ((size_t)(DE + DL) * (I + G) + 2 * wg::kSlice * wg::kRingCols +
+          (size_t)wg::kTileRows * (2 * DE + DL + I)) * sizeof(bf16) +
+         (size_t)(64 + 64 * 4 + 4 + 4 * I + 5 * G) * sizeof(float);
+}
+
+// A persistent CTA (two warpgroups) per share of the receivers; it walks
+// their rows in tiles of 64 (wgmma.cuh tile_range): row rho = (b * N + i)
+// * N + j is the pair (receiver i, sender j) of molecule b.
+template <int DE, int DL, int I, int G>
+__global__ void __launch_bounds__(256, 1) pos_pair_kernel(const PosArgs a) {
+  constexpr int R = wg::kTileRows;
+  constexpr int NW = I / 2, NA = NW / 2;  // the I-wide products
+  constexpr int NG = G / 2, AG = NG / 2;  // the gate's hidden layer
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lde = a.De + 8, ldx = a.Dl + 8, lda = a.I + 8, ldc = a.I + 4;
-  size_t off = 0;
-  bf16* sE = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kMaxRows, lde, 2);
-  bf16* sX = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kMaxRows, ldx, 2);
-  bf16* sAct = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kMaxRows, lda, 2);
-  float* sC = reinterpret_cast<float*>(smem + off);
-  off += md::smem_bytes(md::kMaxRows, ldc, 4);
-  float* sW = reinterpret_cast<float*>(smem + off);       // [kMaxRows] pair weight
-  off += md::smem_bytes(md::kMaxRows, 1, 4);
-  float* sF = reinterpret_cast<float*>(smem + off);       // [kMaxRows, 3] force
+  bf16* sWb = reinterpret_cast<bf16*>(smem);  // the resident weights, stage_resident's layout
+  bf16* sWn = sWb + DE * I;
+  bf16* sWge = sWn + DL * I;                  // the gate's first layer, e rows
+  bf16* sWgx = sWge + DE * G;                 // and xp rows
+  bf16* ring = sWgx + DL * G;                 // W1, streamed
+  bf16* sE = ring + 2 * wg::kSlice * wg::kRingCols;  // two tiles of e
+  bf16* sX = sE + 2 * R * DE;                 // xp
+  bf16* XI = sX + R * DL;                     // inter (bf16), W1's A
+  float* S = reinterpret_cast<float*>(XI + R * I);  // row_sums_seq's row sums
+  float* V = S + 64;                          // [64][4] the force terms of a tile
+  float* carry = V + 64 * 4;
+  // the per-column parameters as float32 (read per element by the epilogues)
+  float* pb1 = carry + 4;
+  float* ps1 = pb1 + I;
+  float* pb1n = ps1 + I;
+  float* pw2 = pb1n + I;
+  float* pbg1 = pw2 + I;
+  float* psg1 = pbg1 + G;
+  float* pbg1n = psg1 + G;
+  float* pwg2 = pbg1n + G;
+  float* pwg1t = pwg2 + G;
+  // LayerNorm's and the one-column layers' lane sums, in the ring (free
+  // between W1's products)
+  float* lnbuf = reinterpret_cast<float*>(ring);
+  static_assert(64 * 33 * sizeof(float) <= 2 * wg::kSlice * wg::kRingCols * sizeof(bf16),
+                "the lane sums overrun the ring");
+  static_assert(I <= wg::kRingCols, "W1 is wider than the ring");
 
-  const int N = a.N, I = a.I, G = a.G, Dl = a.Dl;
-  const int R = md::groups_per_cta(N);
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * R;
-  const int nrec = min(R, N - i0);
-  const int rows = nrec * N;
-  const int mt = (rows + 15) / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t node0 = (size_t)b * N;
-  const size_t pair0 = (node0 + i0) * N;
-  const size_t total = (size_t)a.B * N;
-  const bf16* lft = a.lr + node0 * Dl;
-  const bf16* rgt = a.lr + (total + node0) * Dl;
+  wg::stage_resident(sWb, a.wb, DE, I);
+  wg::stage_resident(sWn, a.wn, DL, I);
+  wg::stage_resident(sWge, a.wg1, DE, G);
+  wg::stage_resident(sWgx, a.wg1 + (size_t)DE * G, DL, G);
+  const bf16* wg1t = a.wg1 + (size_t)(DE + DL) * G;
+  for (int c = threadIdx.x; c < I; c += blockDim.x) {
+    pb1[c] = md::bf(a.b1[c]);
+    ps1[c] = md::bf(a.s1[c]);
+    pb1n[c] = md::bf(a.b1n[c]);
+    pw2[c] = md::bf(a.w2[c]);
+  }
+  for (int c = threadIdx.x; c < G; c += blockDim.x) {
+    pbg1[c] = md::bf(a.bg1[c]);
+    psg1[c] = md::bf(a.sg1[c]);
+    pbg1n[c] = md::bf(a.bg1n[c]);
+    pwg2[c] = md::bf(a.wg2[c]);
+    pwg1t[c] = md::bf(wg1t[c]);
+  }
 
-  md::load_rows(sE, lde, rows, mt * 16, a.De,
-                [&](int r) { return a.e + (pair0 + r) * a.De; });
-  for (int idx = threadIdx.x; idx < mt * 16 * Dl; idx += blockDim.x) {
-    const int r = idx / Dl, c = idx % Dl;
-    float v = 0.0f;
-    if (r < rows) v = md::bf(lft[(size_t)(i0 + r / N) * Dl + c]) * md::bf(rgt[(size_t)(r % N) * Dl + c]);
-    sX[r * ldx + c] = md::tobf(v);
-  }
-  __syncthreads();
+  const uint32_t N = a.N, NN = N * N;
+  const size_t BN = (size_t)a.B * N;
+  const bf16* lft = a.lr;
+  const bf16* rgt = a.lr + BN * DL;
+  const wg::TileRange range = wg::tile_range(a.B * N, N);
+  const uint32_t tiles = (range.end - range.begin + R - 1) / R;
+  const int g = threadIdx.x >> 7, ql = threadIdx.x & 3;
+  auto col = [&](int i) { return g * NW + wg::acc_col(i); };
+  auto colG = [&](int i) { return g * NG + wg::acc_col(i); };
+  auto write = [&](uint32_t node, int c, float v) { a.out[(size_t)node * 3 + c] = v; };
+  auto load_e = [&](uint32_t t) {  // tile t's e rows, into buffer t % 2
+    const uint32_t rho0 = range.begin + t * R;
+    wg::tile_in_async(sE + (t & 1) * R * DE, DE, (int)min((uint32_t)R, range.end - rho0),
+                      [&](int r) { return a.e + (size_t)(rho0 + r) * DE; });
+  };
+  const float zero[2] = {0.0f, 0.0f};
+  load_e(0);
+  wg::cp_commit();  // the resident weights and tile 0's e
+#define ROW(i) (((i) >> 1) & 1)
+  for (uint32_t t = 0; t < tiles; ++t) {
+    const uint32_t rho0 = range.begin + t * R;
+    const int nv = min((uint32_t)R, range.end - rho0);
+    const bf16* sEt = sE + (t & 1) * R * DE;
+    if (t + 1 < tiles) load_e(t + 1);
+    wg::cp_commit();
+    wg::cp_wait<1>();  // all but the newest group: this tile's e (and the weights) landed
 
-  // inter = bf16((e @ Wb) * (xp @ Wn))
-  md::cta_gemm(sE, lde, a.wb, a.De, I, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  md::cta_gemm(sX, ldx, a.wn, Dl, I, sC, ldc, mt, md::kMul);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < mt * 16 * I; idx += blockDim.x) {
-    const int r = idx / I, c = idx % I;
-    sAct[r * lda + c] = md::tobf(sC[r * ldc + c]);
-  }
-  __syncthreads();
-  // inter MLP: Linear -> LN -> relu, then the one-column layer
-  md::cta_gemm(sAct, lda, a.w1, I, I, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  const int nq = I / 32;
-  for (int r = warp; r < mt * 16; r += md::kWarps) {
-    float v[md::kMaxPerLane];
+    // xp = bf16(L[i] R[j]), eight columns a thread
+    for (int idx = threadIdx.x; idx < R * (DL / 8); idx += blockDim.x) {
+      const int r = idx / (DL / 8), c = (idx % (DL / 8)) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < nv) {
+        const uint32_t rho = rho0 + r;
+        const size_t snd = rho / NN * N + rho % N;  // the sender, b * N + j
+        const uint4 l = *reinterpret_cast<const uint4*>(lft + (size_t)(rho / N) * DL + c);
+        const uint4 q = *reinterpret_cast<const uint4*>(rgt + snd * DL + c);
+        const bf16* lv = reinterpret_cast<const bf16*>(&l);
+        const bf16* rv = reinterpret_cast<const bf16*>(&q);
+        bf16* xv = reinterpret_cast<bf16*>(&v);
 #pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) v[q] = sC[r * ldc + lane + 32 * q] + md::bf(a.b1[lane + 32 * q]);
-    md::warp_layernorm(v, nq, a.s1, a.b1n, lane);
-    float dot = 0.0f;
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) dot += md::rbf(fmaxf(v[q], 0.0f)) * md::bf(a.w2[lane + 32 * q]);
-    dot = md::warp_sum(dot);
-    if (lane == 0) sW[r] = dot + md::bf(a.b2[0]);
-  }
-  __syncthreads();
-  // gate hidden: e @ Wg1e + xp @ Wg1x (one float32 sum), + t Wg1t + bg1
-  const bf16* wg1x = a.wg1 + (size_t)a.De * G;
-  const bf16* wg1t = a.wg1 + (size_t)(a.De + Dl) * G;
-  md::cta_gemm(sE, lde, a.wg1, a.De, G, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  md::cta_gemm(sX, ldx, wg1x, Dl, G, sC, ldc, mt, md::kAdd);
-  __syncthreads();
-  const int gq = G / 32;
-  const float tb = a.t[b];
-  for (int r = warp; r < rows; r += md::kWarps) {
-    float v[md::kMaxPerLane];
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < gq) {
-        const int c = lane + 32 * q;
-        v[q] = sC[r * ldc + c] + tb * md::bf(wg1t[c]) + md::bf(a.bg1[c]);
+        for (int k = 0; k < 8; ++k) xv[k] = md::tobf(md::bf(lv[k]) * md::bf(rv[k]));
       }
-    md::warp_layernorm(v, gq, a.sg1, a.bg1n, lane);
-    float dot = 0.0f;
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < gq) dot += md::rbf(fmaxf(v[q], 0.0f)) * md::bf(a.wg2[lane + 32 * q]);
-    dot = md::warp_sum(dot);
-    if (lane < 3) {
-      const float w = sW[r] * md::sigmoidf(dot + md::bf(a.bg2[0]));
-      const size_t p = pair0 + r;
-      const float m = a.mask[p];
-      const float d = m > 0.0f ? a.dist[p] : 1.0f;
-      sF[r * 3 + lane] = a.fused ? md::rbf(w) * a.rel[p * 3 + lane] / d / (d + 1.0f) * m
-                                 : w * a.rel[p * 3 + lane] * (1.0f / d) * (1.0f / (d + 1.0f)) * m;
+      *reinterpret_cast<uint4*>(sX + wg::kmaj(r, c, DL)) = v;
     }
+    int rw[2];
+    float tb[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rw[h] = wg::acc_row(2 * h);
+      tb[h] = a.t[(rw[h] < nv ? rho0 + rw[h] : rho0) / NN];
+    }
+
+    // inter = bf16((e @ Wb) * (xp @ Wn)), both float32
+    {
+      float bp[NA], np[NA];
+      wg::res_mma<NW>(bp, sEt, DE, sWb);
+      wg::res_mma<NW>(np, sX, DL, sWn);
+#pragma unroll
+      for (int i = 0; i < NA; i += 2)
+        md::store2(XI + wg::kmaj(rw[ROW(i)], col(i), I), bp[i] * np[i], bp[i + 1] * np[i + 1]);
+    }
+
+    // gate: (e @ Wg1e + xp @ Wg1x) + t Wg1t + bg1, LN, relu, the one-column
+    // layer; its sum per row in gsum
+    float gsum[2];
+    {
+      float ge[AG], gx[AG], inv[2];
+      wg::res_mma<NG>(ge, sEt, DE, sWge);
+      wg::res_mma<NG>(gx, sX, DL, sWgx);
+#pragma unroll
+      for (int i = 0; i < AG; ++i) {
+        const int c = colG(i);
+        ge[i] = ge[i] + gx[i] + tb[ROW(i)] * pwg1t[c] + pbg1[c];
+      }
+      wg::ln_stats_seq(ge, inv, lnbuf, S);
+      wg::row_sums_seq<NG, wg::kSeqDot>(
+          [&](int i) {
+            const int c = colG(i);
+            return make_float2(md::rbf(fmaxf(ge[i] * psg1[c] + pbg1n[c], 0.0f)), pwg2[c]);
+          },
+          zero, gsum, lnbuf, S);
+    }
+
+    // inter MLP: Linear -> LN -> relu, then the one-column layer
+    float isum[2];
+    {
+      float acc[NA], inv[2];
+      wg::cta_mma<NW, 0>(acc, XI, I, a.w1, ring, false);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) acc[i] += pb1[col(i)];
+      wg::ln_stats_seq(acc, inv, lnbuf, S);
+      wg::row_sums_seq<NW, wg::kSeqDot>(
+          [&](int i) {
+            const int c = col(i);
+            return make_float2(md::rbf(fmaxf(acc[i] * ps1[c] + pb1n[c], 0.0f)), pw2[c]);
+          },
+          zero, isum, lnbuf, S);
+    }
+
+    // the force terms w * rel / d' / (d' + 1) * mask, one thread per (row, axis)
+    if (g == 0 && ql < 3)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (rw[h] < nv) {
+          const size_t p = rho0 + rw[h];
+          const float sw = isum[h] + md::bf(a.b2[0]);
+          const float w = sw * md::sigmoidf(gsum[h] + md::bf(a.bg2[0]));
+          const float m = a.mask[p];
+          const float d = m > 0.0f ? a.dist[p] : 1.0f;
+          const float r = a.rel[p * 3 + ql];
+          V[rw[h] * 4 + ql] = a.fused ? md::rbf(w) * r / d / (d + 1.0f) * m
+                                      : w * r * (1.0f / d) * (1.0f / (d + 1.0f)) * m;
+        }
+    __syncthreads();
+    // the force sum over senders, in order, per receiver
+    wg::tile_sums(V, 4, 3, rho0, nv, N, carry, write);
   }
-  __syncthreads();
-  // force sum over senders j, in order, per receiver
-  for (int idx = threadIdx.x; idx < nrec * 3; idx += blockDim.x) {
-    const int rec = idx / 3, k = idx % 3;
-    float s = 0.0f;
-    for (int j = 0; j < N; ++j) s += sF[(rec * N + j) * 3 + k];
-    a.out[(node0 + i0 + rec) * 3 + k] = s;
-  }
+#undef ROW
 }
 
 cudaError_t launch_prep(const PosArgs& a, cudaStream_t s) {
@@ -216,6 +315,23 @@ cudaError_t launch_prep(const PosArgs& a, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   dim3 prep_grid((a.B * a.N + md::kMaxRows - 1) / md::kMaxRows, 2);
   pos_prep_kernel<<<prep_grid, md::kThreads, prep_smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DE, int DL, int I, int G>
+cudaError_t launch_pair(const PosArgs& a, cudaStream_t s) {
+  constexpr size_t ps = pair_smem<DE, DL, I, G>();
+  // one CTA per SM (the shared memory allows no more), at most one per receiver
+  static int slots = 0;
+  if (slots == 0) {
+    cudaError_t err = cudaFuncSetAttribute(pos_pair_kernel<DE, DL, I, G>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(ps));
+    if (err != cudaSuccess) return err;
+    slots = wg::persistent_slots(pos_pair_kernel<DE, DL, I, G>, ps);
+    if (slots == 0) return cudaErrorInvalidConfiguration;
+  }
+  pos_pair_kernel<DE, DL, I, G><<<min(wg::capped(slots), a.B * a.N), 256, ps, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -235,10 +351,20 @@ cudaError_t pos_update_prep(const void* const* weights, const bf16* x, bf16* lr,
   return launch_prep(a, s);
 }
 
+// The pair kernels, forward and backward (here and in pos_update_bwd.cu),
+// are instantiated for the widths of the repo's models (node_dim / edge_dim
+// 256 / 64 and 128 / 32: Dn = I = node_dim, De = Dl = edge_dim, G = 32);
+// ops/kernels.py's POS_WIDTHS lists the same.
+bool pos_update_built(int Dn, int De, int Dl, int I, int G) {
+  return (Dn == 256 && De == 64 && Dl == 64 && I == 256 && G == 32) ||
+         (Dn == 128 && De == 32 && Dl == 32 && I == 128 && G == 32);
+}
+
 cudaError_t pos_update_run(const void* const* weights, const bf16* x, const bf16* e,
                            const float* rel, const float* dist, const float* mask,
                            const float* t, bf16* lr, float* out, int B, int N, int Dn, int De,
                            int Dl, int I, int G, int fused, cudaStream_t s, int* launched) {
+  if (!pos_update_built(Dn, De, Dl, I, G)) return cudaErrorInvalidValue;
   PosArgs a;
   const bf16** w = &a.side[0].w1;
   for (int k = 0; k < 26; ++k) w[k] = static_cast<const bf16*>(weights[k]);
@@ -257,19 +383,7 @@ cudaError_t pos_update_run(const void* const* weights, const bf16* x, const bf16
   if (err != cudaSuccess) return err;
   ++*launched;
 
-  const size_t pair_smem = md::smem_bytes(md::kMaxRows, De + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, Dl + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, I + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, I + 4, 4) +
-                           md::smem_bytes(md::kMaxRows, 1, 4) +
-                           md::smem_bytes(md::kMaxRows, 3, 4);
-  err = cudaFuncSetAttribute(pos_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(pair_smem));
-  if (err != cudaSuccess) return err;
-  const int R = md::groups_per_cta(N);
-  dim3 grid((N + R - 1) / R, B);
-  pos_pair_kernel<<<grid, md::kThreads, pair_smem, s>>>(a);
-  err = cudaGetLastError();
+  err = De == 64 ? launch_pair<64, 64, 256, 32>(a, s) : launch_pair<32, 32, 128, 32>(a, s);
   if (err == cudaSuccess) ++*launched;
   return err;
 }
@@ -281,7 +395,8 @@ extern "C" {
 // p: 6 left-MLP, 6 right-MLP, 14 edge_lin weights, then x, e, rel, dist,
 // mask, t, lr, out.
 // *launched: the kernels this call launched (the prep kernel, then the pair
-// kernel).
+// kernel). The pair kernel is built for the widths of md::pos_update_built
+// (else cudaErrorInvalidValue, before any launch).
 int md_pos_update_forward(const void* const* p, int B, int N, int Dn, int De, int Dl, int I,
                           int G, void* stream, int* launched) {
   *launched = 0;

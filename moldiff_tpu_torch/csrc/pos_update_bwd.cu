@@ -19,32 +19,61 @@
 // d_h1 and d_g1) come to about 0.6 MFLOP; chip_smoke.py work() counts them
 // for the call. Bound by operations.
 //
-// Design.
-// - The weight w is a scalar per pair: the inter MLP's and the gate's last
-//   layers are warp dot products in the forward, and in the backward an
-//   outer product (d_r1 = bf16(d_out) w2) and column sums (d_w2 = sum r1
-//   d_out), so one warp does a pair row's whole LayerNorm, relu, last
-//   layer, force backward and LayerNorm backward of both MLPs in registers.
-// - Node sums cross tiles both ways: d_L[i] sums d_xp[i,j] R[j] over j and
-//   d_R[j] sums d_xp[i,j] L[i] over i. The pair kernel (one CTA per row i
-//   and a chunk of at most 32 columns) writes d_xp per pair in float32, and
-//   a node kernel (one CTA per 32 nodes) forms both sums in order, then the
-//   two node MLPs' backward and d_node. No element has two writers.
+// Design (redesigned for Hopper's tensor cores, after node_block_bwd.cu and
+// edge_pair_bwd.cu).
+// - Tiles. The pairs are taken in receiver-major order (row rho = (b * N +
+//   i) * N + j, e's own order) and cut into tiles of 64 rows, one wgmma M,
+//   one CTA each, so no row idles but the last tile's. A CTA is two
+//   warpgroups; the ten products (the recompute's e @ Wb, xp @ Wn, inter @
+//   W1 and the gate's e and xp parts, and the transposed d_g1 @ Wg1e^T,
+//   d_h1 @ W1^T, d_bp @ Wb^T, d_np @ Wn^T, d_g1 @ Wg1x^T) run as wgmma with
+//   the 64-row activation tile (bf16, shared memory) as A and a weight as
+//   B, the warpgroups splitting the output columns, the weights' K-slices
+//   staged by cp.async into a double-buffered ring (wgmma.cuh cta_mma), the
+//   accumulators in registers. The cotangents of the bilinear, d_bp =
+//   d_inter0 * np and d_np = d_inter0 * bp, run over column slices of 64
+//   per warpgroup with bp and np recomputed there, so that no 64 x I
+//   float32 tile is kept and three accumulators of a slice fit the
+//   registers. The per-column parameters (biases, LayerNorm scales, the
+//   one-column weights) are read from a float32 copy in shared memory.
+// - The weight w is a scalar per pair: the recompute's LayerNorm statistics
+//   and one-column layers close their row sums in the lane quads and
+//   across the two warpgroups (wg::ln_stats, wg::row_sums), and the
+//   backward of the one-column layers is an outer product with w2 or wg2
+//   and column sums. The per-row epilogues (LayerNorm backward of both MLPs,
+//   the force backward, d_rel, d_dist, d_mask) run on the registers.
+// - Sums over pairs, with no float atomics. Per-tile column sums (bias,
+//   LayerNorm and one-column weights) go through wg::col_sums_tile in a
+//   fixed order, the three of a LayerNorm in one pass. d_L[i] = sum_j
+//   d_xp[i,j] R[j] and the receiver's sum of d_g1 (for d_t and the gate's
+//   bias) close per receiver inside the tile in a fixed order, in two parts (the tile of the receiver's first row, the
+//   next one: N <= 64); d_R[j] = sum_i d_xp[i,j] L[i] runs across tiles, so
+//   the pair kernel writes its terms in sender-major order and the node
+//   kernel adds them in receiver order, reading each sender's N rows
+//   contiguously. The tiles are fixed by P alone, so every sum's order
+//   is the same on any card; the grid is not persistent.
+// - The node kernel (one CTA per 32 nodes) adds those parts, then runs the
+//   two node MLPs' backward and d_node on synchronous WMMA (md::cta_gemm):
+//   it is a small share of the call (two Dn -> Dl -> Dl chains over B * N
+//   rows), and only its sums changed with the pair kernel's redesign.
 // - Parameter gradients go through grad.cu as in edge_pair_bwd.cu: the pair
-//   and node kernels write the operands of each A^T B (about 4.6 KB per
-//   pair at flagship widths), the weight-gradient kernel forms them in
-//   split-K slots, and the reduction adds slots and per-tile column sums in
-//   a fixed order. No float atomics.
+//   and node kernels write the operands of each A^T B (xp, inter0, d_h1,
+//   d_bp, d_np, d_g1 per pair: about 4.6 KB per pair at flagship widths,
+//   the float32 ones as bf16 hi + lo planes), the weight-gradient kernel
+//   forms them in split-K slots, and the reduction adds slots and per-tile
+//   column sums in a fixed order.
 // Launches per call: prep (pos_update.cu), pair, node, weight gradients,
 // time, reduction = 6.
 #include "grad.cuh"
+#include "wgmma.cuh"
 
 using md::bf16;
+namespace wg = md::wg;
 
 namespace {
 
-constexpr int kVecs = 10;  // per-tile column sums of the pair kernel, in this order:
-enum { kB1 = 0, kS1, kB1n, kW2, kBg1, kSg1, kBg1n, kWg2, kB2, kBg2 };
+constexpr int kVecs = 9;  // per-tile column sums of the pair kernel, in this order:
+enum { kB1 = 0, kS1, kB1n, kW2, kSg1, kBg1n, kWg2, kB2, kBg2 };
 constexpr int kNodeVecs = 4;  // per node tile and side: b1, s1, b1n, b2
 
 struct Mlp {
@@ -79,19 +108,24 @@ struct PosBwdArgs {
   md::Split dnp;       // [P,I]
   md::Split dg1;       // [P,G]
   bf16* xp;            // [P,Dl]
-  float* dxp;          // [P,Dl]
+  float* dlpart;       // [B*N,2,Dl] per receiver: sum of d_xp * R[j], in two parts (the
+                       // tile of its first row, the next tile)
+  float* gpart;        // [B*N,2,G] the same for d_g1
+  float* gsum;         // [B*N,G] the two parts of gpart added
+  float* qT;           // [P,Dl] d_xp[i,j] * L[i] at row (b * N + j) * N + i
   float* vecpart;      // [tiles, kVecs, I]
   md::Split dout;      // [2,B*N,Dl] d_L, d_R
   bf16* r1n;           // [2,B*N,Dl]
   md::Split dh1n;      // [2,B*N,Dl]
   float* nodepart;     // [node tiles, 2, kNodeVecs, Dl]
-  int B, N, Dn, De, Dl, I, G, nch;
+  int B, N, Dn, De, Dl, I, G;
 };
 
-__host__ inline size_t pair_smem(int De, int Dl, int I, int G) {
-  return md::smem_bytes(md::kBwdRows, De + 8, 2) + md::smem_bytes(md::kBwdRows, Dl + 8, 2) +
-         2 * md::smem_bytes(md::kBwdRows, I + 8, 2) + md::smem_bytes(md::kBwdRows, G + 8, 2) +
-         4 * md::smem_bytes(md::kBwdRows, I + 4, 4);
+template <int DE, int DL, int I, int G>
+constexpr size_t pair_smem() {
+  return ((size_t)wg::kTileRows * (DE + DL + 3 * I + G) + 2 * wg::kSlice * wg::kRingCols) *
+             sizeof(bf16) +
+         (size_t)(2 * 64 * 2 + 4 * 3 * I + 2 * 64 + 4 * I + 5 * G) * sizeof(float);
 }
 
 __host__ inline size_t node_smem(int Dn, int Dl) {
@@ -100,227 +134,366 @@ __host__ inline size_t node_smem(int Dn, int Dl) {
          (size_t)md::kWarps * kNodeVecs * Dl * sizeof(float);
 }
 
-// One CTA per (molecule b, receiver i, chunk of at most 32 senders): row r
-// of the tile is the pair (i, m0 + r).
-__global__ void __launch_bounds__(md::kThreads) pos_bwd_pair_kernel(const PosBwdArgs a) {
+// One CTA (two warpgroups) per tile of 64 consecutive rows in receiver-major
+// order: row rho = (b * N + i) * N + j is the pair (receiver i, sender j) of
+// molecule b, so a tile holds whole and partial receivers (at most three at
+// N >= 32).
+template <int DE, int DL, int I, int G>
+__global__ void __launch_bounds__(256, 1) pos_bwd_pair_kernel(const PosBwdArgs a) {
+  constexpr int R = wg::kTileRows;
+  constexpr int NW = I / 2, NA = NW / 2;              // I-wide products
+  constexpr int NS = NW < 64 ? NW : 64, AS = NS / 2;  // the bilinear's column slices
+  constexpr int NG = G / 2, AG = NG / 2, NE = DE / 2, AE = NE / 2, NX = DL / 2, AX = NX / 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int N = a.N, De = a.De, Dl = a.Dl, I = a.I, G = a.G;
-  const int lde = De + 8, ldx = Dl + 8, ldb = I + 8, ldg = G + 8, ldf = I + 4;
-  size_t off = 0;
-  bf16* sE = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kBwdRows, lde, 2);
-  bf16* sXp = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kBwdRows, ldx, 2);
-  bf16* XA = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kBwdRows, ldb, 2);
-  bf16* XB = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kBwdRows, ldb, 2);
-  bf16* XG = reinterpret_cast<bf16*>(smem + off);
-  off += md::smem_bytes(md::kBwdRows, ldg, 2);
-  float* F[4];
-  for (int k = 0; k < 4; ++k) {
-    F[k] = reinterpret_cast<float*>(smem + off);
-    off += md::smem_bytes(md::kBwdRows, ldf, 4);
-  }
-  float* sPart = F[2];  // column-sum scratch once h1 is consumed
+  bf16* sE = reinterpret_cast<bf16*>(smem);  // e, then d_e
+  bf16* sX = sE + R * DE;                    // xp
+  bf16* XA = sX + R * DL;                    // bf16(inter0), then bf16(d_bp)
+  bf16* XB = XA + R * I;                     // bf16(d_h1)
+  bf16* XC = XB + R * I;                     // bf16(d_np)
+  bf16* XG = XC + R * I;                     // bf16(d_g1)
+  bf16* ring = XG + R * G;
+  float* red = reinterpret_cast<float*>(ring + 2 * wg::kSlice * wg::kRingCols);
+  float* part = red + 2 * 64 * 2;
+  float* rowv = part + 4 * 3 * I;            // [2][64] d_out, d_g2 per row
+  // the per-column parameters as float32 (read per element by the epilogues)
+  float* pb1 = rowv + 2 * 64;
+  float* ps1 = pb1 + I;
+  float* pb1n = ps1 + I;
+  float* pw2 = pb1n + I;
+  float* pbg1 = pw2 + I;
+  float* psg1 = pbg1 + G;
+  float* pbg1n = psg1 + G;
+  float* pwg2 = pbg1n + G;
+  float* pwg1t = pwg2 + G;
+  // (the low halves of the split operands are staged in the ring, free
+  // between products)
+  static_assert(I <= wg::kRingCols, "I is wider than the ring");
 
   const BondFfn& W = a.f;
-  const int tile = blockIdx.x;
-  const int node = tile / a.nch, chunk = tile % a.nch;
-  const int b = node / N;
-  const int m0 = chunk * md::kBwdRows;
-  const int ri = min(md::kBwdRows, N - m0);
-  const int mt = (ri + 15) / 16, rp = mt * 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int iq = I / 32, gq = G / 32;
+  const uint32_t N = a.N, NN = N * N;
+  const uint32_t rho0 = blockIdx.x * R;
+  const int nv = min((uint32_t)R, a.B * NN - rho0);
+  const uint32_t node0 = rho0 / N;
+  const int nseg = (rho0 + nv - 1) / N - node0 + 1;
   const size_t BN = (size_t)a.B * N;
-  const size_t pair0 = (size_t)node * N + m0;
-  const bf16* lft = a.lr + (size_t)node * Dl;
-  const bf16* rgt = a.lr + (BN + (size_t)b * N + m0) * Dl;
-  const bf16* wg1x = W.wg1 + (size_t)De * G;
-  const bf16* wg1t = W.wg1 + (size_t)(De + Dl) * G;
+  const bf16* lft = a.lr;
+  const bf16* rgt = a.lr + BN * DL;
+  const bf16* wg1x = W.wg1 + (size_t)DE * G;
+  const bf16* wg1t = W.wg1 + (size_t)(DE + DL) * G;
+  auto valid = [&](int r) { return r < nv; };
+  auto at = [&](int r) { return rho0 + r; };  // the per-pair operands' row: the pair itself
+  auto seg_rcv = [&](int r) { return valid(r) ? (int)((rho0 + r) / N - node0) : -1; };
+  auto vec = [&](int v) { return a.vecpart + ((size_t)blockIdx.x * kVecs + v) * I; };
+  // a receiver's sums: part 0 from the tile of its first row, part 1 from the next
+  auto per_rcv = [&](float* base, int width) {
+    return [=](int s) {
+      const uint32_t node = node0 + s;
+      return base + ((size_t)node * 2 + (node * N < rho0 ? 1 : 0)) * width;
+    };
+  };
 
-  // ---- forward recompute ----------------------------------------------------
-  md::load_rows(sE, lde, ri, rp, De, [&](int r) { return a.e + (pair0 + r) * De; });
-  for (int idx = threadIdx.x; idx < rp * Dl; idx += blockDim.x) {
-    const int r = idx / Dl, c = idx % Dl;
-    bf16 v = md::tobf(0.0f);
-    if (r < ri) {
-      v = md::tobf(md::bf(lft[c]) * md::bf(rgt[(size_t)r * Dl + c]));
-      a.xp[(pair0 + r) * Dl + c] = v;
+  for (int c = threadIdx.x; c < I; c += blockDim.x) {
+    pb1[c] = md::bf(W.b1[c]);
+    ps1[c] = md::bf(W.s1[c]);
+    pb1n[c] = md::bf(W.b1n[c]);
+    pw2[c] = md::bf(W.w2[c]);
+  }
+  for (int c = threadIdx.x; c < G; c += blockDim.x) {
+    pbg1[c] = md::bf(W.bg1[c]);
+    psg1[c] = md::bf(W.sg1[c]);
+    pbg1n[c] = md::bf(W.bg1n[c]);
+    pwg2[c] = md::bf(W.wg2[c]);
+    pwg1t[c] = md::bf(wg1t[c]);
+  }
+  // e, and xp = bf16(L[i] R[j]) (also written out, the A of two weight-gradient
+  // products), eight columns a thread
+  for (int idx = threadIdx.x; idx < R * (DE / 8); idx += blockDim.x) {
+    const int r = idx / (DE / 8), c = (idx % (DE / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (valid(r)) v = *reinterpret_cast<const uint4*>(a.e + (size_t)(rho0 + r) * DE + c);
+    *reinterpret_cast<uint4*>(sE + wg::kmaj(r, c, DE)) = v;
+  }
+  for (int idx = threadIdx.x; idx < R * (DL / 8); idx += blockDim.x) {
+    const int r = idx / (DL / 8), c = (idx % (DL / 8)) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (valid(r)) {
+      const uint32_t rho = rho0 + r;
+      const size_t snd = rho / NN * N + rho % N;  // the sender, b * N + j
+      const uint4 l = *reinterpret_cast<const uint4*>(lft + (size_t)(rho / N) * DL + c);
+      const uint4 q = *reinterpret_cast<const uint4*>(rgt + snd * DL + c);
+      const bf16* lv = reinterpret_cast<const bf16*>(&l);
+      const bf16* rv = reinterpret_cast<const bf16*>(&q);
+      bf16* xv = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) xv[k] = md::tobf(md::bf(lv[k]) * md::bf(rv[k]));
+      *reinterpret_cast<uint4*>(a.xp + (size_t)rho * DL + c) = v;
     }
-    sXp[r * ldx + c] = v;
+    *reinterpret_cast<uint4*>(sX + wg::kmaj(r, c, DL)) = v;
   }
-  __syncthreads();
-  md::cta_gemm(sE, lde, W.wb, De, I, F[0], ldf, mt, md::kStore);   // bp
-  md::cta_gemm(sXp, ldx, W.wn, Dl, I, F[1], ldf, mt, md::kStore);  // np
-  md::cta_gemm(sE, lde, W.wg1, De, G, F[3], ldf, mt, md::kStore);  // gate, e part
-  __syncthreads();
-  md::cta_gemm(sXp, ldx, wg1x, Dl, G, F[3], ldf, mt, md::kAdd);    // gate, xp part
-  for (int idx = threadIdx.x; idx < rp * I; idx += blockDim.x) {
-    const int r = idx / I, c = idx % I;
-    const float inter0 = F[0][r * ldf + c] * F[1][r * ldf + c];
-    XA[r * ldb + c] = md::tobf(inter0);
-    if (r < ri) md::put(a.inter0, (pair0 + r) * I + c, inter0);
+
+  const int g = threadIdx.x >> 7, ql = threadIdx.x & 3;
+  auto col = [&](int i) { return g * NW + wg::acc_col(i); };
+  auto colG = [&](int i) { return g * NG + wg::acc_col(i); };
+  int rw[2];
+  bool ok[2];
+  uint32_t rho[2], rcv[2], snd[2];  // pair, receiver and sender (B * N * N < 2^32)
+  float tb[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rw[h] = wg::acc_row(2 * h);
+    ok[h] = valid(rw[h]);
+    rho[h] = ok[h] ? rho0 + rw[h] : rho0;
+    rcv[h] = rho[h] / N;
+    snd[h] = rho[h] / NN * N + rho[h] % N;
+    tb[h] = a.t[rho[h] / NN];
   }
-  __syncthreads();
-  md::cta_gemm(XA, ldb, W.w1, I, I, F[2], ldf, mt, md::kStore);    // h1 - b1
-  __syncthreads();
+#define ROW(i) (((i) >> 1) & 1)
 
-  // ---- per pair row: the two one-column layers, the force backward and the
-  // LayerNorm backward of both MLPs, one warp per row -------------------------
-  const float tb = a.t[b];
-  const float* ct = a.ct + (size_t)node * 3;
-  const float c0 = ct[0], c1 = ct[1], c2 = ct[2];
-  float accI[4][md::kMaxPerLane] = {};  // b1, s1, b1n, w2
-  float accG[4][md::kMaxPerLane] = {};  // bg1, sg1, bg1n, wg2
-  float accS[2][md::kMaxPerLane] = {};  // b2, bg2 (lane 0, column 0)
-  for (int r = warp; r < rp; r += md::kWarps) {
-    float xh[md::kMaxPerLane], r1v[md::kMaxPerLane];
+  // ---- forward recompute: the gate (xg: xhat, sig), then the interior ---------
+  float xg[AG], ginv[2], sig[2];
+  {
+    float gx[AG], gd[2];
+    wg::cta_mma<NG, 0>(xg, sE, DE, W.wg1, ring, false);
+    wg::cta_mma<NG, 0>(gx, sX, DL, wg1x, ring, false);
 #pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < iq) xh[q] = F[2][r * ldf + lane + 32 * q] + md::bf(W.b1[lane + 32 * q]);
-    const float inv1 = md::warp_ln_stats(xh, iq);
-    float out = 0.0f;
+    for (int i = 0; i < AG; ++i) {
+      const int c = colG(i);
+      xg[i] = xg[i] + gx[i] + tb[ROW(i)] * pwg1t[c] + pbg1[c];
+    }
+    wg::ln_stats(xg, ginv, G, red);
+    float dot[2][1] = {};
 #pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < iq) {
-        const int c = lane + 32 * q;
-        r1v[q] = md::rbf(fmaxf(xh[q] * md::bf(W.s1[c]) + md::bf(W.b1n[c]), 0.0f));
-        out += r1v[q] * md::bf(W.w2[c]);
-      }
-    out = md::warp_sum(out) + md::bf(W.b2[0]);
+    for (int i = 0; i < AG; ++i) {
+      const int c = colG(i);
+      dot[ROW(i)][0] += md::rbf(fmaxf(xg[i] * psg1[c] + pbg1n[c], 0.0f)) * pwg2[c];
+    }
+    wg::row_sums<1>(dot, red);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) sig[h] = md::sigmoidf(dot[h][0] + md::bf(W.bg2[0]));
+  }
+  // inter0 = (e @ Wb) * (xp @ Wn), float32: bf16 in XA, and as hi + lo planes
+  // for the weight gradient of W1 (the low half staged in the ring)
+  {
+    float bp[NA], np[NA];
+    wg::cta_mma<NW, 0>(bp, sE, DE, W.wb, ring, false);
+    wg::cta_mma<NW, 0>(np, sX, DL, W.wn, ring, false);
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int o = wg::kmaj(rw[ROW(i)], col(i), I);
+      const float v0 = bp[i] * np[i], v1 = bp[i + 1] * np[i + 1];
+      const bf16 h0 = md::tobf(v0), h1 = md::tobf(v1);
+      md::store2(XA + o, md::bf(h0), md::bf(h1));
+      md::store2(ring + o, v0 - md::bf(h0), v1 - md::bf(h1));
+    }
+    __syncthreads();
+    wg::tile_out(XA, I, a.inter0.hi, valid, at);
+    wg::tile_out(ring, I, a.inter0.lo, valid, at);
+    __syncthreads();
+  }
+  float acc[NA], inv1[2], out[2];
+  wg::cta_mma<NW, 0>(acc, XA, I, W.w1, ring, false);
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] += pb1[col(i)];
+  wg::ln_stats(acc, inv1, I, red);
+  {
+    float dot[2][1] = {};
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int c = col(i);
+      dot[ROW(i)][0] += md::rbf(fmaxf(acc[i] * ps1[c] + pb1n[c], 0.0f)) * pw2[c];
+    }
+    wg::row_sums<1>(dot, red);
+    out[0] = dot[0][0];
+    out[1] = dot[1][0];
+  }
 
-    float xg[md::kMaxPerLane], rgv[md::kMaxPerLane];
+  // ---- the force backward: d_rel, d_dist, d_mask; d_out and d_g2 per row -----
+  float d_out[2], d_g2[2];
 #pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < gq) {
-        const int c = lane + 32 * q;
-        xg[q] = F[3][r * ldf + c] + tb * md::bf(wg1t[c]) + md::bf(W.bg1[c]);
-      }
-    const float invg = md::warp_ln_stats(xg, gq);
-    float g2 = 0.0f;
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < gq) {
-        const int c = lane + 32 * q;
-        rgv[q] = md::rbf(fmaxf(xg[q] * md::bf(W.sg1[c]) + md::bf(W.bg1n[c]), 0.0f));
-        g2 += rgv[q] * md::bf(W.wg2[c]);
-      }
-    const float sig = md::sigmoidf(md::warp_sum(g2) + md::bf(W.bg2[0]));
-    const float w = out * sig;
-
-    // force backward
+  for (int h = 0; h < 2; ++h) {
+    const float o = out[h] + md::bf(W.b2[0]);
+    const float w = o * sig[h];
     float d_w = 0.0f;
-    if (r < ri) {
-      const size_t p = pair0 + r;
+    if (ok[h]) {
+      const size_t p = rho[h];
       const float m = a.mask[p];
       const float d = m > 0.0f ? a.dist[p] : 1.0f;
       const float qq = 1.0f / d, rr = 1.0f / (d + 1.0f), qr = qq * rr;
       const float* rv = a.rel + p * 3;
-      const float cdr = c0 * rv[0] + c1 * rv[1] + c2 * rv[2];
+      const float* ct = a.ct + (size_t)rcv[h] * 3;
+      const float cdr = ct[0] * rv[0] + ct[1] * rv[1] + ct[2] * rv[2];
       d_w = cdr * qr * m;
-      if (lane < 3) a.d_rel[p * 3 + lane] = (lane == 0 ? c0 : lane == 1 ? c1 : c2) * w * qr * m;
-      if (lane == 0) {
+      if (g == 0 && ql < 3) a.d_rel[p * 3 + ql] = ct[ql] * w * qr * m;
+      if (g == 0 && ql == 0) {
         a.d_mask[p] = cdr * w * qr;
         a.d_dist[p] = cdr * w * m * (-qr) * (qq + rr);
       }
     }
-    const float d_out = d_w * sig;
-    const float d_g2 = d_w * out * sig * (1.0f - sig);
-    if (lane == 0) {
-      accS[0][0] += d_out;
-      accS[1][0] += d_g2;
-    }
-
-    // gate: d_rg = bf16(d_g2) wg2, relu, LayerNorm backward -> d_g1
-    float dy[md::kMaxPerLane];
-    const float dg2r = md::rbf(d_g2);
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < gq) {
-        const int c = lane + 32 * q;
-        const float ln = xg[q] * md::bf(W.sg1[c]) + md::bf(W.bg1n[c]);
-        dy[q] = ln > 0.0f ? dg2r * md::bf(W.wg2[c]) : 0.0f;
-        accG[1][q] += dy[q] * xg[q];
-        accG[2][q] += dy[q];
-        accG[3][q] += rgv[q] * d_g2;
-      }
-    md::warp_ln_bwd(dy, xg, invg, gq, W.sg1, lane);
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < gq) {
-        const int c = lane + 32 * q;
-        accG[0][q] += dy[q];
-        XG[r * ldg + c] = md::tobf(dy[q]);
-        if (r < ri) md::put(a.dg1, (pair0 + r) * G + c, dy[q]);
-      }
-
-    // inter MLP: d_r1 = bf16(d_out) w2, relu, LayerNorm backward -> d_h1
-    const float dor = md::rbf(d_out);
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < iq) {
-        const int c = lane + 32 * q;
-        const float ln = xh[q] * md::bf(W.s1[c]) + md::bf(W.b1n[c]);
-        dy[q] = ln > 0.0f ? dor * md::bf(W.w2[c]) : 0.0f;
-        accI[1][q] += dy[q] * xh[q];
-        accI[2][q] += dy[q];
-        accI[3][q] += r1v[q] * d_out;
-      }
-    md::warp_ln_bwd(dy, xh, inv1, iq, W.s1, lane);
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < iq) {
-        const int c = lane + 32 * q;
-        accI[0][q] += dy[q];
-        XB[r * ldb + c] = md::tobf(dy[q]);
-        if (r < ri) md::put(a.dh1, (pair0 + r) * I + c, dy[q]);
-      }
-  }
-  __syncthreads();
-  float* vpart = a.vecpart + (size_t)tile * kVecs * I;
-  md::flush_columns<4>(accI, iq, sPart, vpart + kB1 * I, I);
-  md::flush_columns<4>(accG, gq, sPart, vpart + kBg1 * I, I);
-  md::flush_columns<2>(accS, 1, sPart, vpart + kB2 * I, I);
-
-  // ---- input-gradient products ----------------------------------------------
-  md::cta_gemm_t(XG, nullptr, ldg, W.wg1, G, De, F[3], ldf, mt, md::kStore);  // d_e (gate)
-  md::cta_gemm_t(XB, nullptr, ldb, W.w1, I, I, F[2], ldf, mt, md::kStore);    // d_inter0
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rp * I; idx += blockDim.x) {
-    const int r = idx / I, c = idx % I;
-    const float di = F[2][r * ldf + c];
-    const float dbp = di * F[1][r * ldf + c];
-    const float dnp = di * F[0][r * ldf + c];
-    XA[r * ldb + c] = md::tobf(dbp);
-    XB[r * ldb + c] = md::tobf(dnp);
-    if (r < ri) {
-      md::put(a.dbp, (pair0 + r) * I + c, dbp);
-      md::put(a.dnp, (pair0 + r) * I + c, dnp);
+    d_out[h] = d_w * sig[h];
+    d_g2[h] = d_w * o * sig[h] * (1.0f - sig[h]);
+    if (g == 0 && ql == 0) {
+      rowv[rw[h]] = d_out[h];
+      rowv[64 + rw[h]] = d_g2[h];
     }
   }
   __syncthreads();
-  md::cta_gemm_t(XA, nullptr, ldb, W.wb, I, De, F[3], ldf, mt, md::kAdd);     // d_e (inter)
-  md::cta_gemm_t(XB, nullptr, ldb, W.wn, I, Dl, F[0], ldf, mt, md::kStore);   // d_xp (inter)
-  __syncthreads();
-  md::cta_gemm_t(XG, nullptr, ldg, wg1x, G, Dl, F[0], ldf, mt, md::kAdd);     // d_xp (gate)
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ri * De; idx += blockDim.x) {
-    const int r = idx / De, c = idx % De;
-    a.d_edge[(pair0 + r) * De + c] = md::tobf(F[3][r * ldf + c]);
+  if (threadIdx.x < 2) {  // b2 and bg2: the tile's rows in order
+    float sum = 0.0f;
+    for (int r = 0; r < nv; ++r) sum += rowv[threadIdx.x * 64 + r];
+    vec(threadIdx.x == 0 ? kB2 : kBg2)[0] = sum;
   }
-  for (int idx = threadIdx.x; idx < ri * Dl; idx += blockDim.x) {
-    const int r = idx / Dl, c = idx % Dl;
-    a.dxp[(pair0 + r) * Dl + c] = F[0][r * ldf + c];
+
+  // ---- gate backward: d_rg = bf16(d_g2) wg2, relu, LayerNorm -> d_g1 --------
+  // (pallas _ln_bwd, with the column sums in its two passes: the relu-gated
+  // cotangent dy, the sums for sg1, bg1n and wg2 and the row sums of dy *
+  // sg1 and of that times xhat; then d_g1 and its sum per receiver)
+  {
+    float dy[AG], m[2][2] = {};
+    const float dgr[2] = {md::rbf(d_g2[0]), md::rbf(d_g2[1])};
+    wg::col_sums_tile<NG, 3>(
+        [&](int i, float (&x)[3]) {
+          const int c = colG(i), h = ROW(i);
+          const float ln = xg[i] * psg1[c] + pbg1n[c];
+          dy[i] = ln > 0.0f ? dgr[h] * pwg2[c] : 0.0f;
+          x[0] = dy[i] * xg[i];
+          x[1] = dy[i];
+          x[2] = md::rbf(fmaxf(ln, 0.0f)) * d_g2[h];
+          const float ds = dy[i] * psg1[c];
+          m[h][0] += ds;
+          m[h][1] += ds * xg[i];
+        },
+        nv, [&](int v) { return vec(kSg1 + v); }, part);
+    wg::row_sums<2>(m, red);
+#pragma unroll
+    for (int i = 0; i < AG; ++i) {
+      const int h = ROW(i);
+      dy[i] = ginv[h] * (dy[i] * psg1[colG(i)] - m[h][0] / G - xg[i] * (m[h][1] / G));
+    }
+    wg::col_sums<NG>([&](int i) { return dy[i]; }, nseg, seg_rcv, per_rcv(a.gpart, G), part);
+#pragma unroll
+    for (int i = 0; i < AG; i += 2) {
+      const int o = wg::kmaj(rw[ROW(i)], colG(i), G);
+      const bf16 h0 = md::tobf(dy[i]), h1 = md::tobf(dy[i + 1]);
+      md::store2(XG + o, md::bf(h0), md::bf(h1));
+      md::store2(ring + o, dy[i] - md::bf(h0), dy[i + 1] - md::bf(h1));
+    }
+    __syncthreads();
+    wg::tile_out(XG, G, a.dg1.hi, valid, at);
+    wg::tile_out(ring, G, a.dg1.lo, valid, at);
+    __syncthreads();
   }
+
+  // ---- inter MLP backward: d_r1 = bf16(d_out) w2, relu, LayerNorm -> d_h1 ---
+  // (as the gate's: two passes, the second giving d_h1 and its sum for b1)
+  {
+    float dy[NA], m[2][2] = {};
+    const float dor[2] = {md::rbf(d_out[0]), md::rbf(d_out[1])};
+    wg::col_sums_tile<NW, 3>(
+        [&](int i, float (&x)[3]) {
+          const int c = col(i), h = ROW(i);
+          const float ln = acc[i] * ps1[c] + pb1n[c];
+          dy[i] = ln > 0.0f ? dor[h] * pw2[c] : 0.0f;
+          x[0] = dy[i] * acc[i];
+          x[1] = dy[i];
+          x[2] = md::rbf(fmaxf(ln, 0.0f)) * d_out[h];
+          const float ds = dy[i] * ps1[c];
+          m[h][0] += ds;
+          m[h][1] += ds * acc[i];
+        },
+        nv, [&](int v) { return vec(kS1 + v); }, part);
+    wg::row_sums<2>(m, red);
+    wg::col_sums_tile<NW, 1>(
+        [&](int i, float (&x)[1]) {
+          const int h = ROW(i);
+          dy[i] = inv1[h] * (dy[i] * ps1[col(i)] - m[h][0] / I - acc[i] * (m[h][1] / I));
+          x[0] = dy[i];
+        },
+        nv, [&](int) { return vec(kB1); }, part);
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int o = wg::kmaj(rw[ROW(i)], col(i), I);
+      const bf16 h0 = md::tobf(dy[i]), h1 = md::tobf(dy[i + 1]);
+      md::store2(XB + o, md::bf(h0), md::bf(h1));
+      md::store2(ring + o, dy[i] - md::bf(h0), dy[i + 1] - md::bf(h1));
+    }
+    __syncthreads();
+    wg::tile_out(XB, I, a.dh1.hi, valid, at);
+    wg::tile_out(ring, I, a.dh1.lo, valid, at);
+    __syncthreads();
+  }
+
+  // ---- d_inter0 = bf16(d_h1) @ W1^T; d_bp = d_inter0 * np, d_np = d_inter0 *
+  // bp (bp, np recomputed), slice by slice: bf16 in XA, XC, low halves out ----
+#pragma unroll 1
+  for (int c0 = 0; c0 < I; c0 += 2 * NS) {
+    float di[AS], bp[AS], np[AS];
+    wg::cta_mma<NS, 1>(di, XB, I, W.w1 + (size_t)c0 * I, ring, false);
+    wg::cta_mma<NS, 0>(bp, sE, DE, W.wb + c0, ring, false, nullptr, I);
+    wg::cta_mma<NS, 0>(np, sX, DL, W.wn + c0, ring, false, nullptr, I);
+    bf16* lo = ring + R * 2 * NS;
+#pragma unroll
+    for (int i = 0; i < AS; i += 2) {
+      const int cs = g * NS + wg::acc_col(i), h = ROW(i);
+      const int o = wg::kmaj(rw[h], c0 + cs, I), os = wg::kmaj(rw[h], cs, 2 * NS);
+      const float b0 = di[i] * np[i], b1 = di[i + 1] * np[i + 1];
+      const float n0 = di[i] * bp[i], n1 = di[i + 1] * bp[i + 1];
+      const bf16 hb0 = md::tobf(b0), hb1 = md::tobf(b1), hn0 = md::tobf(n0), hn1 = md::tobf(n1);
+      md::store2(XA + o, md::bf(hb0), md::bf(hb1));
+      md::store2(XC + o, md::bf(hn0), md::bf(hn1));
+      md::store2(ring + os, b0 - md::bf(hb0), b1 - md::bf(hb1));
+      md::store2(lo + os, n0 - md::bf(hn0), n1 - md::bf(hn1));
+    }
+    __syncthreads();
+    wg::tile_out(ring, 2 * NS, a.dbp.lo + c0, valid, at, I);
+    wg::tile_out(lo, 2 * NS, a.dnp.lo + c0, valid, at, I);
+    __syncthreads();
+  }
+  wg::tile_out(XA, I, a.dbp.hi, valid, at);
+  wg::tile_out(XC, I, a.dnp.hi, valid, at);
+
+  // ---- d_e = bf16(d_g1) @ Wg1e^T + bf16(d_bp) @ Wb^T ---------------------------
+  {
+    float de[AE];
+    wg::cta_mma<NE, 1>(de, XG, G, W.wg1, ring, false);
+    wg::cta_mma<NE, 1>(de, XA, I, W.wb, ring, true);
+#pragma unroll
+    for (int i = 0; i < AE; i += 2)
+      md::store2(sE + wg::kmaj(rw[ROW(i)], g * NE + wg::acc_col(i), DE), de[i], de[i + 1]);
+    __syncthreads();
+    wg::tile_out(sE, DE, a.d_edge, valid, at);
+  }
+
+  // ---- d_xp = bf16(d_np) @ Wn^T + bf16(d_g1) @ Wg1x^T; d_L's parts and d_R's
+  // terms ----------------------------------------------------------------------
+  {
+    float dx[AX];
+    wg::cta_mma<NX, 1>(dx, XC, I, W.wn, ring, false);
+    wg::cta_mma<NX, 1>(dx, XG, G, wg1x, ring, true);
+    wg::col_sums<NX>(
+        [&](int i) {
+          return dx[i] * md::bf(rgt[(size_t)snd[ROW(i)] * DL + g * NX + wg::acc_col(i)]);
+        },
+        nseg, seg_rcv, per_rcv(a.dlpart, DL), part);
+#pragma unroll
+    for (int i = 0; i < AX; i += 2) {
+      const int h = ROW(i);
+      if (!ok[h]) continue;
+      const int c = g * NX + wg::acc_col(i);
+      const __nv_bfloat162 l =
+          *reinterpret_cast<const __nv_bfloat162*>(lft + (size_t)rcv[h] * DL + c);
+      *reinterpret_cast<float2*>(a.qT + ((size_t)snd[h] * N + rcv[h] % N) * DL + c) =
+          make_float2(dx[i] * md::bf(l.x), dx[i + 1] * md::bf(l.y));
+    }
+  }
+#undef ROW
 }
 
-// One CTA per 32 nodes: d_L and d_R from d_xp, the backward of both node
-// MLPs (recomputed), and d_node.
+// One CTA per 32 nodes: d_L from the pair kernel's two parts, d_R as the sum
+// of its terms over receivers, the receivers' sums of d_g1, the backward of
+// both node MLPs (recomputed), and d_node.
 __global__ void __launch_bounds__(md::kThreads) pos_bwd_node_kernel(const PosBwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int N = a.N, Dn = a.Dn, Dl = a.Dl;
+  const int N = a.N, Dn = a.Dn, Dl = a.Dl, G = a.G;
   const int ldx = Dn + 8, ldd = Dl + 8, ldl = Dl + 4, ldn = Dn + 4;
   size_t off = 0;
   bf16* sX = reinterpret_cast<bf16*>(smem + off);
@@ -346,21 +519,32 @@ __global__ void __launch_bounds__(md::kThreads) pos_bwd_node_kernel(const PosBwd
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int dq = Dl / 32;
   const size_t BN = (size_t)total;
+  // does node nd's run of N pair rows cross a pair tile's edge?
+  auto two = [&](size_t nd) {
+    return (nd * N) / wg::kTileRows != (nd * N + N - 1) / wg::kTileRows;
+  };
 
+  for (int idx = threadIdx.x; idx < rows * G; idx += blockDim.x) {
+    const size_t nd = n0 + idx / G;
+    const int c = idx % G;
+    const float* p = a.gpart + nd * 2 * G + c;
+    a.gsum[nd * G + c] = two(nd) ? p[0] + p[G] : p[0];
+  }
   md::load_rows(sX, ldx, rows, rp, Dn, [&](int r) { return a.x + (size_t)(n0 + r) * Dn; });
   for (int side = 0; side < 2; ++side) {
     const Mlp& W = a.side[side];
-    // d_L[i] = sum_j d_xp[i,j] R[j];  d_R[j] = sum_i d_xp[i,j] L[i]
-    const bf16* other = a.lr + (side == 0 ? BN : 0) * Dl;
+    // d_L[i] = sum_j d_xp[i,j] R[j] (two parts);  d_R[j] = sum_i d_xp[i,j] L[i]
     for (int idx = threadIdx.x; idx < rp * Dl; idx += blockDim.x) {
       const int r = idx / Dl, c = idx % Dl;
       float s = 0.0f;
       if (r < rows) {
-        const int nd = n0 + r, b = nd / N, k = nd % N;
-        const size_t mol = (size_t)b * N;
-        for (int j = 0; j < N; ++j) {
-          const size_t p = side == 0 ? ((size_t)nd * N + j) : ((mol + j) * N + k);
-          s += a.dxp[p * Dl + c] * md::bf(other[(mol + j) * Dl + c]);
+        const size_t nd = n0 + r;
+        if (side == 0) {
+          const float* p = a.dlpart + nd * 2 * Dl + c;
+          s = two(nd) ? p[0] + p[Dl] : p[0];
+        } else {
+          const float* q = a.qT + nd * N * Dl + c;
+          for (int i = 0; i < N; ++i) s += q[(size_t)i * Dl];
         }
         md::put(a.dout, ((size_t)side * BN + nd) * Dl + c, s);
       }
@@ -421,8 +605,8 @@ PosBwdWork carve(PosBwdArgs& a, unsigned char* base, int B, int N, int Dn, int D
                  int I, int G) {
   md::Carve cv{base};
   const size_t P = (size_t)B * N * N, BN = (size_t)B * N;
-  const int nch = (N + md::kBwdRows - 1) / md::kBwdRows;
-  const size_t tiles = BN * nch, ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
+  const size_t tiles = (P + wg::kTileRows - 1) / wg::kTileRows;
+  const size_t ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
   a.lr = cv.take<bf16>(2 * BN * Dl);
   a.inter0 = cv.split(P * I);
   a.dh1 = cv.split(P * I);
@@ -430,7 +614,10 @@ PosBwdWork carve(PosBwdArgs& a, unsigned char* base, int B, int N, int Dn, int D
   a.dnp = cv.split(P * I);
   a.dg1 = cv.split(P * G);
   a.xp = cv.take<bf16>(P * Dl);
-  a.dxp = cv.take<float>(P * Dl);
+  a.dlpart = cv.take<float>(BN * 2 * Dl);
+  a.gpart = cv.take<float>(BN * 2 * G);
+  a.gsum = cv.take<float>(BN * G);
+  a.qT = cv.take<float>(P * Dl);
   a.vecpart = cv.take<float>(tiles * kVecs * I);
   a.dout = cv.split(2 * BN * Dl);
   a.r1n = cv.take<bf16>(2 * BN * Dl);
@@ -443,9 +630,19 @@ PosBwdWork carve(PosBwdArgs& a, unsigned char* base, int B, int N, int Dn, int D
   w.dwt = cv.take<float>((size_t)B * G);
   for (int k = 0; k < 9; ++k)
     w.slots[k] = cv.take<float>(md::wgrad_slot_floats(dims[k][0], dims[k][1], dims[k][2]));
-  a.nch = nch;
   w.bytes = cv.off;
   return w;
+}
+
+template <int DE, int DL, int I, int G>
+cudaError_t launch_pair(const PosBwdArgs& a, int tiles, cudaStream_t s) {
+  constexpr size_t ps = pair_smem<DE, DL, I, G>();
+  cudaError_t err = cudaFuncSetAttribute(pos_bwd_pair_kernel<DE, DL, I, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(ps));
+  if (err != cudaSuccess) return err;
+  pos_bwd_pair_kernel<DE, DL, I, G><<<tiles, 256, ps, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -461,9 +658,13 @@ long long md_pos_update_backward_workspace(int B, int N, int Dn, int De, int Dl,
 // rel, dist, mask, t, ct, then the outputs d_node, d_edge, d_rel, d_dist,
 // d_time, d_mask and the 26 float32 parameter gradients in the weights'
 // order (the gate's first-layer weight as one [De+Dl+1, G] matrix), then
-// the workspace (md_pos_update_backward_workspace bytes).
+// the workspace (md_pos_update_backward_workspace bytes). The pair kernel is
+// built for the widths of md::pos_update_built (else cudaErrorInvalidValue,
+// before any launch).
 int md_pos_update_backward(const void* const* p, int B, int N, int Dn, int De, int Dl, int I,
                            int G, void* stream, int* launched) {
+  *launched = 0;
+  if (!md::pos_update_built(Dn, De, Dl, I, G)) return cudaErrorInvalidValue;
   PosBwdArgs a = {};
   const bf16** w = &a.side[0].w1;
   for (int k = 0; k < 26; ++k) w[k] = static_cast<const bf16*>(p[k]);
@@ -486,22 +687,19 @@ int md_pos_update_backward(const void* const* p, int B, int N, int Dn, int De, i
                         Dl, I, G);
   a.B = B; a.N = N; a.Dn = Dn; a.De = De; a.Dl = Dl; a.I = I; a.G = G;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *launched = 0;
 
   cudaError_t err = md::pos_update_prep(p, a.x, a.lr, B, N, Dn, Dl, s);
   if (err != cudaSuccess) return err;
   ++*launched;
 
   const int BN = B * N, P = BN * N;
-  const int tiles = BN * a.nch, ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
-  const size_t ps = pair_smem(De, Dl, I, G), ns = node_smem(Dn, Dl);
-  err = cudaFuncSetAttribute(pos_bwd_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(ps));
-  if (err != cudaSuccess) return err;
-  pos_bwd_pair_kernel<<<tiles, md::kThreads, ps, s>>>(a);
-  err = cudaGetLastError();
+  const int tiles = (P + wg::kTileRows - 1) / wg::kTileRows;
+  const int ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
+  err = De == 64 ? launch_pair<64, 64, 256, 32>(a, tiles, s)
+                 : launch_pair<32, 32, 128, 32>(a, tiles, s);
   if (err != cudaSuccess) return err;
   ++*launched;
+  const size_t ns = node_smem(Dn, Dl);
   err = cudaFuncSetAttribute(pos_bwd_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(ns));
   if (err != cudaSuccess) return err;
@@ -535,8 +733,7 @@ int md_pos_update_backward(const void* const* p, int B, int N, int Dn, int De, i
 
   // d_time and the molecules' shares of the gate weight's time row
   const size_t trow = (size_t)(De + Dl) * G;
-  const md::TimeJob tj = {a.vecpart + (size_t)kBg1 * I, a.f.wg1 + trow, ws.dwt, kVecs * I,
-                          N * a.nch, G};
+  const md::TimeJob tj = {a.gsum, a.f.wg1 + trow, ws.dwt, G, N, G};
   err = md::launch_time(&tj, 1, B, a.t, d_time, s);
   if (err != cudaSuccess) return err;
   ++*launched;
@@ -547,10 +744,11 @@ int md_pos_update_backward(const void* const* p, int B, int N, int Dn, int De, i
     const int n = jobs[k].k1 * jobs[k].k2;
     red[nr++] = {jobs[k].slots, job_out[k], md::wgrad_slices(jobs[k].rows), n, n};
   }
-  const int vec_out[kVecs] = {FB1, FS1, FB1n, FW2, FBg1, FSg1, FBg1n, FWg2, FB2, FBg2};
-  const int vec_n[kVecs] = {I, I, I, I, G, G, G, G, 1, 1};
+  const int vec_out[kVecs] = {FB1, FS1, FB1n, FW2, FSg1, FBg1n, FWg2, FB2, FBg2};
+  const int vec_n[kVecs] = {I, I, I, I, G, G, G, 1, 1};
   for (int v = 0; v < kVecs; ++v)
     red[nr++] = {a.vecpart + (size_t)v * I, g[vec_out[v]], tiles, vec_n[v], kVecs * I};
+  red[nr++] = {a.gsum, g[FBg1], BN, G, G};
   const int node_out[kNodeVecs] = {B1, S1, B1n, B2};
   for (int sd = 0; sd < 2; ++sd)
     for (int v = 0; v < kNodeVecs; ++v)

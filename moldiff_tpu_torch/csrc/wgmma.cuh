@@ -1,7 +1,7 @@
 // Hopper's warpgroup tensor-core products (wgmma) and asynchronous copies
 // (cp.async, mbarrier), as the redesigned pair kernels use them
-// (node_block.cu, edge_pair.cu, node_block_bwd.cu, edge_pair_bwd.cu,
-// grad.cu).
+// (node_block.cu, edge_pair.cu, pos_update.cu, node_block_bwd.cu,
+// edge_pair_bwd.cu, pos_update_bwd.cu, grad.cu).
 //
 // Shared-memory operands use wgmma's no-swizzle layout: a "core matrix" is
 // 8 rows of 16 bytes (8 bf16), 128 contiguous bytes. A tile is a grid of
@@ -206,6 +206,17 @@ int persistent_slots(Kernel kernel, size_t smem) {
   return sms * per_sm;
 }
 
+// A cap on every persistent grid (0: none), set by md_set_persistent_slots
+// (node_block.cu) so that a check can rerun the persistent kernels at other
+// grid sizes: their sums are added in partner order whatever the tiles a
+// CTA takes, so the outputs must not change.
+int& persistent_cap();
+// slots, or the cap where one is set and smaller
+inline int capped(int slots) {
+  const int cap = persistent_cap();
+  return cap > 0 && cap < slots ? cap : slots;
+}
+
 // ---- the pair kernels' products: a CTA of two warpgroups on a 64-row tile ----
 
 constexpr int kTileRows = 64;    // rows (pairs) of a tile: one wgmma M
@@ -213,19 +224,21 @@ constexpr int kSlice = 64;       // weight rows (K) staged per step
 constexpr int kRingCols = 256;   // widest product output a ring buffer holds
 
 // Stage rows [k0, k0 + ks) of W's K dimension, all nout columns, into buf.
-// TRANS = 0: W is [K][nout] (x @ W), buf the MN-major tile [ks][nout];
+// TRANS = 0: W is [K][nout] (x @ W) with rows ldw apart (0: nout; a column
+// slice of a wider weight), buf the MN-major tile [ks][nout];
 // TRANS = 1: W is [nout][K] (x @ W^T), buf the K-major tile [nout][ks].
 // Eight consecutive threads fill the eight lines of one core matrix.
 template <int TRANS>
 __device__ __forceinline__ void stage_weight(bf16* buf, const bf16* W, int k0, int ks, int K,
-                                             int nout) {
+                                             int nout, int ldw = 0) {
   const int chunks = ks * nout / 8;
+  const size_t ld = ldw > 0 ? ldw : nout;
   for (int idx = threadIdx.x; idx < chunks; idx += blockDim.x) {
     const int line = idx & 7, rest = idx >> 3;
     if (TRANS == 0) {
       const int nc = nout >> 3;
       const int k = (rest / nc) * 8 + line, c = (rest % nc) * 8;
-      cp16(buf + mnmaj(k, c, ks), W + (size_t)(k0 + k) * nout + c, 16);
+      cp16(buf + mnmaj(k, c, ks), W + (k0 + k) * ld + c, 16);
     } else {
       const int kc = ks >> 3;
       const int n = (rest / kc) * 8 + line, k = (rest % kc) * 8;
@@ -239,24 +252,25 @@ __device__ __forceinline__ void stage_weight(bf16* buf, const bf16* W, int k0, i
 // A: bf16 K-major tile [64][K] in shared memory (kmaj), K a multiple of 16;
 // W: bf16 in global memory, staged K-slice by K-slice into the two ring
 // buffers (kSlice x kRingCols each) by cp.async, the next slice in flight
-// while the tensor cores run on this one. A2 (same layout, or null) is the
-// low half of a split float32 operand. Called by all 256 threads; the
-// caller's shared-memory writes before the call are visible to the
-// product, and the ring is free again on return.
+// while the tensor cores run on this one; ldw: see stage_weight. A2 (same
+// layout, or null) is the low half of a split float32 operand. Called by
+// all 256 threads; the caller's shared-memory writes before the call are
+// visible to the product, and the ring is free again on return.
 template <int NW, int TRANS>
 __device__ __forceinline__ void cta_mma(float (&acc)[NW / 2], const bf16* A, int K, const bf16* W,
-                                        bf16* ring, bool add, const bf16* A2 = nullptr) {
+                                        bf16* ring, bool add, const bf16* A2 = nullptr,
+                                        int ldw = 0) {
   const int nout = 2 * NW;
   const int g = threadIdx.x >> 7;
   const int nsl = (K + kSlice - 1) / kSlice;
-  stage_weight<TRANS>(ring, W, 0, min(K, kSlice), K, nout);
+  stage_weight<TRANS>(ring, W, 0, min(K, kSlice), K, nout, ldw);
   cp_commit();
   for (int s = 0; s < nsl; ++s) {
     const int k0 = s * kSlice, ks = min(K - k0, kSlice);
     const bf16* buf = ring + (s & 1) * (kSlice * kRingCols);
     if (s + 1 < nsl) {
       stage_weight<TRANS>(ring + ((s + 1) & 1) * (kSlice * kRingCols), W, k0 + kSlice,
-                          min(K - k0 - kSlice, kSlice), K, nout);
+                          min(K - k0 - kSlice, kSlice), K, nout, ldw);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -335,17 +349,20 @@ __device__ __forceinline__ void res_mma(float (&acc)[NW / 2], const bf16* A, int
 }
 
 // Copy a bf16 tile [64][K] (kmaj layout, shared memory) to global rows:
-// tile row r with valid(r) goes to dst + row(r) * K. Eight consecutive
-// threads read the eight lines of one core matrix and four of those groups
-// write 64 contiguous bytes of a row. Called by all 256 threads after a
-// barrier that follows the tile's writes.
+// tile row r with valid(r) goes to dst + row(r) * ld (ld = 0: K; a column
+// slice of wider rows). Eight consecutive threads read the eight lines of
+// one core matrix and four of those groups write 64 contiguous bytes of a
+// row. Called by all 256 threads after a barrier that follows the tile's
+// writes.
 template <typename Valid, typename Row>
-__device__ __forceinline__ void tile_out(const bf16* X, int K, bf16* dst, Valid valid, Row row) {
+__device__ __forceinline__ void tile_out(const bf16* X, int K, bf16* dst, Valid valid, Row row,
+                                         int ld = 0) {
   const int kc = K >> 3;
+  const size_t l = ld > 0 ? ld : K;
   for (int idx = threadIdx.x; idx < kTileRows * kc; idx += blockDim.x) {
     const int q = idx >> 3, r = (q / kc) * 8 + (idx & 7), c = (q % kc) * 8;
     if (valid(r))
-      *reinterpret_cast<uint4*>(dst + (size_t)row(r) * K + c) =
+      *reinterpret_cast<uint4*>(dst + (size_t)row(r) * l + c) =
           *reinterpret_cast<const uint4*>(X + kmaj(r, c, K));
   }
 }
@@ -408,6 +425,43 @@ __device__ __forceinline__ void col_sums(Val val, int nseg, Seg seg, Out out, fl
       o[c] = ((part[c] + part[nout + c]) + part[2 * nout + c]) + part[3 * nout + c];
     __syncthreads();
   }
+}
+
+// Column sums of V values at once over the tile's valid rows (r < nv):
+// val(i, x) sets x[v] for accumulator element i; out(v)[c] receives value
+// v's sum of column c < 2 * NW, added in col_sums' order. One pass, one
+// pair of barriers for all V. part: 4 * V * 2 * NW floats of shared memory.
+// Called by all 256 threads.
+template <int NW, int V, typename Val, typename Out>
+__device__ __forceinline__ void col_sums_tile(Val val, int nv, Out out, float* part) {
+  const int g = threadIdx.x >> 7, w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int nout = 2 * NW;
+  const bool ok0 = acc_row(0) < nv, ok1 = acc_row(2) < nv;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x0[V], x1[V], c[V];
+      val(4 * j + e, x0);
+      val(4 * j + 2 + e, x1);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        c[v] = (ok0 ? x0[v] : 0.0f) + (ok1 ? x1[v] : 0.0f);
+        c[v] += __shfl_xor_sync(0xffffffffu, c[v], 4);
+        c[v] += __shfl_xor_sync(0xffffffffu, c[v], 8);
+        c[v] += __shfl_xor_sync(0xffffffffu, c[v], 16);
+      }
+      if (lane < 4)
+#pragma unroll
+        for (int v = 0; v < V; ++v) part[(w * V + v) * nout + g * NW + acc_col(4 * j + e)] = c[v];
+    }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < V * nout; idx += blockDim.x) {
+    const int v = idx / nout, c = idx % nout;
+    const float* p = part + v * nout + c;
+    out(v)[c] = ((p[0] + p[V * nout]) + p[2 * V * nout]) + p[3 * V * nout];
+  }
+  __syncthreads();
 }
 
 // The pair kernels' forward tiles: rows rho = o * N + m of one chain, in
@@ -497,13 +551,20 @@ __device__ __forceinline__ void ln_stats(float (&v)[NA], float (&inv)[2], int wi
   for (int i = 0; i < NA; ++i) v[i] = (v[i] - mean[(i >> 1) & 1]) * inv[(i >> 1) & 1];
 }
 
+// What row_sums_seq adds per column: the value, its squared deviation, or
+// a product.
+enum SeqTerm { kSeqSum = 0, kSeqSq = 1, kSeqDot = 2 };
+
 // The 64 accumulator row sums of f(i) (one value per element i of this
 // thread's warpgroup, the warpgroups splitting 2 * NW columns) in
 // md::warp_layernorm's order: for each lane l of a warp holding a row, the
 // columns l, l + 32, l + 64, ... added one by one from 0, then the 32 lane
-// sums in warp_sum's tree (xor 16, 8, 4, 2, 1). SQ: the sum of squared
+// sums in warp_sum's tree (xor 16, 8, 4, 2, 1). kSeqSq: the sum of squared
 // deviations from m[row half] instead, each term added as fmaf(d, d, s)
-// as the compiler contracts s += d * d. out[h]: row acc_row(2 h)'s sum.
+// as the compiler contracts s += d * d; kSeqDot: f(i) is a float2 (x, w)
+// and each term is added as fmaf(x, w, s), as the compiler contracts a
+// warp's one-column layer s += x * w (md::warp_sum after it). out[h]: row
+// acc_row(2 h)'s sum.
 // A thread holds, for each of its rows, lanes l = 8 mm + 2 (t % 4) + e.
 // For NW >= 32 warpgroup 0 holds the lower columns of every lane and adds
 // first, and warpgroup 1 goes on from its sums and closes the tree; for
@@ -513,7 +574,7 @@ __device__ __forceinline__ void ln_stats(float (&v)[NA], float (&inv)[2], int wi
 // floats, S: 64 floats of shared memory (S is read on return: the next
 // call writes it only after a barrier). Called by all 256 threads; buf is
 // free on return.
-template <int NW, bool SQ, typename F>
+template <int NW, int TERM, typename F>
 __device__ __forceinline__ void row_sums_seq(F f, const float (&m)[2], float (&out)[2],
                                              float* buf, float* S) {
   constexpr int NJ = NW / 8;                // column groups of 8 in a warpgroup
@@ -534,12 +595,14 @@ __device__ __forceinline__ void row_sums_seq(F f, const float (&m)[2], float (&o
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float x = f(4 * j + 2 * h + e);
-          if (SQ) {
-            const float d = x - m[h];
+          if constexpr (TERM == kSeqDot) {
+            const float2 xw = f(4 * j + 2 * h + e);
+            p[h][mm][e] = fmaf(xw.x, xw.y, p[h][mm][e]);
+          } else if constexpr (TERM == kSeqSq) {
+            const float d = f(4 * j + 2 * h + e) - m[h];
             p[h][mm][e] = fmaf(d, d, p[h][mm][e]);
           } else {
-            p[h][mm][e] += x;
+            p[h][mm][e] += f(4 * j + 2 * h + e);
           }
         }
     }
@@ -603,10 +666,10 @@ __device__ __forceinline__ void ln_stats_seq(float (&v)[NA], float (&inv)[2], fl
   const float width = 2.0f * NW;
   const float zero[2] = {0.0f, 0.0f};
   float mean[2], sq[2];
-  row_sums_seq<NW, false>([&](int i) { return v[i]; }, zero, mean, buf, S);
+  row_sums_seq<NW, kSeqSum>([&](int i) { return v[i]; }, zero, mean, buf, S);
   mean[0] /= width;
   mean[1] /= width;
-  row_sums_seq<NW, true>([&](int i) { return v[i]; }, mean, sq, buf, S);
+  row_sums_seq<NW, kSeqSq>([&](int i) { return v[i]; }, mean, sq, buf, S);
 #pragma unroll
   for (int h = 0; h < 2; ++h) inv[h] = rsqrtf(sq[h] / width + 1e-5f);
 #pragma unroll

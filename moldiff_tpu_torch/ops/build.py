@@ -53,6 +53,10 @@ WORKSPACE_SIGNATURES = {
     "md_fused_block_forward_workspace": [_P],
 }
 
+# settings for checks (return 0): the cap on the persistent pair kernels'
+# grids (0: the card's own), for chip_smoke.py's grid-size invariance phase
+HOOK_SIGNATURES = {"md_set_persistent_slots": [_I]}
+
 _loaded: Optional[ctypes.CDLL] = None
 build_log: List[str] = []   # nvcc's output of the build this process made
 
@@ -116,6 +120,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_longlong
+        for name, argtypes in HOOK_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.md_error_name.argtypes = [ctypes.c_int]
         lib.md_error_name.restype = ctypes.c_char_p
         _loaded = lib

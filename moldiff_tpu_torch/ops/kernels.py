@@ -666,15 +666,19 @@ def _check_width(kernel: str, **widths: int) -> None:
 
 
 # The widths for which the NodeBlock pair kernels, forward and backward
-# (csrc/node_block.cu, node_block_bwd.cu: (H, De)), and the EdgeBlock pair
-# kernels (csrc/edge_pair.cu, edge_pair_bwd.cu: (De, I, G, Do)) are
-# instantiated, as md::node_block_built and md::edge_pair_built accept them:
-# those of every model in configs/ and ckpts/ (node_dim / edge_dim 256 / 64
-# and 128 / 32; H = node_dim, I = 2 edge_dim, G = 32, Do = De = edge_dim).
-# The whole-block kernel (fused_block, row 2) runs both forward ones, the
-# full-EdgeBlock kernels (rows 6, 7) the EdgeBlock's.
+# (csrc/node_block.cu, node_block_bwd.cu: (H, De)), the EdgeBlock pair
+# kernels (csrc/edge_pair.cu, edge_pair_bwd.cu: (De, I, G, Do)) and the
+# PosUpdate pair kernels (csrc/pos_update.cu, pos_update_bwd.cu: (Dn, De,
+# Dl, I, G)) are instantiated, as md::node_block_built, md::edge_pair_built
+# and md::pos_update_built accept them: those of every model in configs/
+# and ckpts/ (node_dim / edge_dim 256 / 64 and 128 / 32; H = node_dim, I =
+# 2 edge_dim, G = 32, Do = De = edge_dim; PosUpdate's Dn = I = node_dim, Dl
+# = De = edge_dim, G = 32). The whole-block kernel (fused_block, row 2)
+# runs all three forward ones, the full-EdgeBlock kernels (rows 6, 7) the
+# EdgeBlock's.
 NODE_WIDTHS = ((256, 64), (128, 32))
 EDGE_WIDTHS = ((64, 128, 32, 64), (32, 64, 32, 32))
+POS_WIDTHS = ((256, 64, 64, 256, 32), (128, 32, 32, 128, 32))
 
 
 def _check_built(kernel: str, names: str, widths: tuple, built: tuple) -> None:
@@ -820,6 +824,7 @@ def pos_update(params, h_node, h_edge, rel_vec, distance, edge_time, pair_mask):
     lr = torch.empty((2, b, n, dl), dtype=torch.bfloat16, device=dev)
     out = torch.empty((b, n, 3), dtype=torch.float32, device=dev)
     _require_cuda("pos_update", dev)
+    _check_built("pos_update", "(Dn, De, Dl, I, G)", (dn, de, dl, i_dim, g), POS_WIDTHS)
     lib = build.library()
     launched = ctypes.c_int(0)
     rc = lib.md_pos_update_forward(
@@ -1077,6 +1082,7 @@ def pos_update_bwd(params, h_node, h_edge, rel_vec, distance, edge_time, pair_ma
         raise ValueError("pos_update_bwd: the edge, node-feature and gate widths must not "
                          "exceed I")
     _require_cuda("pos_update_bwd", dev)
+    _check_built("pos_update_bwd", "(Dn, De, Dl, I, G)", (dn, de, dl, i_dim, g), POS_WIDTHS)
     lib = build.library()
     d_node = torch.empty_like(h_node)
     d_edge = torch.empty_like(h_edge)
@@ -1283,6 +1289,7 @@ def fused_block(blk, h_node, h_edge, h_dist, rel_vec, distance, node_time, pair_
     _require_cuda("fused_block", dev)
     _check_built("fused_block", "NodeBlock (H, De)", (h, de), NODE_WIDTHS)
     _check_built("fused_block", "EdgeBlock (De, I, G, Do)", (de, i_dim, g, de), EDGE_WIDTHS)
+    _check_built("fused_block", "PosUpdate (Dn, De, Dl, I, G)", (dn, de, dl, ip, gp), POS_WIDTHS)
     lib = build.library()
     dims_c = (ctypes.c_int * len(dims))(*dims)
     node_out = torch.empty_like(h_node)

@@ -60,7 +60,8 @@ def test_ctypes_signatures_match_the_c_definitions():
     import re
 
     text = "".join(p.read_text() for p in build.sources())
-    for name, argtypes in {**build.SIGNATURES, **build.WORKSPACE_SIGNATURES}.items():
+    for name, argtypes in {**build.SIGNATURES, **build.WORKSPACE_SIGNATURES,
+                           **build.HOOK_SIGNATURES}.items():
         found = re.search(r"\b(?:int|long long) " + name + r"\(([^)]*)\)", text)
         assert found, name
         params = [p.strip() for p in found.group(1).split(",")]

@@ -1,6 +1,9 @@
 """moldiff_tpu_torch/ops/kernels.py pos_update (the plain version of the
 CUDA PosUpdate kernel) against the JAX XLA composition and the Pallas
 kernel in interpret mode, on the same numpy inputs and weights."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +14,7 @@ from moldiff_tpu.models.denoiser import init_pos_update
 from moldiff_tpu.ops.pallas_kernels import _pallas_pos_update, _xla_pos_update
 from moldiff_tpu_torch.models.nn import safe_distance
 from moldiff_tpu_torch.ops import kernels
-from torch_port_util import jax_tree, max_err, np_tree, torch_tree
+from torch_port_util import TRAIN_CONFIGS, config_blocks, jax_tree, max_err, np_tree, torch_tree
 
 B, N, DN, DE = 3, 8, 64, 32
 
@@ -94,3 +97,43 @@ def test_wrapper_checks_before_launch(case, bad):
                                meta(rel, torch.float32, (B, 80, 80, 3)),
                                meta(dist, torch.float32, (B, 80, 80)),
                                meta(t, torch.float32), meta(mask, torch.float32, (B, 80, 80)))
+
+
+def _pos_widths(pb) -> tuple:
+    """(Dn, De, Dl, I, G) of a PosUpdate's weights (a leading blocks axis
+    allowed)."""
+    el, left = pb["edge_lin"], pb["left_lin_edge"]["layers"]
+    de, i_dim = el["bond_linear"]["w"].shape[-2:]
+    return (left[0]["lin"]["w"].shape[-2], de, left[1]["lin"]["w"].shape[-1], i_dim,
+            el["gate"]["layers"][0]["lin"]["w"].shape[-1])
+
+
+@pytest.mark.parametrize("config", TRAIN_CONFIGS, ids=lambda p: Path(p).stem)
+def test_pair_kernel_is_built_for_every_configured_model(config):
+    """The PosUpdate widths (Dn, De, Dl, I, G) of every denoiser that
+    configs/train/ defines are among those the pair kernels, forward and
+    backward, are instantiated for (rows 8, 9 and 2 run them); a bond
+    predictor updates no positions."""
+    blocks = config_blocks(config)
+    if "pos_block" not in blocks:
+        assert Path(config).stem.startswith("train_bondpred"), sorted(blocks)
+        return
+    assert _pos_widths(blocks["pos_block"]) in kernels.POS_WIDTHS
+
+
+def test_built_widths_are_the_c_sources():
+    """POS_WIDTHS lists the widths csrc/pos_update.cu accepts and dispatches
+    on, no more and no fewer, and the whole-block kernel (row 2) checks the
+    same predicate before its first launch."""
+    csrc = Path(kernels.__file__).parent.parent / "csrc"
+    src = (csrc / "pos_update.cu").read_text()
+    accepted = re.search(r"bool pos_update_built\(int Dn, int De, int Dl, int I, int G\) "
+                         r"\{(.*?)\}", src, re.S).group(1)
+    want = [tuple(map(str, w)) for w in kernels.POS_WIDTHS]
+    assert re.findall(r"Dn == (\d+) && De == (\d+) && Dl == (\d+) && I == (\d+) && G == (\d+)",
+                      accepted) == want
+    assert re.findall(r"if \(!(\S+)\(Dn, De, Dl, I, G\)\) return cudaErrorInvalidValue",
+                      src) == ["pos_update_built"]
+    assert sorted(re.findall(r"launch_pair<(\d+), (\d+), (\d+), (\d+)>\(a", src)) == sorted(
+        w[1:] for w in want)
+    assert "md::pos_update_built(Dn, De, Dl, Ip, Gp)" in (csrc / "fused_block.cu").read_text()

@@ -2,6 +2,9 @@
 CUDA PosUpdate backward kernel) against the Pallas backward kernel in
 interpret mode, and the autograd Function against it, on the same numpy
 inputs, weights and cotangents."""
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -193,3 +196,14 @@ def test_wrapper_refuses_before_launch(bad):
     with pytest.raises(ValueError, match=match):
         kernels.pos_update_bwd(mp, **args)
     assert kernels.launch_counts == before
+
+
+def test_built_widths_are_the_c_sources():
+    """The backward entry point takes the widths of the forward's predicate
+    (md::pos_update_built, so POS_WIDTHS) and refuses others before any
+    launch; its pair kernel is instantiated for the same widths."""
+    src = (Path(kernels.__file__).parent.parent / "csrc" / "pos_update_bwd.cu").read_text()
+    assert re.findall(r"if \(!(\S+)\(Dn, De, Dl, I, G\)\) return cudaErrorInvalidValue",
+                      src) == ["md::pos_update_built"]
+    want = sorted(tuple(map(str, w[1:])) for w in kernels.POS_WIDTHS)
+    assert sorted(re.findall(r"launch_pair<(\d+), (\d+), (\d+), (\d+)>\(a", src)) == want
