@@ -73,12 +73,13 @@ Phases, each asserting and none catching a failure:
      config carrying edge_full; phase 9 with edge_full; phase 11 for rows 6
      and 7 at batch 128, N = 40;
  14. grid-size invariance: the persistent pair kernels (rows 1, 4 and 8,
-     and row 2, which runs them) rerun with their grid capped at 1, 7 and
-     33 CTAs and at the card's own, GRID_REPEATS times each, at both
-     widths, N = 32 and 40, B = 16: every output equals the first run's bit
-     for bit. Each node's sum is added in partner order whatever tiles its
-     CTA takes, so a difference is a race or a tile-boundary fault (no race
-     detector runs on the card machine).
+     and rows 2 and 6, which run them and their own persistent edge_emb
+     and tail kernels) rerun with their grid capped at 1, 7 and 33 CTAs and
+     at the card's own, GRID_REPEATS times each, at both widths, N = 32 and
+     40, B = 16: every output equals the first run's bit for bit. Each
+     node's sum is added in partner order whatever tiles its CTA takes, and
+     each pair's tail is its own, so a difference is a race or a
+     tile-boundary fault (no race detector runs on the card machine).
 The last line is {"ok": true, "device": {...}}. A hang ends in a traceback
 and a non-zero exit (faulthandler) before the budget runs out. The script
 imports only torch, numpy, the standard library and moldiff_tpu_torch.
@@ -247,9 +248,10 @@ FUSE_SETTINGS = dict(SAMPLE_SETTINGS, model={"checkpoint": CHECKPOINT,
                                              "denoiser": {"fuse_block": True}})
 LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes these fused "
                 "MLP-gate-sum chains")
-# phase 14: the persistent kernels (and row 2, which runs them), the grid
-# caps (0: the card's own) and the reruns at each
-PERSISTENT_KERNELS = ("node_block", "edge_pair", "pos_update", "fused_block")
+# phase 14: the persistent kernels (and rows 2 and 6, which run them and
+# their own persistent tail and edge_emb kernels), the grid caps (0: the
+# card's own) and the reruns at each
+PERSISTENT_KERNELS = ("node_block", "edge_pair", "pos_update", "fused_block", "edge_block_full")
 GRID_CAPS = (0, 1, 7, 33)
 GRID_REPEATS = 3
 

@@ -1,8 +1,8 @@
 // Shared device helpers of the kernels still on synchronous WMMA: the
-// node-level prep kernels (node_block.cu, edge_pair.cu, pos_update.cu), the
-// node-level backward kernels and the whole-block and full-EdgeBlock
-// kernels' own kernels. (The NodeBlock, EdgeBlock and PosUpdate pair
-// kernels, forward and backward, run on wgmma: wgmma.cuh.)
+// node-level prep kernels (node_block.cu, edge_pair.cu, pos_update.cu) and
+// the node-level backward kernels. (The NodeBlock, EdgeBlock and PosUpdate
+// pair kernels, forward and backward, and the whole-block and
+// full-EdgeBlock kernels' own kernels run on wgmma: wgmma.cuh.)
 //
 // Every kernel here works on a tile of at most kMaxRows rows (pairs or
 // nodes) held in shared memory, and runs a chain of small matrix products
@@ -136,12 +136,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, int ld, int rows, int pad_r
 // (and every WMMA tile in it) is aligned.
 __host__ __device__ constexpr size_t smem_bytes(size_t rows, size_t ld, size_t elem) {
   return (rows * ld * elem + 127) / 128 * 128;
-}
-
-// Receivers (or reduction groups) per CTA so that one tile holds at most
-// kMaxRows rows of n pairs each.
-__host__ __device__ constexpr int groups_per_cta(int n) {
-  return n >= kMaxRows ? 1 : kMaxRows / n;
 }
 
 }  // namespace md

@@ -21,28 +21,54 @@
 // 16,384 FLOPs per pair and 65,536 per node for the tail, about 10 % more
 // than edge_pair.cu; the backward about three times that (the recompute,
 // the input-gradient and the weight-gradient products). Both bound by
-// operations; chip_smoke.py work() counts them for a call.
+// operations; chip_smoke.py work() counts them for a call. The tail's own
+// kernels alone are bound by bytes: two or three 64-wide products per pair
+// against e, ct and the per-pair outputs (about 55 MB forward at B = 128,
+// N = 40: 16 us at 3.35 TB/s).
 //
-// Design. The tail needs both chains' sums for every pair, and those sums
-// cross the forward's tiles (a column's sum over rows, a row's over
-// columns), so the simple design is a sequence of launches over global
-// memory (the intermediates per molecule stay in L2 at these sizes):
-// forward = edge_pair.cu's prep and pair kernels, a node kernel for proj_l
-// and proj_r, and a pair kernel of 64 flat pairs per CTA for the tail (4
-// launches). Backward = the same prep and pair kernels, the proj kernel, a
-// tail backward pair kernel (32 pairs per CTA) that writes d_h, the relu
-// output and the self term of d_bond per pair, a node kernel that forms
-// both sums of d_h in order and the node FFNs' d_node, the chains' backward
-// (6 launches, no prep) and the tail's weight gradients and reductions
-// (2): 13 launches. The tail's weight-gradient operands are stored in the
-// form grad.cu's product takes (bf16; float32 ones also as hi + lo planes). Every element has one writer; no float atomics.
-// Outputs go to fresh buffers.
+// Design (the tail redesigned for Hopper, after edge_pair.cu). The tail
+// needs both chains' sums for every pair, and those sums cross the chains'
+// tiles, so it runs after edge_pair.cu's prep and pair kernels:
+// - tail_prep_kernel: proj_l, proj_r, one CTA per (64 nodes, side), the
+//   node FFN's weight and the x tile staged by cp.async, one wgmma chain.
+// - tail_fwd_kernel: a persistent grid, each CTA an even share of the
+//   tiles of 64 flat pairs, in order (three CTAs per SM); Wsf and Wo stay
+//   in shared memory, the next tile's e rows load by cp.async while this
+//   one runs, both products run as wgmma (two warpgroups splitting the De
+//   columns), h and the LayerNorm in registers, the broadcast terms read
+//   per element from L1 and L2 (loaded before the first product).
+// Forward launches: chains 2, tail 2 = 4. Its outputs equal those of the
+// first design (a warp per row, WMMA products) bit for bit: the tensor
+// cores' products equal WMMA's, the LayerNorm takes md::warp_layernorm's
+// order (wgmma.cuh ln_stats_seq), and h and the residual add as
+// tail_input below does, term by term.
+// - tail_bwd_pair_kernel: CTA (b, s) takes an even share (1 / S) of
+//   molecule b's rows and walks their pairs in tiles of 64: the recompute
+//   (e @ Wsf, h, LayerNorm, relu), ct @ Wo^T, the relu and LayerNorm
+//   backward to d_h, d_h @ Wsf^T, its three weights resident. It writes
+//   per pair only what later kernels read (the relu output and d_h's hi +
+//   lo planes for grad.cu, d_h @ Wsf^T for the chains' backward), closes
+//   d_h's sum over a row node's columns inside the CTA (wgmma.cuh
+//   tile_sums) and keeps the sum over a column node's rows as a running
+//   sum in shared memory, rows in order, written once per CTA. S is about
+//   256 / B (2 at B = 128), two CTAs per SM, so a small batch still fills
+//   the card.
+// - tail_bwd_node_kernel: per 64 nodes, adds a column node's S parts in
+//   order and forms the node FFNs' d_node on wgmma, Wnl and Wnr resident.
+// Every sum runs in an order fixed by the shapes and every element has one
+// writer: no float atomics, a result that does not change from run to run.
+// Backward launches: chains 2, tail prep, pair and node 3, the chains'
+// backward 6 (no prep), the tail's weight gradients and reductions 2 = 13.
+// The out weight's gradient reads ct itself. Outputs go to fresh buffers.
 #include "grad.cuh"
+#include "wgmma.cuh"
 
 using md::bf16;
+namespace wg = md::wg;
 
 namespace {
 
+constexpr int kRows = wg::kTileRows;
 constexpr int kTailVecs = 4;  // per-tile column sums: out bias, LN scale, LN bias, self bias
 
 struct TailWeights {
@@ -60,249 +86,409 @@ struct TailArgs {
   bf16* out;           // [B,N,N,De]
   int residual;        // 1: bf16 adds of the broadcast terms, out = e + delta
   // backward
-  const bf16* ct;      // [B,N,N,De] cotangent of the delta
-  bf16* dct;           // [B,N,N,De] ct, the out weight's gradient operand
+  const bf16* ct;      // [B,N,N,De] cotangent of the delta (with r, the out weight's operand)
   bf16* r;             // [B,N,N,De] relu output
-  float* dh;           // [B,N,N,De] cotangent of h
-  md::Split dhs;       // the same as the self_ffn weight's gradient operand
-  float* dbond;        // [B,N,N,De] d_h @ Wsf^T
-  float* vecpart;      // [pair tiles, kTailVecs, De]
+  md::Split dhs;       // [B,N,N,De] d_h, the self_ffn weight's gradient operand
+  float* dbond;        // [B,N,N,De] bf16(d_h) @ Wsf^T
+  float* vecpart;      // [B, S, tps, kTailVecs, De] per-tile column sums
+  float* colpart;      // [B, S, N, De] d_h over a column node's rows, per row split
   float* dproj;        // [2,B,N,De] d_h summed over columns (0) and rows (1)
   md::Split dprojs;    // the same as the node FFNs' gradient operand
   float* dnode;        // [B,N,Dn] the node FFNs' d_node
   float* nodepart;     // [node tiles, 2, De] column sums of dproj
   int B, N, Dn, De;
+  int S, tps;          // row splits of a molecule, tiles a split's slots hold
 };
 
 // One CTA per (64 nodes, side): proj[side] = bf16(x @ Wn + bn).
-__global__ void __launch_bounds__(md::kThreads) tail_prep_kernel(const TailArgs a) {
+template <int DE>
+__global__ void __launch_bounds__(256) tail_prep_kernel(const TailArgs a) {
+  constexpr int NW = DE / 2, NA = NW / 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldx = a.Dn + 8, ldc = a.De + 4;
-  bf16* sX = reinterpret_cast<bf16*>(smem);
-  float* sC = reinterpret_cast<float*>(smem + md::smem_bytes(md::kMaxRows, ldx, 2));
-  const int side = blockIdx.y;
-  const bf16* wn = side == 0 ? a.w.wnl : a.w.wnr;
+  const int Dn = a.Dn, side = blockIdx.y;
+  bf16* sW = reinterpret_cast<bf16*>(smem);  // [Dn][DE], stage_resident's layout
+  bf16* sX = sW + Dn * DE;                   // [64][Dn]
+  bf16* sO = sX + kRows * Dn;                // [64][DE]
   const bf16* bn = side == 0 ? a.w.bnl : a.w.bnr;
-  const int total = a.B * a.N;
-  const int row0 = blockIdx.x * md::kMaxRows;
-  const int rows = min(md::kMaxRows, total - row0);
-  const int mt = (rows + 15) / 16;
-  bf16* proj = a.proj + (size_t)side * total * a.De;
+  const int total = a.B * a.N, row0 = blockIdx.x * kRows;
+  const int nv = min(kRows, total - row0);
+  wg::stage_resident(sW, side == 0 ? a.w.wnl : a.w.wnr, Dn, DE);
+  wg::tile_in_async(sX, Dn, nv, [&](int r) { return a.x + (size_t)(row0 + r) * Dn; });
+  wg::cp_commit();
+  wg::cp_wait<0>();
+  float acc[NA];
+  wg::res_mma<NW>(acc, sX, Dn, sW);
+  const int g = threadIdx.x >> 7;
+#pragma unroll
+  for (int i = 0; i < NA; i += 2) {
+    const int c = g * NW + wg::acc_col(i);
+    md::store2(sO + wg::kmaj(wg::acc_row(i), c, DE), acc[i] + md::bf(bn[c]),
+               acc[i + 1] + md::bf(bn[c + 1]));
+  }
+  __syncthreads();
+  wg::tile_out(sO, DE, a.proj + (size_t)side * total * DE, [&](int r) { return r < nv; },
+               [&](int r) { return row0 + r; });
+}
 
-  md::load_rows(sX, ldx, rows, mt * 16, a.Dn,
-                [&](int r) { return a.x + (size_t)(row0 + r) * a.Dn; });
-  __syncthreads();
-  md::cta_gemm(sX, ldx, wn, a.Dn, a.De, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * a.De; idx += blockDim.x) {
-    const int r = idx / a.De, c = idx % a.De;
-    proj[(size_t)(row0 + r) * a.De + c] = md::tobf(sC[r * ldc + c] + md::bf(bn[c]));
+// h of one column: the four broadcast terms and the self term s (e @ Wsf +
+// bsf), added as the Pallas body adds them.
+__device__ __forceinline__ float tail_h(float t, float u, float pl, float pr, float s,
+                                        int residual) {
+  if (residual) return md::rbf(md::rbf(md::rbf(t + u) + pl) + pr) + s;
+  return t + u + pl + pr + s;
+}
+
+// The broadcast terms t[i], u[j], proj_l[i], proj_r[j] of this thread's
+// accumulator elements (the warpgroups splitting the De columns), two
+// neighbouring columns at a time: row h's row node starts at element ni[h]
+// = (b * N + i) * De of tu and proj, its column node at nj[h]. Loaded
+// before the product whose epilogue adds them.
+template <int NW>
+struct TailTerms {
+  __nv_bfloat162 v[NW / 4][4];
+};
+
+template <int NW>
+__device__ __forceinline__ void tail_terms(const TailArgs& a, const size_t (&ni)[2],
+                                           const size_t (&nj)[2], TailTerms<NW>& tt) {
+  typedef __nv_bfloat162 bf2;
+  const size_t side = (size_t)a.B * a.N * a.De;
+  const int g = threadIdx.x >> 7;
+#pragma unroll
+  for (int i = 0; i < NW / 2; i += 2) {
+    const int h = (i >> 1) & 1, c = g * NW + wg::acc_col(i);
+    tt.v[i / 2][0] = *reinterpret_cast<const bf2*>(a.tu + ni[h] + c);
+    tt.v[i / 2][1] = *reinterpret_cast<const bf2*>(a.tu + side + nj[h] + c);
+    tt.v[i / 2][2] = *reinterpret_cast<const bf2*>(a.proj + ni[h] + c);
+    tt.v[i / 2][3] = *reinterpret_cast<const bf2*>(a.proj + side + nj[h] + c);
   }
 }
 
-// h of pair p, column c (sC holding e @ Wsf without its bias): the tail's
-// sum of the four broadcast terms and the self term.
-__device__ __forceinline__ float tail_input(const TailArgs& a, size_t p, int c, float self) {
-  const size_t BN = (size_t)a.B * a.N, NN = (size_t)a.N * a.N;
-  const size_t b = p / NN, i = (p / a.N) % a.N, j = p % a.N;
-  const size_t ni = (b * a.N + i) * a.De + c, nj = (b * a.N + j) * a.De + c;
-  const float t = md::bf(a.tu[ni]), u = md::bf(a.tu[BN * a.De + nj]);
-  const float pl = md::bf(a.proj[ni]), pr = md::bf(a.proj[BN * a.De + nj]);
-  const float selfe = self + md::bf(a.w.bsf[c]);
-  if (a.residual) return md::rbf(md::rbf(md::rbf(t + u) + pl) + pr) + selfe;
-  return t + u + pl + pr + selfe;
+// v[i] (e @ Wsf at this thread's accumulator element i) becomes h.
+template <int NW>
+__device__ __forceinline__ void tail_input(const TailArgs& a, float (&v)[NW / 2],
+                                           const TailTerms<NW>& tt, const float* pbsf) {
+  const int g = threadIdx.x >> 7;
+#pragma unroll
+  for (int i = 0; i < NW / 2; i += 2) {
+    const int c = g * NW + wg::acc_col(i);
+    const __nv_bfloat162* x = tt.v[i / 2];
+    v[i] = tail_h(md::bf(x[0].x), md::bf(x[1].x), md::bf(x[2].x), md::bf(x[3].x),
+                  v[i] + pbsf[c], a.residual);
+    v[i + 1] = tail_h(md::bf(x[0].y), md::bf(x[1].y), md::bf(x[2].y), md::bf(x[3].y),
+                      v[i + 1] + pbsf[c + 1], a.residual);
+  }
 }
 
-// One CTA per 64 flat pairs: the tail, then (residual) e + delta.
-__global__ void __launch_bounds__(md::kThreads) tail_fwd_kernel(const TailArgs a) {
+// Where row h of a tile lies: the element offsets of its row and column
+// nodes in tu and proj. Rows past the tile's nv take row 0's. Pair indices
+// are 32-bit (B N^2 < 2^32).
+__device__ __forceinline__ void tail_nodes(uint32_t p0, int nv, uint32_t N, int De,
+                                           size_t (&ni)[2], size_t (&nj)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rw = wg::acc_row(2 * h);
+    const uint32_t p = p0 + (rw < nv ? rw : 0), bi = p / N;  // bi = b * N + i
+    ni[h] = (size_t)bi * De;
+    nj[h] = ((size_t)(bi / N) * N + (p - bi * N)) * De;
+  }
+}
+
+template <int DE>
+constexpr size_t fwd_smem() {
+  return ((size_t)2 * DE * DE + 3 * kRows * DE) * sizeof(bf16) +
+         ((size_t)64 * 33 + 64 + 4 * DE) * sizeof(float);
+}
+
+// A persistent CTA walks an even share of the tiles of 64 flat pairs, in
+// order: the tail, then (residual) e + delta.
+template <int DE>
+__global__ void __launch_bounds__(256, 3) tail_fwd_kernel(const TailArgs a) {
+  constexpr int NW = DE / 2, NA = NW / 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int De = a.De, lde = De + 8, ldc = De + 4;
-  bf16* sE = reinterpret_cast<bf16*>(smem);
-  bf16* sAct = reinterpret_cast<bf16*>(smem + md::smem_bytes(md::kMaxRows, lde, 2));
-  float* sC = reinterpret_cast<float*>(smem + 2 * md::smem_bytes(md::kMaxRows, lde, 2));
-  const size_t P = (size_t)a.B * a.N * a.N;
-  const size_t p0 = (size_t)blockIdx.x * md::kMaxRows;
-  const int rows = P - p0 < (size_t)md::kMaxRows ? (int)(P - p0) : md::kMaxRows;
-  const int mt = (rows + 15) / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nq = De / 32;
-
-  md::load_rows(sE, lde, rows, mt * 16, De, [&](int r) { return a.e + (p0 + r) * De; });
-  __syncthreads();
-  md::cta_gemm(sE, lde, a.w.wsf, De, De, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  for (int r = warp; r < mt * 16; r += md::kWarps) {
-    float v[md::kMaxPerLane];
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) {
-        const int c = lane + 32 * q;
-        v[q] = r < rows ? tail_input(a, p0 + r, c, sC[r * ldc + c]) : 0.0f;
-      }
-    md::warp_layernorm(v, nq, a.w.sle, a.w.cle, lane);
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) sAct[r * lde + lane + 32 * q] = md::tobf(r < rows ? fmaxf(v[q], 0.0f) : 0.0f);
+  bf16* sWsf = reinterpret_cast<bf16*>(smem);  // stage_resident's layout
+  bf16* sWo = sWsf + DE * DE;
+  bf16* sE = sWo + DE * DE;                    // two tiles of e
+  bf16* sA = sE + 2 * kRows * DE;              // the relu output, then the output tile
+  float* lnbuf = reinterpret_cast<float*>(sA + kRows * DE);  // row_sums_seq's lane sums
+  float* S = lnbuf + 64 * 33;
+  float* pbsf = S + 64;  // the per-column parameters as float32
+  float* psle = pbsf + DE;
+  float* pcle = psle + DE;
+  float* pbo = pcle + DE;
+  wg::stage_resident(sWsf, a.w.wsf, DE, DE);
+  wg::stage_resident(sWo, a.w.wo, DE, DE);
+  for (int c = threadIdx.x; c < DE; c += blockDim.x) {
+    pbsf[c] = md::bf(a.w.bsf[c]);
+    psle[c] = md::bf(a.w.sle[c]);
+    pcle[c] = md::bf(a.w.cle[c]);
+    pbo[c] = md::bf(a.w.bo[c]);
   }
-  __syncthreads();
-  md::cta_gemm(sAct, lde, a.w.wo, De, De, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * De; idx += blockDim.x) {
-    const int r = idx / De, c = idx % De;
-    const float delta = md::rbf(sC[r * ldc + c] + md::bf(a.w.bo[c]));
-    a.out[(p0 + r) * De + c] = md::tobf(a.residual ? md::bf(sE[r * lde + c]) + delta : delta);
-  }
-}
-
-// One CTA per 32 flat pairs: the tail's forward recompute and backward to
-// d_h; writes r, ct (float32), d_h and d_h @ Wsf^T per pair and the tile's
-// column sums.
-__global__ void __launch_bounds__(md::kThreads) tail_bwd_pair_kernel(const TailArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int De = a.De, ldb = De + 8, ldf = De + 4;
-  size_t off = 0;
-  bf16* X[3];
-  for (int k = 0; k < 3; ++k) {
-    X[k] = reinterpret_cast<bf16*>(smem + off);
-    off += md::smem_bytes(md::kBwdRows, ldb, 2);
-  }
-  float* F[3];
-  for (int k = 0; k < 3; ++k) {
-    F[k] = reinterpret_cast<float*>(smem + off);
-    off += md::smem_bytes(md::kBwdRows, ldf, 4);
-  }
-  float* sInv = reinterpret_cast<float*>(smem + off);
-  off += md::smem_bytes(md::kBwdRows, 1, 4);
-  float* sPart = reinterpret_cast<float*>(smem + off);
-
-  const size_t P = (size_t)a.B * a.N * a.N;
-  const size_t p0 = (size_t)blockIdx.x * md::kBwdRows;
-  const int ri = P - p0 < (size_t)md::kBwdRows ? (int)(P - p0) : md::kBwdRows;
-  const int mt = (ri + 15) / 16, rp = mt * 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nq = De / 32;
-  bf16* sE = X[0];
-  bf16* sCt = X[1];
-
-  md::load_rows(sE, ldb, ri, rp, De, [&](int r) { return a.e + (p0 + r) * De; });
-  md::load_rows(sCt, ldb, ri, rp, De, [&](int r) { return a.ct + (p0 + r) * De; });
-  __syncthreads();
-  md::cta_gemm(sE, ldb, a.w.wsf, De, De, F[0], ldf, mt, md::kStore);    // e @ Wsf
-  md::cta_gemm_t(sCt, nullptr, ldb, a.w.wo, De, De, F[2], ldf, mt, md::kStore);  // d_r
-  __syncthreads();
-  // forward recompute: F0 <- xhat, F1 <- LN output, X2 <- relu output
-  for (int r = warp; r < rp; r += md::kWarps) {
-    float v[md::kMaxPerLane];
+  const size_t N = a.N, P = (size_t)a.B * N * N, tiles = (P + kRows - 1) / kRows;
+  const int g = threadIdx.x >> 7;
+  auto load = [&](size_t tile, int buf) {
+    const size_t p0 = tile * kRows;
+    wg::tile_in_async(sE + buf * kRows * DE, DE, (int)min((size_t)kRows, P - p0),
+                      [&](int r) { return a.e + (p0 + r) * DE; });
+  };
+  // this CTA's tiles: an even share of them, in order (neighbouring tiles
+  // share a molecule's broadcast rows, which then stay in L1)
+  const size_t t0 = tiles * blockIdx.x / gridDim.x, t1 = tiles * (blockIdx.x + 1) / gridDim.x;
+  if (t0 < t1) load(t0, 0);
+  wg::cp_commit();  // the resident weights and the first tile's e
+  int k = 0;
+  for (size_t tile = t0; tile < t1; ++tile, ++k) {
+    const size_t p0 = tile * kRows;
+    const int nv = (int)min((size_t)kRows, P - p0);
+    const bf16* sEt = sE + (k & 1) * kRows * DE;
+    if (tile + 1 < t1) load(tile + 1, (k + 1) & 1);
+    wg::cp_commit();
+    wg::cp_wait<1>();  // all but the newest group: this tile's e (and the weights) landed
+    size_t ni[2], nj[2];
+    tail_nodes((uint32_t)p0, nv, (uint32_t)N, DE, ni, nj);
+    TailTerms<NW> tt;
+    tail_terms(a, ni, nj, tt);
+    float v[NA], inv[2];
+    wg::res_mma<NW>(v, sEt, DE, sWsf);
+    tail_input(a, v, tt, pbsf);
+    wg::ln_stats_seq(v, inv, lnbuf, S);
 #pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) {
-        const int c = lane + 32 * q;
-        v[q] = r < ri ? tail_input(a, p0 + r, c, F[0][r * ldf + c]) : 0.0f;
-      }
-    const float inv = md::warp_ln_stats(v, nq);
-    if (lane == 0) sInv[r] = inv;
-#pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) {
-        const int c = lane + 32 * q;
-        const float ln = v[q] * md::bf(a.w.sle[c]) + md::bf(a.w.cle[c]);
-        const bf16 h = md::tobf(fmaxf(ln, 0.0f));
-        F[0][r * ldf + c] = v[q];
-        F[1][r * ldf + c] = ln;
-        X[2][r * ldb + c] = h;
-        if (r < ri) {
-          const size_t o = (p0 + r) * De + c;
-          a.r[o] = h;
-          a.dct[o] = sCt[r * ldb + c];
-        }
-      }
-  }
-  __syncthreads();
-  // LN and relu backward; column sums of ct, d_ln * xhat, d_ln, d_h
-  {
-    float acc[kTailVecs][md::kMaxPerLane] = {};
-    for (int r = warp; r < rp; r += md::kWarps) {
-      float xh[md::kMaxPerLane], dy[md::kMaxPerLane];
-#pragma unroll
-      for (int q = 0; q < md::kMaxPerLane; ++q)
-        if (q < nq) {
-          const int c = lane + 32 * q;
-          xh[q] = F[0][r * ldf + c];
-          dy[q] = F[1][r * ldf + c] > 0.0f ? F[2][r * ldf + c] : 0.0f;
-          acc[0][q] += md::bf(sCt[r * ldb + c]);
-          acc[1][q] += dy[q] * xh[q];
-          acc[2][q] += dy[q];
-        }
-      md::warp_ln_bwd(dy, xh, sInv[r], nq, a.w.sle, lane);
-#pragma unroll
-      for (int q = 0; q < md::kMaxPerLane; ++q)
-        if (q < nq) {
-          const int c = lane + 32 * q;
-          const float d = r < ri ? dy[q] : 0.0f;
-          acc[3][q] += d;
-          X[2][r * ldb + c] = md::tobf(d);
-          if (r < ri) {
-            a.dh[(p0 + r) * De + c] = d;
-            md::put(a.dhs, (p0 + r) * De + c, d);
-          }
-        }
+    for (int i = 0; i < NA; i += 2) {
+      const int c = g * NW + wg::acc_col(i);
+      md::store2(sA + wg::kmaj(wg::acc_row(i), c, DE), fmaxf(v[i] * psle[c] + pcle[c], 0.0f),
+                 fmaxf(v[i + 1] * psle[c + 1] + pcle[c + 1], 0.0f));
     }
-    md::flush_columns<kTailVecs>(acc, nq, sPart, a.vecpart + (size_t)blockIdx.x * kTailVecs * De,
-                                 De);
-  }
-  md::cta_gemm_t(X[2], nullptr, ldb, a.w.wsf, De, De, F[2], ldf, mt, md::kStore);  // d_e self
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ri * De; idx += blockDim.x) {
-    const int r = idx / De, c = idx % De;
-    a.dbond[(p0 + r) * De + c] = F[2][r * ldf + c];
+    wg::res_mma<NW>(v, sA, DE, sWo);
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int c = g * NW + wg::acc_col(i), o = wg::kmaj(wg::acc_row(i), c, DE);
+      float d0 = md::rbf(v[i] + pbo[c]), d1 = md::rbf(v[i + 1] + pbo[c + 1]);
+      if (a.residual) {
+        d0 = md::bf(sEt[o]) + d0;
+        d1 = md::bf(sEt[o + 1]) + d1;
+      }
+      md::store2(sA + o, d0, d1);
+    }
+    __syncthreads();
+    wg::tile_out(sA, DE, a.out, [&](int r) { return r < nv; }, [&](size_t r) { return p0 + r; });
+    __syncthreads();  // sA and this tile's e buffer are free
   }
 }
 
-// One CTA per 32 nodes: d_h summed over columns (row k) and over rows
-// (column k), in order; the node FFNs' d_node; the tile's column sums.
-__global__ void __launch_bounds__(md::kThreads) tail_bwd_node_kernel(const TailArgs a) {
+template <int DE>
+constexpr size_t pair_bwd_smem() {
+  return ((size_t)3 * DE * DE + (size_t)6 * kRows * DE) * sizeof(bf16) +
+         ((size_t)kRows * (DE + 4) + 64 * DE + 4 * kTailVecs * DE + 4 * DE) * sizeof(float);
+}
+
+// CTA (b, s) takes the rows i in [s N / S, (s + 1) N / S) of molecule b (S
+// = gridDim.y) and walks their pairs in tiles of 64 (local pair p = (i -
+// i0) * N + j, e's order).
+template <int DE>
+__global__ void __launch_bounds__(256, 2) tail_bwd_pair_kernel(const TailArgs a) {
+  constexpr int NW = DE / 2, NA = NW / 2, LDV = DE + 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int De = a.De, Dn = a.Dn, N = a.N, ldb = De + 8, ldf = Dn + 4;
-  bf16* X0 = reinterpret_cast<bf16*>(smem);
-  bf16* X1 = reinterpret_cast<bf16*>(smem + md::smem_bytes(md::kBwdRows, ldb, 2));
-  float* F0 = reinterpret_cast<float*>(smem + 2 * md::smem_bytes(md::kBwdRows, ldb, 2));
-  const int total = a.B * N;
-  const int n0 = blockIdx.x * md::kBwdRows;
-  const int rows = min(md::kBwdRows, total - n0);
-  const int mt = (rows + 15) / 16, rp = mt * 16;
-  for (int idx = threadIdx.x; idx < rp * De; idx += blockDim.x) {
-    const int r = idx / De, c = idx % De;
-    float sl = 0.0f, sr = 0.0f;
-    if (r < rows) {
-      const size_t node = n0 + r, b = node / N, k = node % N;
-      const float* row = a.dh + (node * N) * De + c;          // pairs (k, j)
-      const float* col = a.dh + (b * N * N + k) * De + c;     // pairs (i, k)
-      for (int m = 0; m < N; ++m) {
-        sl += row[(size_t)m * De];
-        sr += col[(size_t)m * N * De];
-      }
-      a.dproj[node * De + c] = sl;
-      a.dproj[((size_t)total + node) * De + c] = sr;
-      md::put(a.dprojs, node * De + c, sl);
-      md::put(a.dprojs, ((size_t)total + node) * De + c, sr);
+  const int N = a.N, b = blockIdx.x, s = blockIdx.y, S = gridDim.y;
+  bf16* sWsf = reinterpret_cast<bf16*>(smem);  // e @ Wsf (MN-major)
+  bf16* sWsfT = sWsf + DE * DE;                // d_h @ Wsf^T (K-major)
+  bf16* sWoT = sWsfT + DE * DE;                // ct @ Wo^T
+  bf16* sE = sWoT + DE * DE;                   // two tiles of e
+  bf16* sCt = sE + 2 * kRows * DE;             // two tiles of ct
+  bf16* sHi = sCt + 2 * kRows * DE;            // bf16(d_h)
+  bf16* sLo = sHi + kRows * DE;                // d_h - bf16(d_h)
+  float* V = reinterpret_cast<float*>(sLo + kRows * DE);  // [64][LDV] float32 tile
+  float* lnbuf = V;                            // the LayerNorms' sums, before V is written
+  float* S64 = V + 64 * 33;
+  float* sCol = V + kRows * LDV;               // [N][DE] d_h over a column node's rows
+  float* part = sCol + 64 * DE;                // col_sums_tile's
+  float* carry = part + 4 * kTailVecs * DE;    // tile_sums'
+  float* pbsf = carry + DE;
+  float* psle = pbsf + DE;
+  float* pcle = psle + DE;
+  static_assert(64 * 33 + 64 <= kRows * LDV, "the LayerNorms' sums overrun V");
+
+  wg::stage_resident(sWsf, a.w.wsf, DE, DE);
+  wg::stage_resident<1>(sWsfT, a.w.wsf, DE, DE);
+  wg::stage_resident<1>(sWoT, a.w.wo, DE, DE);
+  for (int c = threadIdx.x; c < DE; c += blockDim.x) {
+    pbsf[c] = md::bf(a.w.bsf[c]);
+    psle[c] = md::bf(a.w.sle[c]);
+    pcle[c] = md::bf(a.w.cle[c]);
+  }
+  for (int idx = threadIdx.x; idx < N * DE; idx += blockDim.x) sCol[idx] = 0.0f;
+  const int i0 = s * N / S, np = ((s + 1) * N / S - i0) * N, nt = (np + kRows - 1) / kRows;
+  const size_t base = ((size_t)b * N + i0) * N;  // the CTA's first pair
+  auto load = [&](int t, int buf) {
+    const size_t p0 = base + (size_t)t * kRows;
+    const int nv = min(kRows, np - t * kRows);
+    wg::tile_in_async(sE + buf * kRows * DE, DE, nv, [&](int r) { return a.e + (p0 + r) * DE; });
+    wg::tile_in_async(sCt + buf * kRows * DE, DE, nv,
+                      [&](int r) { return a.ct + (p0 + r) * DE; });
+  };
+  load(0, 0);
+  wg::cp_commit();  // the resident weights and the first tile
+  const int g = threadIdx.x >> 7;
+  auto col = [&](int i) { return g * NW + wg::acc_col(i); };
+  for (int t = 0; t < nt; ++t) {
+    const int p0 = t * kRows, nv = min(kRows, np - p0);
+    const size_t gp0 = base + p0;
+    const bf16* sEt = sE + (t & 1) * kRows * DE;
+    const bf16* sCtt = sCt + (t & 1) * kRows * DE;
+    if (t + 1 < nt) load(t + 1, (t + 1) & 1);
+    wg::cp_commit();
+    wg::cp_wait<1>();
+    size_t ni[2], nj[2];
+    tail_nodes((uint32_t)gp0, nv, (uint32_t)N, DE, ni, nj);
+    TailTerms<NW> tt;
+    tail_terms(a, ni, nj, tt);
+
+    // the forward recompute: xh <- xhat; the relu output r, stored per pair
+    float xh[NA], inv[2];
+    wg::res_mma<NW>(xh, sEt, DE, sWsf);
+    tail_input(a, xh, tt, pbsf);
+    wg::ln_stats_seq(xh, inv, lnbuf, S64);
+    unsigned live = 0;  // bit i: element i's LayerNorm output > 0
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int c = col(i), rw = wg::acc_row(i);
+      const float l0 = xh[i] * psle[c] + pcle[c], l1 = xh[i + 1] * psle[c + 1] + pcle[c + 1];
+      live |= (l0 > 0.0f ? 1u : 0u) << i | (l1 > 0.0f ? 1u : 0u) << (i + 1);
+      if (rw < nv) md::store2(a.r + (gp0 + rw) * DE + c, fmaxf(l0, 0.0f), fmaxf(l1, 0.0f));
     }
-    X0[r * ldb + c] = md::tobf(sl);
-    X1[r * ldb + c] = md::tobf(sr);
+
+    // ct @ Wo^T, the relu's backward (dy), the LayerNorm's (d to d_h)
+    float dy[NA], d[NA];
+    wg::res_mma<NW, 1>(dy, sCtt, DE, sWoT);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      dy[i] = (live >> i) & 1u ? dy[i] : 0.0f;
+      d[i] = dy[i];
+    }
+    wg::ln_bwd(d, xh, inv, a.w.sle, col, DE, lnbuf);
+    // this tile's column sums: ct, dy * xhat, dy, d_h
+    wg::col_sums_tile<NW, kTailVecs>(
+        [&](int i, float (&x)[kTailVecs]) {
+          x[0] = md::bf(sCtt[wg::kmaj(wg::acc_row(i), col(i), DE)]);
+          x[1] = dy[i] * xh[i];
+          x[2] = dy[i];
+          x[3] = d[i];
+        },
+        nv, [&](int v) { return a.vecpart + ((((size_t)b * S + s) * a.tps + t) * kTailVecs + v) * DE; },
+        part);
+
+    // d_h as bf16 hi + lo tiles and as float32 (for the node sums)
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int o = wg::kmaj(wg::acc_row(i), col(i), DE);
+      const bf16 h0 = md::tobf(d[i]), h1 = md::tobf(d[i + 1]);
+      __nv_bfloat162 hv;
+      hv.x = h0;
+      hv.y = h1;
+      *reinterpret_cast<__nv_bfloat162*>(sHi + o) = hv;
+      md::store2(sLo + o, d[i] - md::bf(h0), d[i + 1] - md::bf(h1));
+    }
+    wg::tile_values<NW>(V, LDV, [&](int i) { return d[i]; });
+    // d_bond's self term bf16(d_h) @ Wsf^T (its barriers publish the tiles above)
+    float ds[NA];
+    wg::res_mma<NW, 1>(ds, sHi, DE, sWsfT);
+    auto valid = [&](int r) { return r < nv; };
+    auto row = [&](int r) { return gp0 + r; };
+    wg::tile_out(sHi, DE, a.dhs.hi, valid, row);
+    wg::tile_out(sLo, DE, a.dhs.lo, valid, row);
+    // d_h over rows: column node j adds this tile's pairs (i, j) in i order
+    // (a thread takes column c of every (256 / DE)-th node)
+    {
+      const int c = threadIdx.x % DE, shift = p0 % N;
+      for (int j = threadIdx.x / DE; j < N; j += blockDim.x / DE) {
+        int r = j - shift;
+        if (r < 0) r += N;
+        float sum = sCol[j * DE + c];
+        for (; r < nv; r += N) sum += V[r * LDV + c];
+        sCol[j * DE + c] = sum;
+      }
+    }
+    // d_h over columns: row node i's pairs in j order, closed inside the CTA
+    wg::tile_sums(V, LDV, DE, p0, nv, N, carry, [&](uint32_t node, int c, float v) {
+      a.dproj[((size_t)b * N + i0 + node) * DE + c] = v;
+    });
+    wg::tile_values<NW>(V, LDV, [&](int i) { return ds[i]; });
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < nv * (DE / 4); idx += blockDim.x) {
+      const int r = idx / (DE / 4), c = (idx % (DE / 4)) * 4;
+      *reinterpret_cast<float4*>(a.dbond + (gp0 + r) * DE + c) =
+          *reinterpret_cast<const float4*>(V + r * LDV + c);
+    }
+    __syncthreads();  // V and this tile's buffers are free
+  }
+  // the slots of tiles this CTA does not have, and its part of the column sums
+  for (int idx = threadIdx.x; idx < (a.tps - nt) * kTailVecs * DE; idx += blockDim.x)
+    a.vecpart[(((size_t)b * S + s) * a.tps + nt) * kTailVecs * DE + idx] = 0.0f;
+  for (int idx = threadIdx.x; idx < N * DE; idx += blockDim.x)
+    a.colpart[((size_t)b * S + s) * N * DE + idx] = sCol[idx];
+}
+
+template <int DE>
+size_t node_bwd_smem(int Dn) {
+  return ((size_t)2 * Dn * DE + (size_t)2 * kRows * DE) * sizeof(bf16);
+}
+
+// One CTA per 64 nodes: d_h over a node's rows (its S parts added in order),
+// dproj in float32 and split, the tile's column sums of dproj, and the node
+// FFNs' d_node = bf16(dproj_l) @ Wnl^T + bf16(dproj_r) @ Wnr^T.
+template <int DE>
+__global__ void __launch_bounds__(256) tail_bwd_node_kernel(const TailArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int Dn = a.Dn, N = a.N, S = a.S, total = a.B * N;
+  bf16* sWn = reinterpret_cast<bf16*>(smem);  // [2][Dn][DE]: d @ Wnl^T, d @ Wnr^T
+  bf16* sL = sWn + 2 * Dn * DE;               // bf16(dproj_l)
+  bf16* sR = sL + kRows * DE;                 // bf16(dproj_r)
+  wg::stage_resident<1>(sWn, a.w.wnl, DE, Dn);
+  wg::stage_resident<1>(sWn + Dn * DE, a.w.wnr, DE, Dn);
+  wg::cp_commit();
+  const int row0 = blockIdx.x * kRows, nv = min(kRows, total - row0);
+  const size_t side = (size_t)total * DE;
+  for (int idx = threadIdx.x; idx < kRows * DE; idx += blockDim.x) {
+    const int k = idx / DE, c = idx % DE;
+    float l = 0.0f, r = 0.0f;
+    if (k < nv) {
+      const size_t node = row0 + k, o = node * DE + c;
+      const float* src = a.colpart + ((node / N) * S * N + node % N) * DE + c;
+      for (int q0 = 0; q0 < S; q0 += 8) {  // eight parts' loads in flight, added in order
+        float part[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) part[q] = q0 + q < S ? src[(size_t)(q0 + q) * N * DE] : 0.0f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (q0 + q < S) r += part[q];
+      }
+      l = a.dproj[o];
+      a.dproj[side + o] = r;
+      md::put(a.dprojs, o, l);
+      md::put(a.dprojs, side + o, r);
+    }
+    sL[wg::kmaj(k, c, DE)] = md::tobf(l);
+    sR[wg::kmaj(k, c, DE)] = md::tobf(r);
   }
   __syncthreads();
-  md::cta_gemm_t(X0, nullptr, ldb, a.w.wnl, De, Dn, F0, ldf, mt, md::kStore);
-  __syncthreads();
-  md::cta_gemm_t(X1, nullptr, ldb, a.w.wnr, De, Dn, F0, ldf, mt, md::kAdd);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * Dn; idx += blockDim.x) {
-    const int r = idx / Dn, c = idx % Dn;
-    a.dnode[(size_t)(n0 + r) * Dn + c] = F0[r * ldf + c];
+  for (int idx = threadIdx.x; idx < 2 * DE; idx += blockDim.x) {
+    const int q = idx / DE, c = idx % DE;
+    float sum = 0.0f;
+    for (int k = 0; k < nv; ++k) sum += a.dproj[q * side + (size_t)(row0 + k) * DE + c];
+    a.nodepart[((size_t)blockIdx.x * 2 + q) * DE + c] = sum;
   }
-  for (int idx = threadIdx.x; idx < 2 * De; idx += blockDim.x) {
-    const int side = idx / De, c = idx % De;
-    float s = 0.0f;
-    for (int r = 0; r < rows; ++r) s += a.dproj[((size_t)side * total + n0 + r) * De + c];
-    a.nodepart[((size_t)blockIdx.x * 2 + side) * De + c] = s;
+  wg::cp_wait<0>();
+  const int g = threadIdx.x >> 7;
+  for (int c0 = 0; c0 < Dn; c0 += 32) {  // 32 columns of d_node at a time
+    float dn[8];
+    wg::res_mma<16, 1>(dn, sL, DE, sWn, false, Dn, c0);
+    wg::res_mma<16, 1>(dn, sR, DE, sWn + Dn * DE, true, Dn, c0);
+#pragma unroll
+    for (int i = 0; i < 8; i += 2) {
+      const int r = wg::acc_row(i);
+      if (r < nv)
+        *reinterpret_cast<float2*>(a.dnode + (size_t)(row0 + r) * Dn + c0 + g * 16 +
+                                   wg::acc_col(i)) = make_float2(dn[i], dn[i + 1]);
+    }
   }
 }
 
@@ -311,16 +497,45 @@ void set_tail_weights(TailArgs& a, const void* const* w) {
   for (int k = 0; k < 10; ++k) dst[k] = static_cast<const bf16*>(w[k]);
 }
 
-cudaError_t launch_tail_prep(const TailArgs& a, cudaStream_t s) {
-  const size_t smem = md::smem_bytes(md::kMaxRows, a.Dn + 8, 2) +
-                      md::smem_bytes(md::kMaxRows, a.De + 4, 4);
-  cudaError_t err = cudaFuncSetAttribute(tail_prep_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+// Sets a kernel's dynamic shared memory once, then launches it.
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const TailArgs& a, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((a.B * a.N + md::kMaxRows - 1) / md::kMaxRows, 2);
-  tail_prep_kernel<<<grid, md::kThreads, smem, s>>>(a);
+  kernel<<<grid, 256, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <int DE>
+cudaError_t launch_tail_prep(const TailArgs& a, cudaStream_t s) {
+  const size_t smem = ((size_t)a.Dn * DE + (size_t)kRows * a.Dn + kRows * DE) * sizeof(bf16);
+  return launch(tail_prep_kernel<DE>, dim3((a.B * a.N + kRows - 1) / kRows, 2), smem, a, s);
+}
+
+template <int DE>
+cudaError_t launch_tail_fwd(const TailArgs& a, cudaStream_t s) {
+  constexpr size_t smem = fwd_smem<DE>();
+  // a persistent grid: as many CTAs as the SMs hold, at most one per tile
+  static int slots = 0;
+  if (slots == 0) {
+    cudaError_t err = cudaFuncSetAttribute(tail_fwd_kernel<DE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    slots = wg::persistent_slots(tail_fwd_kernel<DE>, smem);
+    if (slots == 0) return cudaErrorInvalidConfiguration;
+  }
+  const size_t tiles = ((size_t)a.B * a.N * a.N + kRows - 1) / kRows;
+  tail_fwd_kernel<DE><<<(unsigned)min((size_t)wg::capped(slots), tiles), 256, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// The tail's kernels are instantiated for the chains' widths (De = 64 and
+// 32, md::edge_pair_built); Dn is a runtime width (a multiple of 32 up to
+// 256, as ops/kernels.py checks).
+cudaError_t tail_prep(const TailArgs& a, cudaStream_t s) {
+  return a.De == 64 ? launch_tail_prep<64>(a, s) : launch_tail_prep<32>(a, s);
 }
 
 struct FullBwdWork {
@@ -328,12 +543,11 @@ struct FullBwdWork {
   float* gpre;
   bf16* tu;
   bf16* proj;
-  bf16* dct;
   bf16* r;
-  float* dh;
   md::Split dhs;
   float* dbond;
   float* vecpart;
+  float* colpart;
   float* dproj;
   md::Split dprojs;
   float* dnode;
@@ -357,26 +571,31 @@ void tail_jobs(int B, int N, int Dn, int De, TailJob (&j)[4]) {
   j[3] = {BN, Dn, De};
 }
 
+// The tail backward's grid: S CTAs per molecule, each on N / S of its rows
+// (about 256 CTAs in all, two per SM, so that a small batch still fills
+// the card; the split depends on the shapes alone), and the tiles of 64
+// pairs a split's slots hold.
+int row_splits(int B, int N) { return max(1, min(N, (256 + B - 1) / B)); }
+int split_tiles(int N, int S) { return (((N + S - 1) / S) * N + kRows - 1) / kRows; }
+
 FullBwdWork carve_full(unsigned char* base, int B, int N, int Dn, int De, int I, int G) {
   md::Carve cv{base};
   const size_t P = (size_t)B * N * N, BN = (size_t)B * N;
-  const size_t tiles = (P + md::kBwdRows - 1) / md::kBwdRows;
-  const size_t ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
   FullBwdWork w;
   w.np = cv.take<float>(2 * BN * I);
   w.gpre = cv.take<float>(2 * BN * G);
   w.tu = cv.take<bf16>(2 * BN * De);
   w.proj = cv.take<bf16>(2 * BN * De);
-  w.dct = cv.take<bf16>(P * De);
   w.r = cv.take<bf16>(P * De);
-  w.dh = cv.take<float>(P * De);
   w.dhs = cv.split(P * De);
   w.dbond = cv.take<float>(P * De);
-  w.vecpart = cv.take<float>(tiles * kTailVecs * De);
+  const int S = row_splits(B, N);
+  w.vecpart = cv.take<float>((size_t)B * S * split_tiles(N, S) * kTailVecs * De);
+  w.colpart = cv.take<float>((size_t)B * S * N * De);
   w.dproj = cv.take<float>(2 * BN * De);
   w.dprojs = cv.split(2 * BN * De);
   w.dnode = cv.take<float>(BN * Dn);
-  w.nodepart = cv.take<float>(ntiles * 2 * De);
+  w.nodepart = cv.take<float>((BN + kRows - 1) / kRows * 2 * De);
   TailJob jobs[4];
   tail_jobs(B, N, Dn, De, jobs);
   for (int k = 0; k < 4; ++k)
@@ -393,6 +612,7 @@ namespace md {
 cudaError_t edge_tail_forward(const void* const* weights, const bf16* e, const bf16* x,
                               const bf16* tu, bf16* proj, bf16* out, int residual, int B, int N,
                               int Dn, int De, cudaStream_t s, int* launched) {
+  if (De != 64 && De != 32) return cudaErrorInvalidValue;
   TailArgs a = {};
   set_tail_weights(a, weights);
   a.e = e;
@@ -402,17 +622,10 @@ cudaError_t edge_tail_forward(const void* const* weights, const bf16* e, const b
   a.out = out;
   a.residual = residual;
   a.B = B; a.N = N; a.Dn = Dn; a.De = De;
-  cudaError_t err = launch_tail_prep(a, s);
+  cudaError_t err = tail_prep(a, s);
   if (err != cudaSuccess) return err;
   ++*launched;
-  const size_t smem = 2 * md::smem_bytes(md::kMaxRows, De + 8, 2) +
-                      md::smem_bytes(md::kMaxRows, De + 4, 4);
-  err = cudaFuncSetAttribute(tail_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const size_t P = (size_t)B * N * N;
-  tail_fwd_kernel<<<(unsigned)((P + md::kMaxRows - 1) / md::kMaxRows), md::kThreads, smem, s>>>(a);
-  err = cudaGetLastError();
+  err = De == 64 ? launch_tail_fwd<64>(a, s) : launch_tail_fwd<32>(a, s);
   if (err == cudaSuccess) ++*launched;
   return err;
 }
@@ -459,6 +672,7 @@ int md_edge_block_full_backward(const void* const* p, int B, int N, int Dn, int 
   const bf16* x = static_cast<const bf16*>(p[39]);
   const float* mask = static_cast<const float*>(p[40]);
   const float* t = static_cast<const float*>(p[41]);
+  const bf16* ct = static_cast<const bf16*>(p[42]);
   float* grads[38];
   for (int k = 0; k < 38; ++k) grads[k] = static_cast<float*>(const_cast<void*>(p[47 + k]));
   FullBwdWork w = carve_full(static_cast<unsigned char*>(const_cast<void*>(p[85])), B, N, Dn,
@@ -476,45 +690,32 @@ int md_edge_block_full_backward(const void* const* p, int B, int N, int Dn, int 
   a.x = x;
   a.tu = w.tu;
   a.proj = w.proj;
-  a.ct = static_cast<const bf16*>(p[42]);
-  a.dct = w.dct;
+  a.ct = ct;
   a.r = w.r;
-  a.dh = w.dh;
   a.dhs = w.dhs;
   a.dbond = w.dbond;
   a.vecpart = w.vecpart;
+  a.colpart = w.colpart;
   a.dproj = w.dproj;
   a.dprojs = w.dprojs;
   a.dnode = w.dnode;
   a.nodepart = w.nodepart;
   a.B = B; a.N = N; a.Dn = Dn; a.De = De;
-  err = launch_tail_prep(a, s);
+  a.S = row_splits(B, N);
+  a.tps = split_tiles(N, a.S);
+  err = tail_prep(a, s);
   if (err != cudaSuccess) return err;
   ++*launched;
 
-  // the tail's backward: per pair, then its sums per node
-  const size_t P = (size_t)B * N * N;
-  const int BN = B * N;
-  const int tiles = (int)((P + md::kBwdRows - 1) / md::kBwdRows);
-  const int ntiles = (BN + md::kBwdRows - 1) / md::kBwdRows;
-  const size_t ps = 3 * md::smem_bytes(md::kBwdRows, De + 8, 2) +
-                    3 * md::smem_bytes(md::kBwdRows, De + 4, 4) +
-                    md::smem_bytes(md::kBwdRows, 1, 4) +
-                    (size_t)md::kWarps * kTailVecs * De * sizeof(float);
-  err = cudaFuncSetAttribute(tail_bwd_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(ps));
-  if (err != cudaSuccess) return err;
-  tail_bwd_pair_kernel<<<tiles, md::kThreads, ps, s>>>(a);
-  err = cudaGetLastError();
+  // the tail's backward: per pair (the row sums of d_h closed, the column
+  // sums in parts), then per node
+  const int BN = B * N, ntiles = (BN + kRows - 1) / kRows;
+  err = De == 64 ? launch(tail_bwd_pair_kernel<64>, dim3(B, a.S), pair_bwd_smem<64>(), a, s)
+                 : launch(tail_bwd_pair_kernel<32>, dim3(B, a.S), pair_bwd_smem<32>(), a, s);
   if (err != cudaSuccess) return err;
   ++*launched;
-  const size_t ns = 2 * md::smem_bytes(md::kBwdRows, De + 8, 2) +
-                    md::smem_bytes(md::kBwdRows, Dn + 4, 4);
-  err = cudaFuncSetAttribute(tail_bwd_node_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(ns));
-  if (err != cudaSuccess) return err;
-  tail_bwd_node_kernel<<<ntiles, md::kThreads, ns, s>>>(a);
-  err = cudaGetLastError();
+  err = De == 64 ? launch(tail_bwd_node_kernel<64>, dim3(ntiles), node_bwd_smem<64>(Dn), a, s)
+                 : launch(tail_bwd_node_kernel<32>, dim3(ntiles), node_bwd_smem<32>(Dn), a, s);
   if (err != cudaSuccess) return err;
   ++*launched;
 
@@ -545,7 +746,7 @@ int md_edge_block_full_backward(const void* const* p, int B, int N, int Dn, int 
   TailJob tj[4];
   tail_jobs(B, N, Dn, De, tj);
   md::WgradJob jobs[4] = {
-      {w.r, nullptr, w.dct, nullptr, w.slots[0], tj[0].rows, De, De, De, De},
+      {w.r, nullptr, ct, nullptr, w.slots[0], tj[0].rows, De, De, De, De},
       {e, nullptr, w.dhs.hi, w.dhs.lo, w.slots[1], tj[1].rows, De, De, De, De},
       {x, nullptr, w.dprojs.hi, w.dprojs.lo, w.slots[2], tj[2].rows, Dn, De, Dn, De},
       {x, nullptr, w.dprojs.hi + (size_t)BN * De, w.dprojs.lo + (size_t)BN * De, w.slots[3],
@@ -563,7 +764,8 @@ int md_edge_block_full_backward(const void* const* p, int B, int N, int Dn, int 
   }
   const int vec_out[kTailVecs] = {9, 6, 7, 5};   // out bias, LN scale, LN bias, self bias
   for (int v = 0; v < kTailVecs; ++v)
-    red[nr++] = {w.vecpart + (size_t)v * De, g[vec_out[v]], tiles, De, kTailVecs * De};
+    red[nr++] = {w.vecpart + (size_t)v * De, g[vec_out[v]], B * a.S * a.tps, De,
+                 kTailVecs * De};
   for (int side = 0; side < 2; ++side)
     red[nr++] = {w.nodepart + (size_t)side * De, g[1 + 2 * side], ntiles, De, 2 * De};
   err = md::launch_reduce(red, nr, s);

@@ -27,22 +27,36 @@
 // and u[j] of every pair) and PosUpdate (which needs h_node_new of both
 // endpoints and h_edge_new). One molecule's he alone is 200 KB at N = 40,
 // more than an SM's shared memory holds with any intermediate. So the
-// simple design runs the stages as a fixed sequence of hand-written
-// kernels over global memory, the intermediates (he, the node MLP, the
-// sums, the node FFNs, L and R) staying in L2 at these sizes: edge_emb (a
-// pair kernel here), the NodeBlock's prep and pair kernels (node_block.cu,
-// its sum kept in float32), the NodeBlock tail with the node residual (a
-// node kernel here), the chains' prep and pair kernels (edge_pair.cu,
-// messages rounded), the tail's proj and pair kernels with the edge
-// residual (edge_block_full.cu) and PosUpdate's prep and pair kernels
-// (pos_update.cu, its weight rounded): 10 launches, no PyTorch op between
-// them. Outputs go to fresh buffers (the Pallas kernel's aliasing of
-// h_node and h_edge is not ported: under row tiles an in-place write would
-// race with readers of other tiles). A thread-block cluster holding a
-// molecule in distributed shared memory is the fast design, for later.
+// stages run as a fixed sequence of hand-written kernels over global
+// memory, the intermediates (he, the node MLP, the sums, the node FFNs, L
+// and R) staying in L2 at these sizes: edge_emb (here), the NodeBlock's
+// prep and pair kernels (node_block.cu, its sum kept in float32), the
+// NodeBlock tail with the node residual (here), the chains' prep and pair
+// kernels (edge_pair.cu, messages rounded), the tail's proj and pair
+// kernels with the edge residual (edge_block_full.cu) and PosUpdate's prep
+// and pair kernels (pos_update.cu, its weight rounded): 10 launches, no
+// PyTorch op between them. Outputs go to fresh buffers (the Pallas
+// kernel's aliasing of h_node and h_edge is not ported: under row tiles an
+// in-place write would race with readers of other tiles).
+// This file's own two kernels (redesigned for Hopper, after edge_pair.cu):
+// - edge_emb_kernel streams e and hd (bound by bytes: 59 MB at B = 128,
+//   N = 40, 18 us at 3.35 TB/s): a persistent grid, each CTA an even share
+//   of the tiles of 64 pairs, in order, Wee resident in shared memory, the
+//   next tile loading by cp.async while this one runs its two wgmma
+//   products.
+// - node_tail_kernel has only BN / 64 node tiles (80 at B = 128, N = 40)
+//   for 132 SMs, so each tile's second product is split over two CTAs by
+//   output columns (both run the first product and the LayerNorm); Wc and
+//   Wo (128 KB each) stream through wgmma.cuh's cp.async ring.
+// Their outputs equal those of the first design (a warp per row, WMMA
+// products) bit for bit: the tensor cores' products equal WMMA's, edge_emb
+// keeps its two products apart and adds them in the first design's order,
+// the LayerNorm takes md::warp_layernorm's order (wgmma.cuh ln_stats_seq).
 #include "grad.cuh"
+#include "wgmma.cuh"
 
 using md::bf16;
+namespace wg = md::wg;
 
 namespace {
 
@@ -54,7 +68,7 @@ struct EmbArgs {
   const bf16* hd;      // [P, Dh]
   bf16* he;            // [P, De]
   long long P;
-  int De, Dh;
+  int Dh;
 };
 
 struct NodeTailArgs {
@@ -63,74 +77,182 @@ struct NodeTailArgs {
   const bf16* x;       // [BN, Dn]
   const float* aggr;   // [BN, H]
   bf16* out;           // [BN, Dn]: x + delta
-  int BN, Dn, H;
+  int BN;
 };
 
-// One CTA per 64 flat pairs: he = bf16(e @ Wee[:De] + hd @ Wee[De:] + bee).
-__global__ void __launch_bounds__(md::kThreads) edge_emb_kernel(const EmbArgs a) {
+constexpr int kRows = wg::kTileRows;
+
+template <int DE>
+size_t emb_smem(int Dh) {
+  return ((size_t)DE * DE + (size_t)Dh * DE + 3 * kRows * DE + 2 * kRows * Dh) * sizeof(bf16) +
+         DE * sizeof(float);
+}
+
+// A persistent CTA walks an even share of the tiles of 64 flat pairs, in
+// order: he = bf16((e @ Wee[:De] + hd @ Wee[De:]) + bee), the two products
+// kept apart and added as the first design's two WMMA passes add them.
+template <int DE>
+__global__ void __launch_bounds__(256) edge_emb_kernel(const EmbArgs a) {
+  constexpr int NW = DE / 2, NA = NW / 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int De = a.De, lde = De + 8, ldh = a.Dh + 8, ldc = De + 4;
-  bf16* sE = reinterpret_cast<bf16*>(smem);
-  bf16* sH = reinterpret_cast<bf16*>(smem + md::smem_bytes(md::kMaxRows, lde, 2));
-  float* sC = reinterpret_cast<float*>(smem + md::smem_bytes(md::kMaxRows, lde, 2) +
-                                       md::smem_bytes(md::kMaxRows, ldh, 2));
-  const long long p0 = (long long)blockIdx.x * md::kMaxRows;
-  const int rows = (int)min((long long)md::kMaxRows, a.P - p0);
-  const int mt = (rows + 15) / 16;
-  md::load_rows(sE, lde, rows, mt * 16, De, [&](int r) { return a.e + (p0 + r) * De; });
-  md::load_rows(sH, ldh, rows, mt * 16, a.Dh, [&](int r) { return a.hd + (p0 + r) * a.Dh; });
-  __syncthreads();
-  md::cta_gemm(sE, lde, a.w, De, De, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  md::cta_gemm(sH, ldh, a.w + (size_t)De * De, a.Dh, De, sC, ldc, mt, md::kAdd);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * De; idx += blockDim.x) {
-    const int r = idx / De, c = idx % De;
-    a.he[(p0 + r) * De + c] = md::tobf(sC[r * ldc + c] + md::bf(a.b[c]));
+  const int Dh = a.Dh;
+  bf16* sWe = reinterpret_cast<bf16*>(smem);  // stage_resident's layout
+  bf16* sWh = sWe + DE * DE;
+  bf16* sE = sWh + Dh * DE;                   // two tiles of e
+  bf16* sH = sE + 2 * kRows * DE;             // two tiles of hd
+  bf16* sO = sH + 2 * kRows * Dh;             // the output tile
+  float* pb = reinterpret_cast<float*>(sO + kRows * DE);
+  wg::stage_resident(sWe, a.w, DE, DE);
+  wg::stage_resident(sWh, a.w + DE * DE, Dh, DE);
+  for (int c = threadIdx.x; c < DE; c += blockDim.x) pb[c] = md::bf(a.b[c]);
+  const size_t P = a.P, tiles = (P + kRows - 1) / kRows;
+  const int g = threadIdx.x >> 7;
+  auto load = [&](size_t tile, int buf) {
+    const size_t p0 = tile * kRows;
+    const int nv = (int)min((size_t)kRows, P - p0);
+    wg::tile_in_async(sE + buf * kRows * DE, DE, nv, [&](int r) { return a.e + (p0 + r) * DE; });
+    wg::tile_in_async(sH + buf * kRows * Dh, Dh, nv, [&](int r) { return a.hd + (p0 + r) * Dh; });
+  };
+  // this CTA's tiles: an even share of them, in order
+  const size_t t0 = tiles * blockIdx.x / gridDim.x, t1 = tiles * (blockIdx.x + 1) / gridDim.x;
+  if (t0 < t1) load(t0, 0);
+  wg::cp_commit();  // the resident weights and the first tile
+  int k = 0;
+  for (size_t tile = t0; tile < t1; ++tile, ++k) {
+    const size_t p0 = tile * kRows;
+    const int nv = (int)min((size_t)kRows, P - p0);
+    if (tile + 1 < t1) load(tile + 1, (k + 1) & 1);
+    wg::cp_commit();
+    wg::cp_wait<1>();  // all but the newest group: this tile (and the weights) landed
+    float ae[NA], ah[NA];
+    wg::res_mma<NW>(ae, sE + (k & 1) * kRows * DE, DE, sWe);
+    wg::res_mma<NW>(ah, sH + (k & 1) * kRows * Dh, Dh, sWh);
+#pragma unroll
+    for (int i = 0; i < NA; i += 2) {
+      const int c = g * NW + wg::acc_col(i);
+      md::store2(sO + wg::kmaj(wg::acc_row(i), c, DE), (ae[i] + ah[i]) + pb[c],
+                 (ae[i + 1] + ah[i + 1]) + pb[c + 1]);
+    }
+    __syncthreads();
+    wg::tile_out(sO, DE, a.he, [&](int r) { return r < nv; }, [&](size_t r) { return p0 + r; });
+    __syncthreads();  // sO and this tile's buffers are free
   }
 }
 
-// One CTA per 64 nodes: the NodeBlock after its message sum, and the node
-// residual.
-__global__ void __launch_bounds__(md::kThreads) node_tail_kernel(const NodeTailArgs a) {
+template <int DN, int H>
+constexpr size_t node_tail_smem() {
+  return ((size_t)2 * wg::kSlice * wg::kRingCols + (size_t)kRows * (DN > H ? DN : H)) *
+             sizeof(bf16) +
+         ((size_t)64 + 3 * H + DN) * sizeof(float);
+}
+
+// One CTA per (64 nodes, half of Dn): the NodeBlock after its message sum
+// and the node residual, for the output columns [half * Dn / 2, (half + 1)
+// * Dn / 2). Both halves run the first product and the LayerNorm, so that
+// 2 * BN / 64 CTAs (160 at B = 128, N = 40) share the card's 132 SMs.
+template <int DN, int H>
+__global__ void __launch_bounds__(256) node_tail_kernel(const NodeTailArgs a) {
+  constexpr int NW = H / 2, NA = NW / 2;   // the first product: H columns
+  constexpr int NO = DN / 4, NB = NO / 2;  // the second: this CTA's Dn / 2 columns
   extern __shared__ __align__(128) unsigned char smem[];
-  const int Dn = a.Dn, H = a.H, ldx = Dn + 8, lda = H + 8, ldc = (Dn > H ? Dn : H) + 4;
-  bf16* sX = reinterpret_cast<bf16*>(smem);
-  bf16* sAct = reinterpret_cast<bf16*>(smem + md::smem_bytes(md::kMaxRows, ldx, 2));
-  float* sC = reinterpret_cast<float*>(smem + md::smem_bytes(md::kMaxRows, ldx, 2) +
-                                       md::smem_bytes(md::kMaxRows, lda, 2));
-  const int row0 = blockIdx.x * md::kMaxRows;
-  const int rows = min(md::kMaxRows, a.BN - row0);
-  const int mt = (rows + 15) / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nq = H / 32;
-  md::load_rows(sX, ldx, rows, mt * 16, Dn,
-                [&](int r) { return a.x + (size_t)(row0 + r) * Dn; });
-  __syncthreads();
-  md::cta_gemm(sX, ldx, a.wc, Dn, H, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  for (int r = warp; r < mt * 16; r += md::kWarps) {
-    float v[md::kMaxPerLane];
+  bf16* ring = reinterpret_cast<bf16*>(smem);          // Wc, then Wo, streamed
+  bf16* sX = ring + 2 * wg::kSlice * wg::kRingCols;   // x, the relu output, the output tile
+  float* S = reinterpret_cast<float*>(sX + kRows * (DN > H ? DN : H));
+  float* pbc = S + 64;  // the per-column parameters as float32
+  float* psl = pbc + H;
+  float* pcl = psl + H;
+  float* pbo = pcl + H;
+  float* lnbuf = reinterpret_cast<float*>(ring);  // free between the two products
+  const int half = blockIdx.y, row0 = blockIdx.x * kRows, nv = min(kRows, a.BN - row0);
+  for (int c = threadIdx.x; c < H; c += blockDim.x) {
+    pbc[c] = md::bf(a.bc[c]);
+    psl[c] = md::bf(a.sl[c]);
+    pcl[c] = md::bf(a.cl[c]);
+  }
+  for (int c = threadIdx.x; c < DN; c += blockDim.x) pbo[c] = md::bf(a.bo[c]);
+  wg::tile_in_async(sX, DN, nv, [&](int r) { return a.x + (size_t)(row0 + r) * DN; });
+  wg::cp_commit();  // cta_mma waits for it with its first weight slice
+  const int g = threadIdx.x >> 7;
+  const int rw[2] = {wg::acc_row(0), wg::acc_row(2)};
+
+  // x @ Wc + bc + aggr, LayerNorm, relu
+  float acc[NA], inv[2];
+  wg::cta_mma<NW, 0>(acc, sX, DN, a.wc, ring, false);
 #pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) {
-        const int c = lane + 32 * q;
-        const float aggr = r < rows ? a.aggr[(size_t)(row0 + r) * H + c] : 0.0f;
-        v[q] = r < rows ? sC[r * ldc + c] + md::bf(a.bc[c]) + aggr : 0.0f;
-      }
-    md::warp_layernorm(v, nq, a.sl, a.cl, lane);
+  for (int i = 0; i < NA; i += 2) {
+    const int r = rw[(i >> 1) & 1], c = g * NW + wg::acc_col(i);
+    if (r < nv) {
+      const float2 ag = *reinterpret_cast<const float2*>(a.aggr + (size_t)(row0 + r) * H + c);
+      acc[i] = (acc[i] + pbc[c]) + ag.x;
+      acc[i + 1] = (acc[i + 1] + pbc[c + 1]) + ag.y;
+    } else {
+      acc[i] = acc[i + 1] = 0.0f;
+    }
+  }
+  wg::ln_stats_seq(acc, inv, lnbuf, S);
 #pragma unroll
-    for (int q = 0; q < md::kMaxPerLane; ++q)
-      if (q < nq) sAct[r * lda + lane + 32 * q] = md::tobf(r < rows ? fmaxf(v[q], 0.0f) : 0.0f);
+  for (int i = 0; i < NA; i += 2) {
+    const int c = g * NW + wg::acc_col(i);
+    md::store2(sX + wg::kmaj(rw[(i >> 1) & 1], c, H), fmaxf(acc[i] * psl[c] + pcl[c], 0.0f),
+               fmaxf(acc[i + 1] * psl[c + 1] + pcl[c + 1], 0.0f));
+  }
+
+  // @ Wo + bo for this CTA's columns, then x + delta
+  float o[NB];
+  wg::cta_mma<NO, 0>(o, sX, H, a.wo + half * (DN / 2), ring, false, nullptr, DN);
+#pragma unroll
+  for (int i = 0; i < NB; i += 2) {
+    const int r = rw[(i >> 1) & 1], cl = g * NO + wg::acc_col(i), c = half * (DN / 2) + cl;
+    float x0 = 0.0f, x1 = 0.0f;
+    if (r < nv) {
+      const __nv_bfloat162 xv =
+          *reinterpret_cast<const __nv_bfloat162*>(a.x + (size_t)(row0 + r) * DN + c);
+      x0 = md::bf(xv.x);
+      x1 = md::bf(xv.y);
+    }
+    md::store2(sX + wg::kmaj(r, cl, DN / 2), x0 + md::rbf(o[i] + pbo[c]),
+               x1 + md::rbf(o[i + 1] + pbo[c + 1]));
   }
   __syncthreads();
-  md::cta_gemm(sAct, lda, a.wo, H, Dn, sC, ldc, mt, md::kStore);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * Dn; idx += blockDim.x) {
-    const int r = idx / Dn, c = idx % Dn;
-    const float delta = md::rbf(sC[r * ldc + c] + md::bf(a.bo[c]));
-    a.out[(size_t)(row0 + r) * Dn + c] = md::tobf(md::bf(sX[r * ldx + c]) + delta);
+  wg::tile_out(sX, DN / 2, a.out + half * (DN / 2), [&](int r) { return r < nv; },
+               [&](int r) { return row0 + r; }, DN);
+}
+
+template <int DE>
+cudaError_t launch_edge_emb(const EmbArgs& a, cudaStream_t s) {
+  const size_t smem = emb_smem<DE>(a.Dh);
+  // a persistent grid: as many CTAs as the SMs hold, at most one per tile
+  // (the shared memory grows with Dh: the slots are counted again when Dh
+  // changes)
+  static size_t counted = 0;
+  static int slots = 0;
+  if (counted != smem) {
+    cudaError_t err = cudaFuncSetAttribute(edge_emb_kernel<DE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    slots = wg::persistent_slots(edge_emb_kernel<DE>, smem);
+    if (slots == 0) return cudaErrorInvalidConfiguration;
+    counted = smem;
   }
+  const size_t tiles = ((size_t)a.P + kRows - 1) / kRows;
+  edge_emb_kernel<DE><<<(unsigned)min((size_t)wg::capped(slots), tiles), 256, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DN, int H>
+cudaError_t launch_node_tail(const NodeTailArgs& a, cudaStream_t s) {
+  constexpr size_t smem = node_tail_smem<DN, H>();
+  static bool set = false;
+  if (!set) {
+    cudaError_t err = cudaFuncSetAttribute(node_tail_kernel<DN, H>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    set = true;
+  }
+  node_tail_kernel<DN, H><<<dim3((a.BN + kRows - 1) / kRows, 2), 256, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
 struct BlockWork {
@@ -204,17 +326,8 @@ int md_fused_block_forward(const void* const* p, const int* dims, void* stream, 
 
   // edge_emb
   EmbArgs ea = {static_cast<const bf16*>(p[0]), static_cast<const bf16*>(p[1]), e, hd, w.he,
-                (long long)P, De, Dh};
-  const size_t emb_smem = md::smem_bytes(md::kMaxRows, De + 8, 2) +
-                          md::smem_bytes(md::kMaxRows, Dh + 8, 2) +
-                          md::smem_bytes(md::kMaxRows, De + 4, 4);
-  cudaError_t err = cudaFuncSetAttribute(edge_emb_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(emb_smem));
-  if (err != cudaSuccess) return err;
-  edge_emb_kernel<<<(unsigned)((P + md::kMaxRows - 1) / md::kMaxRows), md::kThreads, emb_smem,
-                    s>>>(ea);
-  err = cudaGetLastError();
+                (long long)P, Dh};
+  cudaError_t err = De == 64 ? launch_edge_emb<64>(ea, s) : launch_edge_emb<32>(ea, s);
   if (err != cudaSuccess) return err;
   ++*launched;
 
@@ -225,16 +338,8 @@ int md_fused_block_forward(const void* const* p, const int* dims, void* stream, 
   NodeTailArgs na = {static_cast<const bf16*>(p[22]), static_cast<const bf16*>(p[23]),
                      static_cast<const bf16*>(p[24]), static_cast<const bf16*>(p[25]),
                      static_cast<const bf16*>(p[26]), static_cast<const bf16*>(p[27]),
-                     x, w.aggr, node_out, (int)BN, Dn, H};
-  const size_t tail_smem = md::smem_bytes(md::kMaxRows, Dn + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, H + 8, 2) +
-                           md::smem_bytes(md::kMaxRows, (Dn > H ? Dn : H) + 4, 4);
-  err = cudaFuncSetAttribute(node_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(tail_smem));
-  if (err != cudaSuccess) return err;
-  node_tail_kernel<<<(unsigned)((BN + md::kMaxRows - 1) / md::kMaxRows), md::kThreads, tail_smem,
-                     s>>>(na);
-  err = cudaGetLastError();
+                     x, w.aggr, node_out, (int)BN};
+  err = De == 64 ? launch_node_tail<256, 256>(na, s) : launch_node_tail<128, 128>(na, s);
   if (err != cudaSuccess) return err;
   ++*launched;
 

@@ -2,8 +2,8 @@
 // edge_pair_bwd.cu, pos_update_bwd.cu, edge_block_full.cu): transposed-weight
 // tile products, the float32 split into two bf16 halves, the LayerNorm
 // backward of one row held by a warp, per-tile column sums (the node-level
-// kernels and the EdgeBlock-tail kernels, on 32-row tiles; the redesigned
-// pair kernels use wgmma.cuh), the
+// kernels, on 32-row tiles; the redesigned pair kernels and the EdgeBlock
+// tail use wgmma.cuh), the
 // weight-gradient operands' form, the host launchers of the
 // weight-gradient, reduction and time kernels of grad.cu, and the host
 // launchers that the full-EdgeBlock and whole-block entry points

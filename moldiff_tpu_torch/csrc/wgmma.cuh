@@ -1,7 +1,8 @@
 // Hopper's warpgroup tensor-core products (wgmma) and asynchronous copies
-// (cp.async, mbarrier), as the redesigned pair kernels use them
-// (node_block.cu, edge_pair.cu, pos_update.cu, node_block_bwd.cu,
-// edge_pair_bwd.cu, pos_update_bwd.cu, grad.cu).
+// (cp.async, mbarrier), as the redesigned kernels use them (node_block.cu,
+// edge_pair.cu, pos_update.cu, node_block_bwd.cu, edge_pair_bwd.cu,
+// pos_update_bwd.cu, grad.cu, and the own kernels of edge_block_full.cu
+// and fused_block.cu).
 //
 // Shared-memory operands use wgmma's no-swizzle layout: a "core matrix" is
 // 8 rows of 16 bytes (8 bf16), 128 contiguous bytes. A tile is a grid of
@@ -309,37 +310,43 @@ __device__ __forceinline__ void tile_in_async(bf16* dst, int K, int nv, Src src)
   }
 }
 
-// Stage a weight W [K][nout] (x @ W) whole into shared memory at dst as
-// consecutive K-slices of kSlice rows, each the MN-major tile that
-// cta_mma's ring holds (the layout res_mma reads): ceil(K / kSlice) slices,
-// K * nout values. Asynchronous: the caller commits the copies and waits
-// for them (cp_commit, cp_wait) before the first product reads dst.
+// Stage a weight W whole into shared memory at dst as consecutive
+// K-slices of kSlice rows, each the tile that cta_mma's ring holds (the
+// layout res_mma reads): TRANS = 0, W [K][nout] (x @ W), MN-major slices;
+// TRANS = 1, W [nout][K] (x @ W^T), K-major slices. ceil(K / kSlice)
+// slices, K * nout values. Asynchronous: the caller commits the copies and
+// waits for them (cp_commit, cp_wait) before the first product reads dst.
+template <int TRANS = 0>
 __device__ __forceinline__ void stage_resident(bf16* dst, const bf16* W, int K, int nout) {
   for (int k0 = 0; k0 < K; k0 += kSlice)
-    stage_weight<0>(dst + k0 * nout, W, k0, min(K - k0, kSlice), K, nout);
+    stage_weight<TRANS>(dst + k0 * nout, W, k0, min(K - k0, kSlice), K, nout);
 }
 
-// acc = A @ W for this warpgroup's columns [g * NW, (g + 1) * NW) of nout =
-// 2 * NW, g = threadIdx.x / 128, with W resident in shared memory (Ws,
-// stage_resident's layout) and A a bf16 K-major tile [64][K] (kmaj), K a
-// multiple of 16. Called by all 256 threads; the caller's shared-memory
-// writes before the call are visible to the product, and A may be
-// overwritten on return.
-template <int NW>
+// acc (+)= A @ W (TRANS = 0) or A @ W^T (TRANS = 1) for this warpgroup's
+// columns [n0 + g * NW, n0 + (g + 1) * NW) of W's nout columns (2 * NW by
+// default), g = threadIdx.x / 128, with W resident in shared memory (Ws,
+// stage_resident's layout, same TRANS) and A a bf16 K-major tile [64][K]
+// (kmaj), K a multiple of 16; add = false overwrites acc. Called by all 256
+// threads; the caller's shared-memory writes before the call are visible
+// to the product, and A may be overwritten on return.
+template <int NW, int TRANS = 0>
 __device__ __forceinline__ void res_mma(float (&acc)[NW / 2], const bf16* A, int K,
-                                        const bf16* Ws) {
+                                        const bf16* Ws, bool add = false, int nout = 2 * NW,
+                                        int n0 = 0) {
   const int g = threadIdx.x >> 7;
+  const int n = n0 + g * NW;
   proxy_fence();
   __syncthreads();
   fence_acc(acc);
   fence();
   for (int k0 = 0; k0 < K; k0 += kSlice) {
     const int ks = min(K - k0, kSlice);
-    const bf16* buf = Ws + k0 * 2 * NW;
+    const bf16* buf = Ws + k0 * nout;
     for (int kk = 0; kk < ks; kk += 16) {
       const uint64_t da = desc(A + kmaj(0, k0 + kk, K), 128, (K >> 3) * 128);
-      const uint64_t db = desc(buf + mnmaj(kk, g * NW, ks), 128, (ks >> 3) * 128);
-      Mma<NW, 0, 1>::run(acc, da, db, (k0 > 0 || kk > 0) ? 1 : 0);
+      const uint64_t db =
+          desc(buf + (TRANS ? kmaj(n, kk, ks) : mnmaj(kk, n, ks)), 128, (ks >> 3) * 128);
+      Mma<NW, 0, TRANS ? 0 : 1>::run(acc, da, db, (add || k0 > 0 || kk > 0) ? 1 : 0);
     }
   }
   commit();

@@ -1,18 +1,24 @@
-"""The PosUpdate forward kernel (row 8) of this checkout against another
-checkout's build of it, bit for bit, on the card: one process builds both
-kernel libraries (each from its own ``csrc/`` into its own ``build/``) and
-runs each through this checkout's wrappers on the same inputs, the
-PosUpdate kernel alone (``fused`` 0) and inside the whole-block kernel
-(row 2, ``fused`` 1), at flagship_v2's and the demo denoiser's block-0
-weights, for each batch and bucket.
+"""The forward kernels of this checkout against another checkout's build
+of them, bit for bit, on the card, and the full-EdgeBlock backward against
+itself: one process builds both kernel libraries (each from its own
+``csrc/`` into its own ``build/``) and runs each through this checkout's
+wrappers on the same inputs, at flagship_v2's and the demo denoiser's
+block-0 weights, for each batch and bucket:
+
+  pos_update (fused 0)     row 8 alone
+  fused_block (fused 1)    row 2, the whole block (row 8 inside it)
+  edge_block_full          row 6, the whole EdgeBlock forward
+  edge_block_full_bwd      row 7: its largest difference from the other
+                           build on each output (reported, not held), and
+                           two runs of this build, which must be bit-equal
 
   python -m moldiff_tpu_torch.ops.compare_builds --other build/parent
       [--batch 16 128] [--bucket 32 40]
 
 It prints one JSON line per case (the elements that differ, the largest
-difference) and exits with 1 if any element of any output differs. Both
-checkouts' C entry points must take the same arguments. Runs on the card
-only.
+difference) and exits with 1 if any element of a forward output differs
+from the other build's, or row 7's two runs differ. Both checkouts' C
+entry points must take the same arguments. Runs on the card only.
 """
 from __future__ import annotations
 
@@ -56,8 +62,30 @@ def inputs(b: int, n: int, seed: int, dn: int, de: int, device) -> dict:
     t = torch.rand((b, 1, 1), generator=g)
     dist = safe_distance(rel)
     hd = GaussianSmearing(stop=15.0, num_gaussians=16)(dist).to(torch.bfloat16)
+    ct = (torch.randn((b, n, n, de), generator=g) * 0.1).to(torch.bfloat16)
     return {k: v.to(device).contiguous() for k, v in dict(
-        x=x, e=e, t=t, m=pair_mask, rel=rel, dist=dist, hd=hd).items()}
+        x=x, e=e, t=t, m=pair_mask, rel=rel, dist=dist, hd=hd, ct=ct).items()}
+
+
+def run_with(lib, call) -> list:
+    """call()'s outputs with ``lib`` as the kernel library."""
+    from moldiff_tpu_torch.ops import build
+
+    own = build.library
+    build.library = lambda: lib
+    try:
+        with torch.no_grad():
+            out = call()
+        torch.cuda.synchronize()
+    finally:
+        build.library = own
+    return out
+
+
+def diff(a: list, b: list) -> tuple:
+    """(elements that differ, largest difference) per output."""
+    return ([int((x != y).sum()) for x, y in zip(a, b)],
+            [float((x.float() - y.float()).abs().max()) for x, y in zip(a, b)])
 
 
 def main() -> None:
@@ -73,11 +101,11 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     libs = {"this": build.library(), "other": other_library(args.other)}
-    own = build.library
     differ = 0
     for model, ckpt in CHECKPOINTS.items():
         sampler, params = cli.build_sampler(ckpt, SAMPLE, device)
         blk = sampler.model.prepare(params)[0]
+        eb = blk["edge_block"]
         dn = blk["node_block"]["node_net"]["layers"][0]["lin"]["w"].shape[0]
         de = blk["edge_emb"]["w"].shape[1]
         for b in args.batch:
@@ -88,24 +116,36 @@ def main() -> None:
                         blk["pos_block"], x["x"], x["e"], x["rel"], x["dist"], x["t"], x["m"])],
                     "fused_block (fused 1)": lambda: list(kernels.fused_block(
                         blk, x["x"], x["e"], x["hd"], x["rel"], x["dist"], x["t"], x["m"])),
+                    "edge_block_full": lambda: [kernels.edge_block_full(
+                        eb, x["e"], x["x"], x["t"], x["m"])],
                 }
                 for name, call in calls.items():
-                    outs = {}
-                    for tree, lib in libs.items():
-                        build.library = lambda lib=lib: lib
-                        try:
-                            with torch.no_grad():
-                                outs[tree] = call()
-                            torch.cuda.synchronize()
-                        finally:
-                            build.library = own
-                    bad = [int((a != o).sum()) for a, o in zip(outs["this"], outs["other"])]
-                    err = [float((a.float() - o.float()).abs().max())
-                           for a, o in zip(outs["this"], outs["other"])]
+                    outs = {tree: run_with(lib, call) for tree, lib in libs.items()}
+                    bad, err = diff(outs["this"], outs["other"])
                     differ += sum(bad)
                     print(json.dumps({"model": model, "kernel": name, "B": b, "N": n,
                                       "elements": [a.numel() for a in outs["this"]],
                                       "differ": bad, "max_abs_diff": err}), flush=True)
+
+                def bwd():
+                    d_params, *d_in = kernels.edge_block_full_bwd(eb, x["e"], x["x"], x["t"],
+                                                                  x["m"], x["ct"])
+                    return list(d_in) + kernels._edge_block_full_leaves(d_params)
+
+                first, again = run_with(libs["this"], bwd), run_with(libs["this"], bwd)
+                other = run_with(libs["other"], bwd)
+                rerun = diff(first, again)[0]
+                differ += sum(rerun)
+                bad, err = diff(first, other)
+                print(json.dumps({"model": model, "kernel": "edge_block_full_bwd", "B": b,
+                                  "N": n, "outputs": len(first),
+                                  "rerun_differ": sum(rerun),
+                                  "other_build": {"outputs_differ": sum(k > 0 for k in bad),
+                                                  "max_abs_diff": dict(zip(
+                                                      ["d_bond", "d_node", "d_time", "d_mask"],
+                                                      err[:4])),
+                                                  "max_abs_diff_params": max(err[4:])}}),
+                      flush=True)
     print(json.dumps({"bit_equal": differ == 0, "card": torch.cuda.get_device_name(0)}))
     sys.exit(0 if differ == 0 else 1)
 

@@ -59,7 +59,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # <node|edge|pos>_<prep|pair>_kernel, the backward's
 # <node|edge|pos>_bwd_<pair|node>_kernel, grad.cu's three, the EdgeBlock
 # tail's tail_<prep|fwd|bwd_pair|bwd_node>_kernel and the whole block's
-# edge_emb_kernel and node_tail_kernel; PyTorch's own reductions are also
+# edge_emb_kernel and node_tail_kernel (templates: each instantiation counts
+# under its kernel's name); PyTorch's own reductions are also
 # named reduce_kernel (at::native::reduce_kernel<...>), so a name counts
 # only unqualified or in the anonymous namespace
 PORT_KERNEL = re.compile(r"^(?:void )?(?:\(anonymous namespace\)::)?"

@@ -133,19 +133,23 @@ def test_trace_summary_keeps_torch_reductions_out_of_port_kernels():
 
 def test_trace_summary_counts_the_whole_block_and_edge_tail_kernels():
     """The kernels of the whole-block and full-EdgeBlock entry points
-    (fused_block.cu, edge_block_full.cu) count as the port's."""
+    (fused_block.cu, edge_block_full.cu) count as the port's, each template
+    instantiation under its kernel's name."""
     events = [
-        _ev("kernel", "(anonymous namespace)::edge_emb_kernel(EmbArgs)", 0, 2),
-        _ev("kernel", "(anonymous namespace)::node_tail_kernel(NodeTailArgs)", 2, 3),
-        _ev("kernel", "(anonymous namespace)::tail_prep_kernel(TailArgs)", 5, 1),
-        _ev("kernel", "(anonymous namespace)::tail_fwd_kernel(TailArgs)", 6, 4),
-        _ev("kernel", "(anonymous namespace)::tail_bwd_pair_kernel(TailArgs)", 10, 5),
-        _ev("kernel", "(anonymous namespace)::tail_bwd_node_kernel(TailArgs)", 15, 2),
+        _ev("kernel", "void (anonymous namespace)::edge_emb_kernel<64>(EmbArgs)", 0, 2),
+        _ev("kernel", "void (anonymous namespace)::node_tail_kernel<256, 256>(NodeTailArgs)",
+            2, 3),
+        _ev("kernel", "void (anonymous namespace)::tail_prep_kernel<64>(TailArgs)", 5, 1),
+        _ev("kernel", "void (anonymous namespace)::tail_fwd_kernel<64>(TailArgs)", 6, 4),
+        _ev("kernel", "void (anonymous namespace)::tail_bwd_pair_kernel<64>(TailArgs)", 10, 5),
+        _ev("kernel", "void (anonymous namespace)::tail_bwd_node_kernel<64>(TailArgs)", 15, 2),
+        _ev("kernel", "void (anonymous namespace)::tail_fwd_kernel<32>(TailArgs)", 17, 2),
         _ev("kernel", "void at::native::vectorized_elementwise_kernel<4>", 20, 1),
     ]
     s = summarize_trace(events, steps=1, step_ms=1.0)
-    assert s["launches"] == {"all": 7.0, "port": 6.0}
+    assert s["launches"] == {"all": 8.0, "port": 7.0}
     assert sorted(s["port_kernel_ms"]) == ["edge_emb_kernel", "node_tail_kernel",
                                            "tail_bwd_node_kernel", "tail_bwd_pair_kernel",
                                            "tail_fwd_kernel", "tail_prep_kernel"]
+    assert s["port_kernel_ms"]["tail_fwd_kernel"] == pytest.approx(0.006)
     assert s["other_kernel_ms"] == pytest.approx(0.001)
