@@ -8,6 +8,8 @@
       --budget-s 3300                   # a longer guided phase, for its success rate
   python3 chip_smoke.py --fuse-num-mols 1000 --fuse-batch-size 128 --budget-s 3300
                                         # a longer path-B phase (fuse_block), for its rate
+  python3 chip_smoke.py --gate s100 [--gate-num-mols 1000 --gate-batch-size 128] --budget-s 3300
+                                        # one sampling gate alone (after the build)
 
 Phases, each asserting and none catching a failure:
   1. environment: torch and CUDA versions, the card's name and power limit;
@@ -79,7 +81,42 @@ Phases, each asserting and none catching a failure:
      40, B = 16: every output equals the first run's bit for bit. Each
      node's sum is added in partner order whatever tiles its CTA takes, and
      each pair's tail is its own, so a difference is a race or a
-     tile-boundary fault (no race detector runs on the card machine).
+     tile-boundary fault (no race detector runs on the card machine);
+ 15. the sampler's modes: run() with the unguided settings and, in turn,
+     num_steps 100 (s100); num_steps 100 with pos_sampler ddim, eta 0
+     (ddim_s100); commit both at T = 1000 (commit_both); use_ema with
+     num_steps 100 (ema_s100); save_traj_prob 1.0 with num_steps 100
+     (traj_s100); each until MODE_NUM_MOLS = 8 finished at batch 16. Each
+     run's launches of rows 1, 4 and 8 are launches per call x 6 blocks x S
+     x chains (S = 100 or 1000), none of the others. Each run's rate over
+     every molecule classified must reach its floor. A broken chain finishes
+     no molecule (rate 0). With 8 finished asked for, batch 16 and the
+     generate loop's stop after 3 x 8 failures, 20,000 simulated runs at
+     the JAX bar's rate p give a rate below the floor this often:
+       s100, traj_s100: floor 0.25, p 0.6246 (gate_r5_commit_s100): none;
+       commit_both: floor 0.125, p 0.3275 (gate_r5_commit_both): 0.0018;
+       ema_s100: floor 0.125, p 0.4446 (soak_v2x2_1k_ema, commit none and
+         the full chain: no bar exists for this mode): none;
+       ddim_s100: floor 0.125: no bar exists on flagship_v2; at commit
+         both's 0.3275, 0.0018.
+     The trajectory run's traj_<k>.sdf files hold S + 1 = 101 states each,
+     the last with molecule k's final elements and positions (its bonds are
+     the step-0 draw, which decode's argmax need not equal);
+ 16. the server: make_http_server on 127.0.0.1 at an ephemeral port in a
+     thread, flagship_v2, num_steps 100, commit nodes, batch 16, coalescing
+     window 1 s, after its warmup (a 2-step chain per bucket): GET /health
+     names the card; two POST /generate with seed 7 return the same SMILES;
+     one with format sdf; two concurrent unseeded requests share one pool
+     (coalesced 2); launches as in phase 15 over the chains the requests
+     ran; each request's latency printed.
+--gate NAME runs one sampling gate instead of the phases (after 1 and 2):
+the settings of a committed YAML with named overrides (GATES; a CPU test
+holds each equal to its YAML plus its overrides): s100, ddim_s100,
+commit_both, commit_none, ema_none (use_ema, commit none), connect
+(add_edge connect), eg1 (bondpred_v2's edge guidance 1.0), eg1_t300 (with
+edge_guidance_tmax 300) over sample_flagship_v2.yml, and guided
+(sample_flagship_v2_guided.yml as written, add_edge distance); its launches
+must equal one reverse step's with the same settings x steps x chains.
 The last line is {"ok": true, "device": {...}}. A hang ends in a traceback
 and a non-zero exit (faulthandler) before the budget runs out. The script
 imports only torch, numpy, the standard library and moldiff_tpu_torch.
@@ -254,6 +291,59 @@ LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes these fused
 PERSISTENT_KERNELS = ("node_block", "edge_pair", "pos_update", "fused_block", "edge_block_full")
 GRID_CAPS = (0, 1, 7, 33)
 GRID_REPEATS = 3
+
+
+def with_sample(settings: dict, top: "dict | None" = None, **sample) -> dict:
+    """A copy of ``settings`` with the top-level keys ``top`` and the sample
+    settings ``sample`` set."""
+    out = dict(settings, **(top or {}))
+    out["sample"] = dict(settings["sample"], **sample)
+    return out
+
+
+# phase 15: the sampler's modes through run(), each the unguided settings
+# with these sample settings, MODE_NUM_MOLS finished at batch MODE_BATCH,
+# and its floor on the rate over every molecule classified (the module
+# docstring gives the arithmetic)
+MODE_RUNS = {
+    "s100": ({"num_steps": 100}, 0.25),
+    "ddim_s100": ({"num_steps": 100, "pos_sampler": "ddim", "eta": 0.0}, 0.125),
+    "commit_both": ({"commit": "both"}, 0.125),
+    "ema_s100": ({"use_ema": True, "num_steps": 100}, 0.125),
+    "traj_s100": ({"save_traj_prob": 1.0, "num_steps": 100}, 0.25),
+}
+MODE_NUM_MOLS = 8
+MODE_BATCH = 16
+# phase 16: the server (flagship_v2, 100 respaced steps, commit nodes,
+# batch 16, coalescing window), the molecules per request
+SERVE_BATCH = 16
+SERVE_STEPS = 100
+SERVE_WINDOW_MS = 1000.0
+SERVE_NUM_MOLS = 4
+# --gate NAME: (committed YAML, top-level overrides, sample overrides); the
+# settings are the YAML's (the dicts above, which CPU tests hold equal to
+# the files: the card has no PyYAML) with the overrides set
+V2 = "configs/sample/sample_flagship_v2.yml"
+V2_GUIDED = "configs/sample/sample_flagship_v2_guided.yml"
+YAML_SETTINGS = {V2: SAMPLE_SETTINGS,
+                 V2_GUIDED: with_sample(GUIDED_SETTINGS, add_edge="distance")}
+GATES = {
+    "s100": (V2, {}, {"num_steps": 100}),
+    "ddim_s100": (V2, {}, {"num_steps": 100, "pos_sampler": "ddim", "eta": 0.0}),
+    "commit_both": (V2, {}, {"commit": "both"}),
+    "commit_none": (V2, {}, {"commit": "none"}),
+    "ema_none": (V2, {}, {"use_ema": True, "commit": "none"}),
+    "connect": (V2, {}, {"add_edge": "connect"}),
+    "eg1": (V2, {"bond_predictor": BOND_PREDICTOR}, {"edge_guidance": 1.0}),
+    "eg1_t300": (V2, {"bond_predictor": BOND_PREDICTOR},
+                 {"edge_guidance": 1.0, "edge_guidance_tmax": 300}),
+    "guided": (V2_GUIDED, {}, {}),
+}
+
+
+def gate_settings(name: str) -> dict:
+    path, top, sample = GATES[name]
+    return with_sample(YAML_SETTINGS[path], top, **sample)
 
 
 def say(*args) -> None:
@@ -1156,6 +1246,176 @@ def run_path(cli, settings: dict, args_num_mols: int, batch_size: int, run_name:
     return summary, dict(kernels.launch_counts)
 
 
+def forward_expected(results: dict, calls: int) -> dict:
+    """Each kernel's launches when only the default route's forward kernels
+    (rows 1, 4, 8) run, ``calls`` wrapper calls of each."""
+    return {name: results[name]["per_call"] * calls if name in FORWARD_KERNELS else 0
+            for name in KERNELS}
+
+
+def check_modes_run(cli, results: dict, blocks: int) -> dict:
+    """Phase 15: each of MODE_RUNS through run(); every run's launches are
+    each forward kernel's per call x ``blocks`` x its steps x its chains;
+    the trajectory run's traj_<k>.sdf files hold S + 1 states, the last one
+    with the elements and positions of molecule k's final decode. Returns
+    the launch counts of all runs, summed."""
+    import pickle
+
+    from moldiff_tpu_torch.chem.sdf import read_sdf
+
+    total = {name: 0 for name in KERNELS}
+    for tag, (overrides, floor) in MODE_RUNS.items():
+        t0 = time.time()
+        summary, counts = run_path(cli, with_sample(SAMPLE_SETTINGS, **overrides),
+                                   MODE_NUM_MOLS, MODE_BATCH, f"mode_{tag}")
+        steps = summary["num_steps"]
+        expected = forward_expected(results, blocks * steps * summary["chains"])
+        say(f"mode {tag} {overrides}: {summary['chains']} chains x {steps} steps, launches "
+            f"{counts}, expected {expected}, {time.time() - t0:.1f} s")
+        assert counts == expected, (tag, counts, expected)
+        assert summary["num_finished"] >= 1 and summary["num_classified"] >= MODE_BATCH, summary
+        assert summary["success_rate_classified"] >= floor, (tag, floor, summary)
+        report(f"mode {tag}", summary, steps)
+        for k, v in counts.items():
+            total[k] += v
+        if overrides.get("save_traj_prob"):
+            out_dir = os.path.join("outputs_torch", "chip_smoke", f"mode_{tag}")
+            with open(os.path.join(out_dir, "samples_all.pkl"), "rb") as f:
+                finished = pickle.load(f)["finished"]
+            assert summary["num_trajectories"] == len(finished) > 0, summary
+            for k, entry in enumerate(finished):
+                states = list(read_sdf(os.path.join(out_dir, "SDF", f"traj_{k}.sdf")))
+                assert len(states) == steps + 1, (k, len(states))
+                last, final = states[-1], entry["decoded"]
+                assert [a.z for a in last.atoms] == [int(z) for z in final["element"]], k
+                pos = [a.pos for a in last.atoms]
+                assert max(float(abs(p - q).max()) for p, q in zip(pos, final["atom_pos"])) < 1e-3
+            say(f"mode {tag}: {len(finished)} trajectories of {steps + 1} states, each ending "
+                "in its molecule's final elements and positions")
+    return total
+
+
+def check_server(results: dict, blocks: int, device) -> dict:
+    """Phase 16: make_http_server on 127.0.0.1 at an ephemeral port in a
+    thread (flagship_v2, SERVE_STEPS respaced steps, commit nodes, batch
+    SERVE_BATCH, coalescing on): /health names the card; two seeded
+    requests give the same SMILES; an SDF request; two concurrent unseeded
+    requests share one pool; launches as in phase 15 over the chains the
+    requests ran. Returns those launch counts."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.serve import build_service_from_checkpoint, make_http_server
+    from moldiff_tpu_torch.serve.server import WARMUP_STEPS
+
+    svc = build_service_from_checkpoint(CHECKPOINT, batch_size=SERVE_BATCH, buckets=[32, 40],
+                                        num_steps=SERVE_STEPS, commit="nodes",
+                                        batch_window_ms=SERVE_WINDOW_MS, device=device)
+    say(f"server warmup (a {WARMUP_STEPS}-step chain per bucket): {svc.warmup():.1f} s")
+    srv = make_http_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_port}"
+
+    def call(path: str, body: "dict | None" = None) -> dict:
+        t0 = time.time()
+        req = urllib.request.Request(url + path, data=None if body is None else
+                                     json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            assert r.status == 200, r.status
+            out = json.loads(r.read())
+        say(f"  {'POST' if body else 'GET'} {path} {body or ''}: {time.time() - t0:.3f} s")
+        return out
+
+    try:
+        kernels.reset_launch_counts()
+        chains = svc.sampler.chains
+        health = call("/health")
+        assert health["device"] == torch.cuda.get_device_name(0) and health["warm"] == [32, 40]
+        a = call("/generate", {"num_mols": SERVE_NUM_MOLS, "seed": 7})
+        b = call("/generate", {"num_mols": SERVE_NUM_MOLS, "seed": 7})
+        assert a["smiles"] == b["smiles"] and len(a["smiles"]) == SERVE_NUM_MOLS, (a, b)
+        sdf = call("/generate", {"num_mols": SERVE_NUM_MOLS, "seed": 8, "format": "sdf"})
+        assert len(sdf["sdf"]) == len(sdf["smiles"]) == SERVE_NUM_MOLS
+        assert all("V2000" in blk and blk.endswith("$$$$\n") for blk in sdf["sdf"])
+        replies = [None, None]
+
+        def unseeded(i: int) -> None:
+            replies[i] = call("/generate", {"num_mols": SERVE_NUM_MOLS})
+
+        workers = [threading.Thread(target=unseeded, args=(i,)) for i in range(2)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+        assert not any(w.is_alive() for w in workers)
+        assert [r["coalesced"] for r in replies] == [2, 2], replies
+        assert replies[0]["seed"] == replies[1]["seed"]
+        stats = call("/stats")
+        assert stats["requests"] == 5 and stats["batches"] == 1 and stats["errors"] == 0, stats
+        counts = dict(kernels.launch_counts)
+        ran = svc.sampler.chains - chains
+        expected = forward_expected(results, blocks * SERVE_STEPS * ran)
+        say(f"server: {ran} chains x {SERVE_STEPS} steps, launches {counts}, expected "
+            f"{expected}; seeded SMILES {a['smiles']}")
+        assert counts == expected, (counts, expected)
+        kernels.reset_launch_counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+        thread.join(timeout=30)
+    return counts
+
+
+def step_launches(sampler, params, device) -> dict:
+    """Each kernel's launches in one reverse step with ``sampler``'s
+    settings (every step of its chains launches the same)."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+
+    model = sampler.model
+    b, n = 2, sampler.buckets[0]
+    g = torch.Generator(device=device).manual_seed(3)
+    node_mask = torch.ones((b, n), device=device)
+    state = model.init_state(node_mask, model.draw_noise(b, n, g))
+    kw = sampler.chain_kwargs()
+    if sampler.bond_predictor is not None:
+        bp, bp_params = sampler.bond_predictor
+        kw["bond_predictor"] = (bp, bp_params, bp.prepare(bp_params))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        model.reverse_step(params, state, 1, node_mask, model.draw_noise(b, n, g),
+                           blocks=model.prepare(params), **kw)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)
+    kernels.reset_launch_counts()
+    return counts
+
+
+def run_gate(cli, name: str, num_mols: int, batch_size: int, device) -> None:
+    """--gate NAME: run() with gate_settings(NAME) until ``num_mols``
+    finished at ``batch_size``; its launches are one reverse step's (with
+    the same settings) x steps x chains."""
+    settings = gate_settings(name)
+    sampler, params = cli.build_sampler(settings["model"]["checkpoint"], settings["sample"],
+                                        device, batch_size,
+                                        bond_predictor=settings.get("bond_predictor"))
+    per_step = step_launches(sampler, params, device)
+    summary, counts = run_path(cli, settings, num_mols, batch_size, f"gate_{name}_{num_mols}")
+    steps = summary["num_steps"]
+    expected = {k: v * steps * summary["chains"] for k, v in per_step.items()}
+    say(f"gate {name} {GATES[name]}: {summary['chains']} chains x {steps} steps, launches "
+        f"{counts}, expected {expected}")
+    assert counts == expected, (counts, expected)
+    assert any(expected[k] for k in FORWARD_KERNELS)
+    report(f"gate {name}", summary, steps)
+
+
 def report(tag: str, summary: dict, steps: int) -> None:
     chains = summary["chains"]
     say(f"{tag}: success {summary['success_rate']:.4f} (Wilson 95% "
@@ -1183,6 +1443,11 @@ def main() -> None:
                     help="molecules path B's sampling (fuse_block) generates (finished)")
     ap.add_argument("--fuse-batch-size", type=int, default=16,
                     help="molecules per reverse chain in path B's sampling")
+    ap.add_argument("--gate", choices=sorted(GATES), default=None,
+                    help="run only this gate (after the build): its settings until "
+                         "--gate-num-mols finished at --gate-batch-size")
+    ap.add_argument("--gate-num-mols", type=int, default=1000)
+    ap.add_argument("--gate-batch-size", type=int, default=128)
     ap.add_argument("--budget-s", type=float, default=540.0,
                     help="wall-clock budget; the run is stopped with a traceback after it "
                          "(the default ends a hang well inside a 900 s call)")
@@ -1228,6 +1493,16 @@ def main() -> None:
         kernel = found.group(1) if found else kernel
         if "registers" in line or "spill" in line:
             say(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
+
+    if args.gate:
+        run_gate(cli, args.gate, args.gate_num_mols, args.gate_batch_size, device)
+        say(f"total {time.time() - t_start:.1f} s")
+        say(nvidia_smi())
+        faulthandler.cancel_dump_traceback_later()
+        say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                               "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return
 
     # 3. kernel checks at flagship widths, then the demo denoiser's; block-0 weights
     sampler, params = cli.build_sampler(CHECKPOINT, SAMPLE_SETTINGS["sample"], device)
@@ -1347,7 +1622,17 @@ def main() -> None:
     check_grid_invariance(blk0, d_blk0, device)
     say(f"phase 14 (grid-size invariance): {time.time() - t0:.1f} s")
 
-    main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts)
+    # 15. the sampler's modes: respaced, DDIM, edge commit, EMA, trajectories
+    t0 = time.time()
+    m_counts = check_modes_run(cli, results, dn_blocks)
+    say(f"phase 15 (sampler modes): {time.time() - t0:.1f} s")
+
+    # 16. the sampling server over HTTP
+    t0 = time.time()
+    s_counts = check_server(results, dn_blocks, device)
+    say(f"phase 16 (server): {time.time() - t0:.1f} s")
+
+    main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(c[name] for c in main_paths),

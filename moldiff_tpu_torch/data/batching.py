@@ -68,3 +68,19 @@ def unpad_arrays(batch_arrays, n_nodes: np.ndarray):
             }
         )
     return out
+
+
+def split_trajectories(traj, n_nodes: np.ndarray) -> List[dict]:
+    """Per-molecule unpadded trajectories (batching.py:121-142): traj is
+    (node [S+1,B,N,Kn], pos [S+1,B,N,3], halfedge [S+1,B,E,Ke]) numpy
+    arrays; returns one dict of 'node' / 'pos' / 'halfedge' per molecule."""
+    node_t, pos_t, he_t = (np.asarray(t) for t in traj)
+    n_max = node_t.shape[2]
+    out = []
+    for i, n in enumerate(np.asarray(n_nodes)):
+        n = int(n)
+        iu_s, ju_s = np.triu_indices(n, k=1)
+        flat = iu_s * n_max - (iu_s * (iu_s + 1)) // 2 + (ju_s - iu_s - 1)
+        out.append({"node": node_t[:, i, :n], "pos": pos_t[:, i, :n],
+                    "halfedge": he_t[:, i, flat]})
+    return out

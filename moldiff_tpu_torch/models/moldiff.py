@@ -9,13 +9,17 @@ the JAX package's ``lax.scan``. Every random draw of a step comes in as
 function itself is deterministic, so one step can be checked against the
 JAX package given the same noise.
 
-Ported: ``forward`` (:178-249), ``sample`` (:425) with ``ddpm`` positions
-and ``commit`` in {"none", "nodes"}, and its step (:559), with the bond
+Ported: ``forward`` (:178-249), ``sample`` (:425) and its step (:559) in
+every discrete mode: full or respaced chains (``_respaced``, :375: the
+posterior math on the respaced transitions, the denoiser and the bond
+predictor on the original timestep), ``ddpm`` or ``ddim`` positions,
+``commit`` in {"none", "nodes", "edges", "both"} and trajectories; the bond
 predictor's position guidance in all eight modes (:960-1044) and its
 class-space edge guidance (:650-675); the training loss ``get_loss``
 (:253-373), its noise (the time draw and the three forward noisings) passed
-in as :class:`LossNoise`. Not yet: respacing, DDIM, edge commit, the
-continuous categorical mode, the MoE loss.
+in as :class:`LossNoise`. Not yet: the continuous categorical mode, the MoE
+loss. ``sample_chunked`` (:755) is not ported: it exists for TPU execution
+deadlines.
 
 Sampling runs under ``torch.no_grad()``; the guidance delta re-enables
 autograd for the predictor's forward and its gradient with respect to the
@@ -32,11 +36,13 @@ import torch
 from ..ops import graph_ops
 from ..ops.categorical import CategoricalTransition, index_to_log_onehot, log_sample_categorical
 from ..ops.gaussian import GaussianTransition
+from ..ops.respace import respace_timesteps, respaced_betas
 from ..ops.schedules import get_beta_schedule
 from .denoiser import denoiser_static_config, node_edge_net, prepare_blocks
 from .nn import GaussianSmearing, linear, mlp, safe_distance
 
-COMMIT_MODES = ("none", "nodes")
+COMMIT_MODES = ("none", "nodes", "edges", "both")
+POS_SAMPLERS = ("ddpm", "ddim")
 
 # drift direction per guidance mode (reference model.py:309-362: minimize
 # entropy/uncertainty/crossent scores, maximize logit scores)
@@ -90,7 +96,18 @@ class SampleState(NamedTuple):
     log_node: torch.Tensor
     log_halfedge: torch.Tensor
     com_node: torch.Tensor       # [B, N] committed class, -1 = not yet
+    com_edge: Optional[torch.Tensor] = None   # [B, E] likewise; None = none yet
     preds: Optional[MolDiffPreds] = None
+
+
+class Trajectory(NamedTuple):
+    """A chain's states from the prior draw on, S + 1 of them. The classes
+    are kept as indices (the states are one-hots, so this is exact):
+    float32 one-hot half-edges of a B = 128, N = 40, T = 1000 chain would
+    take 2.4 GB."""
+    node: torch.Tensor       # [S+1, B, N] uint8 atom classes
+    pos: torch.Tensor        # [S+1, B, N, 3]
+    halfedge: torch.Tensor   # [S+1, B, E] uint8 bond classes
 
 
 def resolve_device(device: "str | torch.device | None") -> torch.device:
@@ -123,18 +140,43 @@ class MolDiff:
             raise NotImplementedError("the continuous categorical mode is not ported yet")
         no_init = lambda d: {k: v for k, v in d.items() if k != "init_prob"}
         T = self.num_timesteps
-        self.pos_transition = GaussianTransition(
-            get_beta_schedule(num_timesteps=T, **diff["diff_pos"]), device=self.device)
-        self.node_transition = CategoricalTransition(
-            get_beta_schedule(num_timesteps=T, **no_init(diff["diff_atom"])), num_node_types,
-            init_prob=diff["diff_atom"]["init_prob"], device=self.device)
-        self.edge_transition = CategoricalTransition(
-            get_beta_schedule(num_timesteps=T, **no_init(diff["diff_bond"])), num_edge_types,
-            init_prob=diff["diff_bond"]["init_prob"], device=self.device)
+        # the float64 schedules, kept for respacing (moldiff.py:121-123)
+        self._raw_betas = {
+            "pos": get_beta_schedule(num_timesteps=T, **diff["diff_pos"]),
+            "node": get_beta_schedule(num_timesteps=T, **no_init(diff["diff_atom"])),
+            "edge": get_beta_schedule(num_timesteps=T, **no_init(diff["diff_bond"])),
+        }
+        self._init_prob = {"node": diff["diff_atom"]["init_prob"],
+                           "edge": diff["diff_bond"]["init_prob"]}
+        self._respace_cache = {}
+        self.pos_transition, self.node_transition, self.edge_transition = \
+            self._transitions(self._raw_betas)
         denoiser_cfg = dict(config["denoiser"])
         denoiser_cfg.pop("backbone", None)
         self.denoiser_static = denoiser_static_config(**denoiser_cfg)
         self.time_emb = GaussianSmearing(stop=T, num_gaussians=self.time_dim, type_="linear")
+
+    def _transitions(self, betas: dict) -> tuple:
+        """(Gaussian, node categorical, edge categorical) transitions of
+        the float64 ``betas``, on the model's device."""
+        return (GaussianTransition(betas["pos"], device=self.device),
+                CategoricalTransition(betas["node"], self.num_node_types,
+                                      init_prob=self._init_prob["node"], device=self.device),
+                CategoricalTransition(betas["edge"], self.num_edge_types,
+                                      init_prob=self._init_prob["edge"], device=self.device))
+
+    def _respaced(self, num_steps: int, gamma: float = 1.0) -> tuple:
+        """(transitions, t_map) of a ``num_steps``-step chain
+        (moldiff.py:375-423): transitions built from the float64 betas
+        composed over the kept timesteps, and t_map [S] (numpy int64), the
+        original timestep each respaced step feeds the denoiser. Cached per
+        (num_steps, gamma)."""
+        key = (int(num_steps), float(gamma))
+        if key not in self._respace_cache:
+            subset = respace_timesteps(self.num_timesteps, num_steps, gamma)
+            betas = {k: respaced_betas(v, subset) for k, v in self._raw_betas.items()}
+            self._respace_cache[key] = (self._transitions(betas), subset)
+        return self._respace_cache[key]
 
     # -- denoiser forward ----------------------------------------------------
 
@@ -254,17 +296,28 @@ class MolDiff:
         pos = self.pos_transition.sample_init(noise.pos)
         _, h_half, log_half = self.edge_transition.sample_init((b, e), noise.edge)
         com_node = torch.full((b, n), -1, dtype=torch.long, device=node_mask.device)
-        return SampleState(pos, h_node, h_half, log_node, log_half, com_node)
+        com_edge = torch.full((b, e), -1, dtype=torch.long, device=node_mask.device)
+        return SampleState(pos, h_node, h_half, log_node, log_half, com_node, com_edge)
 
     def reverse_step(self, params: dict, state: SampleState, step: int, node_mask,
                      noise: StepNoise, commit: str = "none",
                      blocks: Optional[list] = None, bond_predictor=None,
                      guidance: Optional[Tuple[str, float]] = None, guidance_interval: int = 1,
                      edge_guidance: float = 0.0,
-                     edge_guidance_tmax: Optional[int] = None) -> SampleState:
-        """One ancestral reverse step t = step -> step - 1 (the scan body of
-        moldiff.py:559-755, ddpm positions).
+                     edge_guidance_tmax: Optional[int] = None,
+                     transitions: Optional[tuple] = None, t_model: Optional[int] = None,
+                     pos_sampler: str = "ddpm", eta: float = 0.0) -> SampleState:
+        """One ancestral reverse step at chain index ``step`` (the scan body
+        of moldiff.py:559-755).
 
+        ``transitions`` (pos, node, edge) and ``t_model``: a respaced
+        chain's (:meth:`_respaced`). The posterior math and the commit gate
+        run on the transitions at index ``step``; the denoiser, both kinds
+        of guidance and the ``edge_guidance_tmax`` gate read ``t_model``,
+        the original timestep (``step`` on a full chain).
+        ``pos_sampler``: "ddpm" or "ddim" with noise level ``eta``.
+        ``commit``: "nodes" / "edges" / "both" freeze an atom's / half-edge's
+        first model-driven non-sentinel draw (moldiff.py:582-717).
         ``bond_predictor``: (BondPredictor, params, blocks or None), needed by
         ``guidance`` (mode, scale: the position drift of
         :func:`bond_guidance_delta`, applied when ``step % guidance_interval
@@ -273,43 +326,42 @@ class MolDiff:
         ``edge_guidance_tmax`` when given)."""
         if commit not in COMMIT_MODES:
             raise ValueError(f"commit must be one of {COMMIT_MODES}, got {commit!r}")
+        if pos_sampler not in POS_SAMPLERS:
+            raise ValueError(f"pos_sampler must be one of {POS_SAMPLERS}, got {pos_sampler!r}")
         edge_guidance = float(edge_guidance)
         if (edge_guidance > 0 or guidance is not None) and bond_predictor is None:
             raise ValueError("guidance and edge_guidance require a bond_predictor")
-        node_tr, edge_tr = self.node_transition, self.edge_transition
+        commit_nodes = commit in ("nodes", "both")
+        commit_edges = commit in ("edges", "both")
+        pos_tr, node_tr, edge_tr = transitions or (
+            self.pos_transition, self.node_transition, self.edge_transition)
         b = node_mask.shape[0]
-        t = torch.full((b,), step, dtype=torch.long, device=node_mask.device)
-        preds = self.forward(params, state.h_node, state.pos, state.h_halfedge, t, node_mask,
+        dev = node_mask.device
+        t = torch.full((b,), step, dtype=torch.long, device=dev)
+        t_model = t if t_model is None else torch.full((b,), int(t_model), dtype=torch.long,
+                                                       device=dev)
+        preds = self.forward(params, state.h_node, state.pos, state.h_halfedge, t_model, node_mask,
                              blocks=blocks)
-        pos_prev = self.pos_transition.get_prev_from_recon(state.pos, preds.pred_pos, t,
-                                                           noise.pos)
+        if pos_sampler == "ddim":
+            pos_prev = pos_tr.ddim_prev(state.pos, preds.pred_pos, t, noise.pos, eta=float(eta))
+        else:
+            pos_prev = pos_tr.get_prev_from_recon(state.pos, preds.pred_pos, t, noise.pos)
 
         log_node_recon = torch.log_softmax(preds.pred_node, dim=-1)
         com_node = state.com_node
-        if commit == "nodes":
-            log_node_recon = torch.where(
-                (com_node >= 0)[..., None],
-                index_to_log_onehot(torch.clamp(com_node, min=0), self.num_node_types),
-                log_node_recon)
+        if commit_nodes:
+            log_node_recon = _clamp_committed(log_node_recon, com_node)
         log_node_new = node_tr.q_v_posterior(log_node_recon, state.log_node, t)
         node_type_prev = log_sample_categorical(log_node_new, noise.node)
-        if commit == "nodes":
-            # freeze a draw when the model term of the reveal jump beats the
-            # prior-leak term for the drawn class (moldiff.py:623-642)
-            abar_n = node_tr.alphas_bar[max(step - 1, 0)]
-            p_drawn = torch.gather(torch.exp(log_node_recon), -1,
-                                   node_type_prev[..., None])[..., 0]
-            pi_drawn = node_tr.init_prob[node_type_prev]
-            reveal = ((com_node < 0) & (node_type_prev != self.num_node_types - 1)
-                      & (abar_n * p_drawn > (1.0 - abar_n) * pi_drawn))
-            com_node = torch.where(reveal, node_type_prev, com_node)
-            node_type_prev = torch.where(com_node >= 0, com_node, node_type_prev)
+        if commit_nodes:
+            com_node, node_type_prev = _commit(node_tr, step, log_node_recon, node_type_prev,
+                                               com_node, sentinel=self.num_node_types - 1)
 
         log_edge_recon = torch.log_softmax(preds.pred_halfedge, dim=-1)
         if edge_guidance > 0:
             # class-space bond guidance (moldiff.py:650-675)
             bp, bp_params, bp_blocks = bond_predictor
-            bp_logits = bp.forward(bp_params, state.h_node, state.pos, t, node_mask,
+            bp_logits = bp.forward(bp_params, state.h_node, state.pos, t_model, node_mask,
                                    blocks=bp_blocks)
             bp_logp = torch.log_softmax(bp_logits, dim=-1)
             pad = self.num_edge_types - bp_logp.shape[-1]
@@ -319,47 +371,105 @@ class MolDiff:
                     bp_logp, (0, pad), value=-float(np.log(bp_logits.shape[-1])))
             mix = edge_guidance * bp_logp
             if edge_guidance_tmax is not None:
-                mix = torch.where((t < int(edge_guidance_tmax))[:, None, None], mix,
+                mix = torch.where((t_model < int(edge_guidance_tmax))[:, None, None], mix,
                                   torch.zeros_like(mix))
             log_edge_recon = torch.log_softmax(log_edge_recon + mix, dim=-1)
             preds = MolDiffPreds(preds.pred_node, preds.pred_pos, log_edge_recon)
+        com_edge = state.com_edge
+        if commit_edges:
+            if com_edge is None:
+                com_edge = torch.full(log_edge_recon.shape[:2], -1, dtype=torch.long, device=dev)
+            log_edge_recon = _clamp_committed(log_edge_recon, com_edge)
         log_half_new = edge_tr.q_v_posterior(log_edge_recon, state.log_halfedge, t)
         half_type_prev = log_sample_categorical(log_half_new, noise.edge)
-        if commit == "nodes":
-            # decode reads the clamped v0 views (moldiff.py:713-717)
+        if commit_edges:
+            # the edge sentinel is class 0, the 'absorb' prior's (moldiff.py:586-587)
+            com_edge, half_type_prev = _commit(edge_tr, step, log_edge_recon, half_type_prev,
+                                               com_edge, sentinel=0)
+        if commit_nodes or commit_edges:
+            # decode reads the clamped v0 views (moldiff.py:702-708)
             preds = MolDiffPreds(log_node_recon, preds.pred_pos, log_edge_recon)
         if guidance is not None and not float(guidance[1]) <= 0:
             if guidance_interval <= 1 or step % guidance_interval == 0:
                 pos_prev = pos_prev + bond_guidance_delta(
                     bond_predictor, guidance[0], float(guidance[1]), state.h_node, state.pos,
-                    t, node_mask, half_type_prev, log_half_new)
+                    t_model, node_mask, half_type_prev, log_half_new)
         return SampleState(pos_prev, node_tr.onehot_encode(node_type_prev),
                            edge_tr.onehot_encode(half_type_prev), log_node_new, log_half_new,
-                           com_node, preds)
+                           com_node, com_edge, preds)
 
     @torch.no_grad()
     def sample(self, params: dict, node_mask: torch.Tensor, generator: torch.Generator,
                commit: str = "none", bond_predictor=None,
                guidance: Optional[Tuple[str, float]] = None, guidance_interval: int = 1,
                edge_guidance: float = 0.0,
-               edge_guidance_tmax: Optional[int] = None) -> MolDiffPreds:
-        """Full T-step reverse chain (moldiff.py:425-540); returns the final
-        step's predictions, which decoding reads. ``bond_predictor``:
-        (BondPredictor, params); see :meth:`reverse_step` for the rest."""
+               edge_guidance_tmax: Optional[int] = None, num_steps: Optional[int] = None,
+               respace_gamma: float = 1.0, pos_sampler: str = "ddpm", eta: float = 0.0,
+               save_traj: bool = False):
+        """The reverse chain (moldiff.py:425-548); returns the final step's
+        predictions, which decoding reads, and with ``save_traj`` also the
+        :class:`Trajectory` (the prior state first, moldiff.py:541-547).
+        ``num_steps`` below T runs a respaced chain of that many steps
+        (spacing warped by ``respace_gamma``); None or at least T, the full
+        chain. ``bond_predictor``: (BondPredictor, params); see
+        :meth:`reverse_step` for the rest."""
         b, n = node_mask.shape
         blocks = self.prepare(params)
         if bond_predictor is not None:
             bp, bp_params = bond_predictor[:2]
             bond_predictor = (bp, bp_params, bp.prepare(bp_params))
+        transitions, t_map = None, None
+        steps = self.num_timesteps
+        if num_steps is not None and num_steps < steps:
+            transitions, t_map = self._respaced(num_steps, respace_gamma)
+            steps = int(num_steps)
         state = self.init_state(node_mask, self.draw_noise(b, n, generator))
-        for step in range(self.num_timesteps - 1, -1, -1):
+        traj = [] if save_traj else None
+        for step in range(steps - 1, -1, -1):
+            if traj is not None:
+                traj.append(_traj_entry(state))
             state = self.reverse_step(params, state, step, node_mask,
                                       self.draw_noise(b, n, generator), commit=commit,
                                       blocks=blocks, bond_predictor=bond_predictor,
                                       guidance=guidance, guidance_interval=guidance_interval,
                                       edge_guidance=edge_guidance,
-                                      edge_guidance_tmax=edge_guidance_tmax)
-        return state.preds
+                                      edge_guidance_tmax=edge_guidance_tmax,
+                                      transitions=transitions,
+                                      t_model=None if t_map is None else int(t_map[step]),
+                                      pos_sampler=pos_sampler, eta=eta)
+        if traj is None:
+            return state.preds
+        traj.append(_traj_entry(state))
+        return state.preds, Trajectory(*(torch.stack(x) for x in zip(*traj)))
+
+
+def _traj_entry(state: SampleState) -> tuple:
+    """(atom classes, positions, bond classes) of a state for a
+    :class:`Trajectory`."""
+    return (state.h_node.argmax(-1).to(torch.uint8), state.pos,
+            state.h_halfedge.argmax(-1).to(torch.uint8))
+
+
+def _clamp_committed(log_recon: torch.Tensor, committed: torch.Tensor) -> torch.Tensor:
+    """A committed element's v0 input to the posterior is its committed
+    class, not the model's fresh prediction (moldiff.py:606-614)."""
+    return torch.where((committed >= 0)[..., None],
+                       index_to_log_onehot(torch.clamp(committed, min=0), log_recon.shape[-1]),
+                       log_recon)
+
+
+def _commit(transition: CategoricalTransition, step: int, log_recon: torch.Tensor,
+            drawn: torch.Tensor, committed: torch.Tensor, sentinel: int) -> tuple:
+    """Freeze a draw when the model term of the reveal jump beats the
+    prior-leak term for the drawn class (moldiff.py:623-642, :692-700);
+    committed elements never flip back. Returns (committed, drawn)."""
+    abar = transition.alphas_bar[max(step - 1, 0)]
+    p_drawn = torch.gather(torch.exp(log_recon), -1, drawn[..., None])[..., 0]
+    pi_drawn = transition.init_prob[drawn]
+    reveal = ((committed < 0) & (drawn != sentinel)
+              & (abar * p_drawn > (1.0 - abar) * pi_drawn))
+    committed = torch.where(reveal, drawn, committed)
+    return committed, torch.where(committed >= 0, committed, drawn)
 
 
 def _guidance_score(gui_type: str, pred: torch.Tensor, halfedge_mask: torch.Tensor,

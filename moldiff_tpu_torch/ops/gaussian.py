@@ -23,6 +23,7 @@ class GaussianTransition:
         f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
         self.num_timesteps = len(betas)
         self.alphas_bar = f32(alphas_bar)
+        self.alphas_bar_prev = f32(alphas_bar_prev)
         # posterior q(x_{t-1} | x_0, x_t) coefficients
         self.coef_x0 = f32(np.sqrt(alphas_bar_prev) * betas / (1 - alphas_bar))
         self.coef_xt = f32(np.sqrt(alphas) * (1 - alphas_bar_prev) / (1 - alphas_bar))
@@ -47,6 +48,23 @@ class GaussianTransition:
         mu = self._bcast(self.coef_x0[t], nd) * x_recon + self._bcast(self.coef_xt[t], nd) * x_t
         x_prev = mu + self._bcast(self.std[t], nd) * noise
         return torch.where(self._bcast(t == 0, nd), mu, x_prev)
+
+    def ddim_prev(self, x_t: torch.Tensor, x_recon: torch.Tensor, t: torch.Tensor,
+                  noise: torch.Tensor, eta: float = 0.0) -> torch.Tensor:
+        """DDIM step from the x0 prediction given standard-normal noise
+        (gaussian.py:87-113): ``eta`` 0 is deterministic, 1 the DDPM
+        posterior's mean and std. At t == 0 alphas_bar_prev is 1, so the
+        noise scale and the eps coefficient vanish and the step returns
+        x_recon."""
+        nd = x_t.dim()
+        a_t = self._bcast(self.alphas_bar[t], nd)
+        a_prev = self._bcast(self.alphas_bar_prev[t], nd)
+        eps = (x_t - torch.sqrt(a_t) * x_recon) / torch.sqrt(1.0 - a_t)
+        sigma = eta * torch.sqrt(torch.clamp((1.0 - a_prev) / (1.0 - a_t), min=0.0)
+                                 * torch.clamp(1.0 - a_t / a_prev, min=0.0))
+        mean = (torch.sqrt(a_prev) * x_recon
+                + torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0)) * eps)
+        return mean + sigma * noise
 
     def sample_init(self, noise: torch.Tensor) -> torch.Tensor:
         """x_T ~ N(0, I): the prior draw is the noise itself."""

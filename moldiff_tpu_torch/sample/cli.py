@@ -2,19 +2,26 @@
 config names one (scripts/sample_drug3d.py).
 
   python -m moldiff_tpu_torch.sample --config configs/sample/sample_flagship_v2.yml \
-      [--device cuda|cpu] [--outdir outputs_torch] [--num_mols N] [--batch_size B]
+      [--device cuda|cpu] [--outdir outputs_torch] [--num_mols N] [--batch_size B] \
+      [--use_ema] [--num_steps S] [--commit none|nodes|edges|both] [--add_edge MODE] \
+      [--sanitize_mode reference|repo] [--edge_guidance W] [--edge_guidance_tmax T] \
+      [--run_name NAME]
   python -m moldiff_tpu_torch.sample --config configs/sample/sample_flagship_v2_guided.yml
 
 The model configs come from the checkpoints. The config's top-level
 ``bond_predictor`` names the predictor's checkpoint; ``sample.guidance``
-([mode, scale]), ``guidance_interval``, ``edge_guidance[_tmax]`` and
-``add_edge`` follow the JAX CLI. Writes SMILES.txt, one SDF per finished
-molecule under SDF/, samples_all.pkl (every classified molecule, the JAX
-CLI's layout) and summary.json (success rate with its Wilson interval,
-throughput, accept stages, failure reasons, aromatic and triple-bond
-fractions) into
-``<outdir>/<config name>_<time>/``. :func:`run` is the same path for a
-caller that already holds the settings as a dict.
+([mode, scale]), ``guidance_interval``, ``edge_guidance[_tmax]``,
+``add_edge``, ``num_steps`` (a respaced chain), ``num_steps_gamma``,
+``pos_sampler`` (ddpm or ddim), ``eta``, ``use_ema`` and ``save_traj_prob``
+follow the JAX CLI (scripts/sample_drug3d.py), whose single-process flags
+override them. Writes SMILES.txt, one SDF per finished molecule under SDF/
+(and ``traj_<k>.sdf``, one entry per state, for each molecule that kept its
+trajectory), samples_all.pkl (every classified molecule, the JAX CLI's
+layout) and summary.json (success rate with its Wilson interval,
+throughput, the chain's settings, accept stages, failure reasons, aromatic
+and triple-bond fractions) into ``<outdir>/<config name>_<time>/``.
+:func:`run` is the same path for a caller that already holds the settings
+as a dict.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..chem.mol import AROMATIC
+from ..chem.mol import AROMATIC, Mol, MolError
+from ..chem.sanitize import reconstruct_from_generated
 from ..chem.sdf import write_sdf
 from ..data.featurize import featurizer_from_config
 from ..models.bond_predictor import BondPredictor
@@ -67,14 +75,36 @@ def load_bond_predictor(checkpoint: str, featurizer, device: torch.device):
     return bp, ckpt["params"]
 
 
+def write_trajectory_sdf(featurizer, traj: dict, path: str) -> None:
+    """One SDF entry per state of a molecule's trajectory, decoded and
+    reconstructed, a one-oxygen placeholder where that fails
+    (scripts/sample_drug3d.py:36-57)."""
+    placeholder = Mol.from_arrays([8], pos=np.zeros((1, 3)))
+    mols = []
+    for t in range(traj["node"].shape[0]):
+        decoded = featurizer.decode_output(traj["node"][t], traj["pos"][t], traj["halfedge"][t])
+        try:
+            mols.append(reconstruct_from_generated(
+                decoded["element"], decoded["atom_pos"], decoded.get("bond_index"),
+                decoded.get("bond_type")))
+        except MolError:
+            mols.append(placeholder)
+    write_sdf(mols, path, names=[f"step_{t}" for t in range(len(mols))])
+
+
 def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
                   batch_size: Optional[int] = None, bond_predictor: Optional[str] = None,
                   denoiser: Optional[dict] = None):
     """(sampler, params) for a checkpoint, the ``sample`` settings and,
     optionally, a bond-predictor checkpoint and settings to set on the
     checkpoint's ``model.denoiser`` (``{"fuse_block": True}``: the
-    whole-block kernel), as scripts/sample_drug3d.py:161 sets ``remat``."""
+    whole-block kernel), as scripts/sample_drug3d.py:161 sets ``remat``.
+    ``sample.use_ema`` samples the checkpoint's EMA weights."""
     ckpt = load_checkpoint(checkpoint, device)
+    if sample_cfg.get("use_ema"):
+        if ckpt.get("ema_params") is None:
+            raise ValueError(f"use_ema is set but {checkpoint} has no ema_params")
+        ckpt["params"] = ckpt["ema_params"]
     train_config = Config(ckpt["config"])
     if denoiser:
         train_config = train_config.merged({"model": {"denoiser": denoiser}})
@@ -103,7 +133,11 @@ def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
         guidance_interval=int(sample_cfg.get("guidance_interval") or 1),
         edge_guidance=float(sample_cfg.get("edge_guidance") or 0.0),
         edge_guidance_tmax=tmax,
-        add_edge=sample_cfg.get("add_edge") or None, **kw)
+        add_edge=sample_cfg.get("add_edge") or None,
+        num_steps=int(sample_cfg.get("num_steps") or 0) or None,
+        pos_sampler=str(sample_cfg.get("pos_sampler") or "ddpm"),
+        eta=float(sample_cfg.get("eta") or 0.0),
+        respace_gamma=float(sample_cfg.get("num_steps_gamma") or 1.0), **kw)
     return sampler, ckpt["params"]
 
 
@@ -115,11 +149,6 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
     {...}}), write the outputs and return the summary."""
     device = resolve_device(device)
     scfg = dict(config["sample"])
-    for key in ("num_steps", "save_traj_prob"):
-        if scfg.get(key):
-            raise NotImplementedError(f"sample.{key} is not ported yet")
-    if str(scfg.get("pos_sampler") or "ddpm") != "ddpm":
-        raise NotImplementedError("only the ddpm position sampler is ported")
     torch.manual_seed(int(scfg["seed"]))
     sampler, params = build_sampler(config["model"]["checkpoint"], scfg, device, batch_size,
                                     bond_predictor=config.get("bond_predictor"),
@@ -128,10 +157,13 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
     generator = torch.Generator(device=device)
     generator.manual_seed(int(scfg["seed"]))
     rng = np.random.default_rng(int(scfg["seed"]))
+    # each finished molecule keeps its trajectory with this probability
+    traj_prob = float(scfg.get("save_traj_prob") or 0.0)
 
     t0 = time.time()
     pool = sampler.generate(params, num_mols, generator, rng=rng,
-                            batch_graphs=batch_size or int(scfg["batch_size"]), logger=log)
+                            batch_graphs=batch_size or int(scfg["batch_size"]), logger=log,
+                            traj_prob=traj_prob)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.time() - t0
@@ -158,6 +190,11 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
         "chains": sampler.chains,
         "chain_s": sampler.chain_s,
         "batch_size": sampler.batch_size,
+        "num_steps": sampler.steps,
+        "num_steps_gamma": sampler.respace_gamma,
+        "pos_sampler": sampler.pos_sampler,
+        "eta": sampler.eta,
+        "use_ema": bool(scfg.get("use_ema")),
         "commit": sampler.commit,
         "sanitize_mode": sampler.sanitize_mode,
         "guidance": list(sampler.guidance) if sampler.guidance else None,
@@ -178,8 +215,14 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
     with open(os.path.join(out_dir, "SMILES.txt"), "w") as f:
         for e in pool["finished"]:
             f.write(e["smiles"] + "\n")
+    n_traj = 0
     for k, e in enumerate(pool["finished"]):
         write_sdf([e["mol"]], os.path.join(sdf_dir, f"{k}.sdf"))
+        if "traj" in e:
+            write_trajectory_sdf(sampler.featurizer, e["traj"],
+                                 os.path.join(sdf_dir, f"traj_{k}.sdf"))
+            n_traj += 1
+    summary["num_trajectories"] = n_traj
     # every classified molecule, the JAX CLI's layout (sample_drug3d.py:347-362)
     with open(os.path.join(out_dir, "samples_all.pkl"), "wb") as f:
         pickle.dump({"finished": [{"smiles": e["smiles"], "decoded": e["decoded"],
@@ -203,8 +246,31 @@ def main(argv=None) -> dict:
     ap.add_argument("--outdir", default="outputs_torch")
     ap.add_argument("--num_mols", type=int, default=None)
     ap.add_argument("--batch_size", type=int, default=None)
+    # the JAX CLI's single-process flags (scripts/sample_drug3d.py:63-107)
+    ap.add_argument("--use_ema", action="store_true",
+                    help="sample from the checkpoint's EMA weights")
+    ap.add_argument("--num_steps", type=int, default=None,
+                    help="respaced reverse chain of S steps (default: sample.num_steps or T)")
+    ap.add_argument("--add_edge", choices=["distance", "connect"], default=None,
+                    help="perceive bonds from the positions instead of reading the model's")
+    ap.add_argument("--sanitize_mode", choices=["reference", "repo"], default=None)
+    ap.add_argument("--commit", choices=["none", "nodes", "edges", "both"], default=None)
+    ap.add_argument("--edge_guidance", type=float, default=None,
+                    help="weight of the bond predictor's log-probs in the edge v0 prediction")
+    ap.add_argument("--edge_guidance_tmax", type=int, default=None,
+                    help="edge guidance only at original timesteps below this")
+    ap.add_argument("--run_name", default=None,
+                    help="output directory name (default: config name + time)")
     args = ap.parse_args(argv)
     config = load_config(args.config)
+    sample = config["sample"]
+    if args.use_ema:
+        sample["use_ema"] = True
+    for key in ("num_steps", "add_edge", "sanitize_mode", "commit", "edge_guidance",
+                "edge_guidance_tmax"):
+        if getattr(args, key) is not None:
+            sample[key] = getattr(args, key)
     tag = os.path.splitext(os.path.basename(args.config))[0]
     return run(config, device=args.device, outdir=args.outdir, num_mols=args.num_mols,
-               batch_size=args.batch_size, run_name=f"{tag}_{time.strftime('%Y%m%d_%H%M%S')}")
+               batch_size=args.batch_size,
+               run_name=args.run_name or f"{tag}_{time.strftime('%Y%m%d_%H%M%S')}")

@@ -186,3 +186,25 @@ def test_profile_train_batch_is_a_bucket_of_v2_molecules(bucket):
     want = jbatching.pad_mols([featurize_record(r, feat, rng) for r in recs], n_max=bucket)
     for k in ("node_type", "pos", "halfedge_type", "node_mask"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(getattr(want, k)), err_msg=k)
+
+
+@pytest.mark.parametrize("onehot", [True, False], ids=["one-hots", "class indices"])
+def test_split_trajectories_equals_jax(onehot):
+    """split_trajectories unpads each molecule's trajectory as JAX's does,
+    on one-hot states and on the class indices the port keeps on the
+    device."""
+    rng = np.random.default_rng(7)
+    s, b, n = 4, 3, 9
+    e = n * (n - 1) // 2
+    node, he = rng.integers(0, 8, (s, b, n)), rng.integers(0, 6, (s, b, e))
+    if onehot:
+        node, he = np.eye(8, dtype=np.float32)[node], np.eye(6, dtype=np.float32)[he]
+    traj = (node, rng.normal(size=(s, b, n, 3)).astype(np.float32), he)
+    counts = np.array([9, 4, 6])
+    got = batching.split_trajectories(traj, counts)
+    want = jbatching.split_trajectories(traj, counts)
+    assert len(got) == len(want) == b
+    for g, w in zip(got, want):
+        assert set(g) == set(w) == {"node", "pos", "halfedge"}
+        for k in g:
+            np.testing.assert_array_equal(g[k], w[k])

@@ -202,7 +202,8 @@ def _jax_step(models, inputs, step, preds, noise, **kw):
     body = jmd._make_scan_body(jmd_params, jnp.asarray(i["mask"]), kw.get("guidance"),
                                (jbp, jbp_params), False, commit="nodes",
                                edge_guidance=kw.get("edge_guidance", 0.0),
-                               edge_guidance_tmax=kw.get("edge_guidance_tmax"))
+                               edge_guidance_tmax=kw.get("edge_guidance_tmax"),
+                               transitions=kw.get("transitions"), t_map=kw.get("t_map"))
     node, edge = i["node"], i["edge"]
     carry = (jnp.asarray(i["pos"]), jnp.asarray(node), jnp.asarray(edge),
              jnp.log(jnp.clip(jnp.asarray(node), 1e-30)),
@@ -282,3 +283,38 @@ def test_edge_guidance_tmax_step_equals_jax(models, inputs, interpret, tmax):
     # unguided, the step re-normalises the same log-probs (float rounding)
     moved = float((got.log_halfedge - unguided.log_halfedge).abs().max())
     assert (moved > 1e-3) if tmax != 2 else (moved < 1e-5), moved
+
+
+@pytest.mark.parametrize("tmax", [2, 3], ids=["tmax_gates_off", "tmax_gates_on"])
+def test_respaced_guided_step_reads_t_model(models, inputs, interpret, tmax):
+    """A guided, edge-guided respaced step (3 of 6 steps: chain index 1 is
+    original timestep 2) equals the JAX scan body given the same noise, so
+    the predictor's forward under edge guidance, the edge_guidance_tmax gate
+    and the position guidance all read the original timestep: at tmax 2 the
+    gate is off for timestep 2 (on for the chain index), at tmax 3 on for
+    both. The same step fed the chain index departs from JAX."""
+    jmd, md, md_params = models[4], models[6], models[7]
+    transitions, t_map = jmd._respaced(3)
+    step, t_model = 1, int(t_map[1])
+    assert t_model == 2
+    noise = _noise(step)
+    with torch.no_grad():
+        preds = md.forward(md_params, torch.tensor(inputs["node"]), torch.tensor(inputs["pos"]),
+                           torch.tensor(inputs["edge"]), torch.full((B,), t_model),
+                           torch.tensor(inputs["mask"]))
+    kw = {"guidance": ("uncertainty", 1.0), "edge_guidance": 2.0, "edge_guidance_tmax": tmax}
+    port_tr = md._respaced(3)[0]
+    got = _port_step(models, inputs, step, transitions=port_tr, t_model=t_model, **kw)
+    pos_j, node_j, edge_j, lnode_j, ledge_j, _, preds_j, _ = _jax_step(
+        models, inputs, step, preds, noise, transitions=transitions, t_map=t_map, **kw)
+    np.testing.assert_allclose(got.pos.numpy(), np.asarray(pos_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got.h_node.numpy(), np.asarray(node_j))
+    np.testing.assert_array_equal(got.h_halfedge.numpy(), np.asarray(edge_j))
+    np.testing.assert_allclose(got.log_node.numpy(), np.asarray(lnode_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.log_halfedge.numpy(), np.asarray(ledge_j),
+                               rtol=1e-4, atol=1e-4)
+    for g, w in zip(got.preds, preds_j):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
+    wrong = _port_step(models, inputs, step, transitions=port_tr, **kw)
+    assert float((wrong.pos - got.pos).abs().max()) > 1e-3
+    assert float((wrong.log_halfedge - got.log_halfedge).abs().max()) > 1e-3

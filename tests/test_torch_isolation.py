@@ -1,7 +1,8 @@
 """moldiff_tpu_torch and chip_smoke.py run where neither JAX, the JAX
 package, PyYAML, pandas nor ml_dtypes can be imported, as on a machine that
 has only PyTorch and numpy: every module imports, flagship_v2.ckpt loads,
-the demo checkpoint runs MolDiff.forward, one reverse step and one training
+the demo checkpoint runs MolDiff.forward, one reverse step, one respaced
+DDIM step with commit both, one SamplerService.generate and one training
 step (on an in-memory corpus) on the CPU, and the same forward with
 fuse_block and a training step with edge_full, in a fresh interpreter with
 those modules blocked."""
@@ -66,6 +67,20 @@ guided = model.reverse_step(ck["params"], state, 150, node_mask, model.draw_nois
                             guidance=("uncertainty", 1e-4), edge_guidance=0.5)
 assert bool(torch.isfinite(guided.pos).all())
 
+transitions, t_map = model._respaced(20)
+ddim = model.reverse_step(ck["params"], state, 10, node_mask, model.draw_noise(b, n, g),
+                          commit="both", transitions=transitions, t_model=int(t_map[10]),
+                          pos_sampler="ddim", eta=0.0)
+assert bool(torch.isfinite(ddim.pos).all()) and ddim.com_edge.shape == (b, n * (n - 1) // 2)
+
+from moldiff_tpu_torch.sample.cli import build_sampler
+from moldiff_tpu_torch.serve import SamplerService
+sampler, sparams = build_sampler("ckpts/demo_synthetic_30k.ckpt",
+                                 {"num_steps": 3, "buckets": [12], "size_mean": 9.0,
+                                  "size_std": 1.0}, torch.device("cpu"), batch_size=2)
+served = SamplerService(sampler, sparams).generate(1, seed=0)
+assert served["seed"] == 0 and isinstance(served["smiles"], list)
+
 from moldiff_tpu_torch.data.dataset import make_corpus
 from moldiff_tpu_torch.data.loader import BucketedLoader
 from moldiff_tpu_torch.train.trainer import batch_to_device
@@ -112,7 +127,8 @@ def test_port_runs_without_jax_yaml_pandas():
                  "moldiff_tpu_torch.models.bond_predictor",
                  "moldiff_tpu_torch.chem.bond_perception", "moldiff_tpu_torch.train.cli",
                  "moldiff_tpu_torch.train.trainer", "moldiff_tpu_torch.train.optim",
-                 "moldiff_tpu_torch.data.synthetic_v2", "moldiff_tpu_torch.data.loader"):
+                 "moldiff_tpu_torch.data.synthetic_v2", "moldiff_tpu_torch.data.loader",
+                 "moldiff_tpu_torch.ops.respace", "moldiff_tpu_torch.serve.server"):
         assert name in out["modules"]
     # chip_smoke's sample settings are the committed YAML config's
     with open(os.path.join(REPO, "configs/sample/sample_flagship_v2.yml")) as f:

@@ -123,17 +123,57 @@ def demo():
     return jax_load_checkpoint(path), load_checkpoint(path, device="cpu")
 
 
-@pytest.mark.parametrize("commit", ["none", "nodes"])
-def test_reverse_step_given_same_noise(demo, commit):
+def test_respaced_transitions_equal_jax(demo):
+    """_respaced's transitions (Gaussian coefficients, categorical
+    matrices and priors) are within 1e-6 relative of JAX _respaced's, and
+    t_map is equal, for a uniform and a warped spacing."""
+    ck_j, ck_t = demo
+    jm = JMolDiff(_model_cfg(ck_j, "float32"), 8, 6)
+    tm = MolDiff(_model_cfg(ck_t, "float32"), 8, 6, device="cpu")
+    for steps, gamma in ((50, 1.0), (30, 2.0)):
+        (jpos, jnode, jedge), jmap = jm._respaced(steps, gamma)
+        (tpos, tnode, tedge), tmap = tm._respaced(steps, gamma)
+        np.testing.assert_array_equal(tmap, np.asarray(jmap))
+        for name in ("alphas_bar", "alphas_bar_prev", "coef_x0", "coef_xt", "std"):
+            np.testing.assert_allclose(getattr(tpos, name).numpy(),
+                                       np.asarray(getattr(jpos, name)), rtol=1e-6, atol=0)
+        for jt, tt in ((jnode, tnode), (jedge, tedge)):
+            for name in ("alphas_bar", "q_mats", "transpose_q_onestep_mats", "init_prob"):
+                np.testing.assert_allclose(getattr(tt, name).numpy(),
+                                           np.asarray(getattr(jt, name)), rtol=1e-6, atol=0)
+        assert tm._respaced(steps, gamma)[0] is tm._respaced(steps, gamma)[0]   # cached
+
+
+# (commit, pos_sampler, respaced steps or None); the first two keep the ids
+# this test had before it took the other modes
+STEP_CASES = [("none", "ddpm", None), ("nodes", "ddpm", None), ("edges", "ddpm", None),
+              ("both", "ddpm", None), ("none", "ddim", None), ("nodes", "ddim", None),
+              ("edges", "ddim", None), ("both", "ddim", None), ("both", "ddim", 50)]
+
+
+def _step_id(case):
+    commit, sampler, steps = case
+    if steps:
+        return f"{commit}-{sampler}-s{steps}"
+    return commit if sampler == "ddpm" else f"{commit}-{sampler}"
+
+
+@pytest.mark.parametrize("case", STEP_CASES, ids=[_step_id(c) for c in STEP_CASES])
+def test_reverse_step_given_same_noise(demo, case):
     """One reverse step (float32, the committed demo checkpoint, B = 2,
     N = 16) equals the JAX scan body given the noise JAX draws from the
-    step's key: positions to 1e-4, the sampled atom and bond classes, the
-    commit state and the carried log-posteriors. The JAX body reads the
-    denoiser predictions that MolDiff.forward gives for the step's inputs
-    (forward parity is the flagship tests above), so the JAX side runs only
-    the step's own arithmetic."""
+    step's key, for every commit mode, both position samplers (ddim with
+    eta 0.5) and a respaced step (50 of 200): positions to 1e-5, the
+    sampled atom and bond classes, the commit state of atoms and half-edges
+    and the carried log-posteriors to 1e-4. The JAX body reads the denoiser
+    predictions that MolDiff.forward gives for the step's inputs at the
+    original timestep (forward parity is the flagship tests above), so the
+    JAX side runs only the step's own arithmetic, and the port's own forward
+    must read that timestep too."""
     from moldiff_tpu.models.moldiff import MolDiffPreds as JPreds
 
+    commit, pos_sampler, num_steps = case
+    eta = 0.5 if pos_sampler == "ddim" else 0.0
     ck_j, ck_t = demo
     jm = JMolDiff(_model_cfg(ck_j, "float32"), 8, 6)
     tm = MolDiff(_model_cfg(ck_t, "float32"), 8, 6, device="cpu")
@@ -147,18 +187,26 @@ def test_reverse_step_given_same_noise(demo, commit):
     log_node = np.log(np.clip(node, 1e-30, None))
     log_edge = np.log(np.clip(edge, 1e-30, None))
     com_node = np.where(rng.uniform(size=(b, n)) < 0.3, rng.integers(0, 7, (b, n)), -1)
-    step = 60
+    com_edge = np.where(rng.uniform(size=(b, e)) < 0.2, rng.integers(1, 6, (b, e)), -1)
+    transitions = t_map = None
+    step = t_model = 60
+    if num_steps:
+        transitions, t_map = jm._respaced(num_steps)
+        step = 15
+        t_model = int(t_map[step])
+        assert t_model != step
     preds = tm.forward(ck_t["params"], torch.tensor(node), torch.tensor(pos),
-                       torch.tensor(edge), torch.full((b,), step), torch.tensor(mask))
+                       torch.tensor(edge), torch.full((b,), t_model), torch.tensor(mask))
     jm.forward = lambda *a, **k: JPreds(*(jnp.asarray(p.numpy()) for p in preds))
     body = jm._make_scan_body(ck_j["params"], jnp.asarray(mask), None, None, False,
-                              commit=commit)
+                              transitions=transitions, t_map=t_map, pos_sampler=pos_sampler,
+                              eta=eta, commit=commit)
     key = jax.random.key(11)
     carry = (jnp.asarray(pos), jnp.asarray(node), jnp.asarray(edge), jnp.asarray(log_node),
              jnp.asarray(log_edge),
-             (jnp.asarray(com_node, jnp.int32), jnp.full((b, e), -1, jnp.int32)),
+             (jnp.asarray(com_node, jnp.int32), jnp.asarray(com_edge, jnp.int32)),
              jm.forward(), key)
-    (pos_j, node_j, edge_j, lnode_j, ledge_j, (com_j, _), preds_j, _), _ = body(carry, step)
+    (pos_j, node_j, edge_j, lnode_j, ledge_j, (com_j, come_j), preds_j, _), _ = body(carry, step)
 
     _, k_pos, k_node, k_edge = jax.random.split(key, 4)
     noise = StepNoise(
@@ -167,19 +215,25 @@ def test_reverse_step_given_same_noise(demo, commit):
         edge=torch.tensor(np.asarray(jax.random.uniform(k_edge, (b, e, 6), jnp.float32))))
     state = SampleState(torch.tensor(pos), torch.tensor(node), torch.tensor(edge),
                         torch.tensor(log_node), torch.tensor(log_edge),
-                        torch.tensor(com_node).long())
-    out = tm.reverse_step(ck_t["params"], state, step, torch.tensor(mask), noise, commit=commit)
+                        torch.tensor(com_node).long(), torch.tensor(com_edge).long())
+    out = tm.reverse_step(ck_t["params"], state, step, torch.tensor(mask), noise, commit=commit,
+                          transitions=tm._respaced(num_steps)[0] if num_steps else None,
+                          t_model=t_model if num_steps else None, pos_sampler=pos_sampler,
+                          eta=eta)
     np.testing.assert_allclose(out.pos.numpy(), np.asarray(pos_j), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(out.h_node.numpy(), np.asarray(node_j))
     np.testing.assert_array_equal(out.h_halfedge.numpy(), np.asarray(edge_j))
     np.testing.assert_array_equal(out.com_node.numpy(), np.asarray(com_j))
+    np.testing.assert_array_equal(out.com_edge.numpy(), np.asarray(come_j))
     np.testing.assert_allclose(out.log_node.numpy(), np.asarray(lnode_j), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(out.log_halfedge.numpy(), np.asarray(ledge_j),
                                rtol=1e-4, atol=1e-4)
     for g, w in zip(out.preds, preds_j):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5)
-    if commit == "nodes":
+    if commit in ("nodes", "both"):
         assert (out.com_node.numpy() >= 0).sum() > (com_node >= 0).sum()  # a reveal happened
+    if commit in ("edges", "both"):
+        assert (out.com_edge.numpy() >= 0).sum() > (com_edge >= 0).sum()
 
 
 # ---------------------------------------------------------------------------

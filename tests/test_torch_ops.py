@@ -11,11 +11,13 @@ from moldiff_tpu.models import nn as jnn
 from moldiff_tpu.ops import categorical as jcat
 from moldiff_tpu.ops import gaussian as jgauss
 from moldiff_tpu.ops import graph_ops as jgo
+from moldiff_tpu.ops import respace as jrespace
 from moldiff_tpu.ops import schedules as jsched
 from moldiff_tpu_torch.models import nn as tnn
 from moldiff_tpu_torch.ops import categorical as tcat
 from moldiff_tpu_torch.ops import gaussian as tgauss
 from moldiff_tpu_torch.ops import graph_ops as tgo
+from moldiff_tpu_torch.ops import respace as trespace
 from moldiff_tpu_torch.ops import schedules as tsched
 
 T = 1000
@@ -149,3 +151,36 @@ def test_categorical_draws_given_uniforms(prior, k):
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     np.testing.assert_array_equal(np.asarray(want_oh), got_oh.numpy())
     np.testing.assert_array_equal(np.asarray(want_log), got_log.numpy())
+
+
+@pytest.mark.parametrize("T,S,gamma", [(1000, 100, 1.0), (1000, 25, 3.0), (1000, 1000, 1.0),
+                                       (200, 50, 0.5), (20, 10, 2.0), (1000, 1, 1.0)])
+def test_respace_equals_jax(T, S, gamma):
+    """The copied respacing gives the same kept timesteps and bit-identical
+    composed float64 betas, with warped spacing (gamma != 1) too."""
+    sub = trespace.respace_timesteps(T, S, gamma)
+    np.testing.assert_array_equal(sub, jrespace.respace_timesteps(T, S, gamma))
+    betas = jsched.get_beta_schedule(num_timesteps=T, **SEGMENT if T == 1000 else ADVANCE)
+    np.testing.assert_array_equal(trespace.respaced_betas(betas, sub),
+                                  jrespace.respaced_betas(betas, sub))
+
+
+@pytest.mark.parametrize("eta", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("t", [0, 1, 250, 999])
+def test_ddim_step(t, eta):
+    """ddim_prev given the noise JAX draws from the step's key equals JAX's
+    to 1e-5; at t = 0 it returns x_recon exactly."""
+    betas = jsched.get_beta_schedule(num_timesteps=T, **ADVANCE)
+    jt, tt = jgauss.GaussianTransition(betas), tgauss.GaussianTransition(betas)
+    rng = np.random.default_rng(t)
+    x_t = rng.normal(size=(2, 5, 3)).astype(np.float32)
+    x0 = (0.5 * rng.normal(size=(2, 5, 3))).astype(np.float32)
+    tv = np.full((2,), t, np.int32)
+    key = jax.random.key(t + 1)
+    want = jt.ddim_prev(jnp.asarray(x_t), jnp.asarray(x0), jnp.asarray(tv), key, eta=eta)
+    noise = np.asarray(jax.random.normal(key, x_t.shape, jnp.float32))
+    got = tt.ddim_prev(torch.tensor(x_t), torch.tensor(x0), torch.tensor(tv).long(),
+                       torch.tensor(noise), eta=eta)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    if t == 0:
+        np.testing.assert_array_equal(got.numpy(), x0)
