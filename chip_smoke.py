@@ -10,9 +10,12 @@
                                         # a longer path-B phase (fuse_block), for its rate
   python3 chip_smoke.py --gate s100 [--gate-num-mols 1000 --gate-batch-size 128] --budget-s 3300
                                         # one sampling gate alone (after the build)
+  python3 chip_smoke.py --train-gate demo_scratch --budget-s 1500
+                                        # one training check alone (after the build)
 
 Phases, each asserting and none catching a failure:
-  1. environment: torch and CUDA versions, the card's name and power limit;
+  1. environment: torch and CUDA versions, the card's name and power limit,
+     and whether scipy and yaml import there (printed only);
   2. build: nvcc builds the kernels of moldiff_tpu_torch/csrc;
   3. kernel checks: each forward kernel (rows 1, 2, 4, 6, 8) against its
      plain PyTorch version on the card, at flagship widths, N = 32 and 40,
@@ -108,7 +111,23 @@ Phases, each asserting and none catching a failure:
      names the card; two POST /generate with seed 7 return the same SMILES;
      one with format sdf; two concurrent unseeded requests share one pool
      (coalesced 2); launches as in phase 15 over the chains the requests
-     ran; each request's latency printed.
+     ran; each request's latency printed;
+ 17. the bond predictor's training: the bond CLI's run() with the settings
+     of configs/train/train_bondpred_v2.yml from ckpts/bondpred_40k.ckpt
+     (step 40000, the checkpoint that config resumes) at batch 128, two
+     steps in each bucket (32, 40) on phase 10's corpus; each step's
+     launches rows 1, 4 and rows 3, 5 in full mode (grad.cu's kernels
+     included) per call x 8 blocks, none of rows 2, 6-9; one eval step, one
+     scheduler step and the checkpoint reloaded; then phase 9 (its rule and
+     constants) on the predictor's loss at B = 16, N = 32;
+ 18. training from scratch: the train CLI's run() with the settings of
+     configs/train/train_full_synthetic_xl_scratch.yml and no checkpoint
+     (params drawn on the card from train.seed), batch 128, bucket 32, on
+     the first 400 molecules of its synthetic_xl recipe, 3 steps with
+     ckpt_freq 1, keep_ckpts 2 and the config's async checkpoints; each
+     step's launches rows 1, 4, 8 and 3, 5, 9 per call x 6 blocks; exactly
+     2 numeric checkpoints remain, the last equal to the final state; then
+     one step with grad_accum 2 on that state, twice a step's launches.
 --gate NAME runs one sampling gate instead of the phases (after 1 and 2):
 the settings of a committed YAML with named overrides (GATES; a CPU test
 holds each equal to its YAML plus its overrides): s100, ddim_s100,
@@ -117,6 +136,18 @@ commit_both, commit_none, ema_none (use_ema, commit none), connect
 edge_guidance_tmax 300) over sample_flagship_v2.yml, and guided
 (sample_flagship_v2_guided.yml as written, add_edge distance); its launches
 must equal one reverse step's with the same settings x steps x chains.
+--train-gate NAME runs one training check instead (after phases 1 and 2),
+4000 steps from scratch on the ./data/synthetic recipe (8000 molecules,
+made in memory while the kernels build): demo_scratch
+(configs/train/train_demo_synthetic_30k.yml) prints its eight validation
+losses beside JAX's run of the same config (results/demo30k_metrics.jsonl)
+and passes when their means lie within 0.10; bondpred_demo_scratch
+(configs/train/train_bondpred_demo.yml) evaluates its predictor and the
+committed ckpts/demo_bondpred_4k.ckpt (JAX's step 4000 of that config) on
+the whole validation split with the same noise under four seeds, and
+passes when the port's loss is at most 1.10 x the committed one's and its
+acc_bond at most 0.03 below. Every step of either launches the kernels of
+its route, as many as the first step.
 The last line is {"ok": true, "device": {...}}. A hang ends in a traceback
 and a non-zero exit (faulthandler) before the budget runs out. The script
 imports only torch, numpy, the standard library and moldiff_tpu_torch.
@@ -126,6 +157,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import faulthandler
+import functools
 import json
 import math
 import multiprocessing
@@ -193,9 +225,13 @@ GUIDED_SETTINGS = {
 # profile_steps --train runs the same settings (a CPU test holds it equal
 # to the YAML file); a copy of this script without the package stops in main()
 try:
+    from moldiff_tpu_torch.train.settings import (TRAIN_BONDPRED_DEMO, TRAIN_BONDPRED_V2,
+                                                  TRAIN_DEMO_SYNTHETIC_30K,
+                                                  TRAIN_FULL_SYNTHETIC_XL_SCRATCH)
     from moldiff_tpu_torch.train.settings import TRAIN_V2_CONT as TRAIN_SETTINGS
 except ImportError:
-    TRAIN_SETTINGS = None
+    TRAIN_SETTINGS = TRAIN_BONDPRED_V2 = TRAIN_BONDPRED_DEMO = None
+    TRAIN_DEMO_SYNTHETIC_30K = TRAIN_FULL_SYNTHETIC_XL_SCRATCH = None
 # the fine-tuning phase: steps per bucket; the in-memory corpus holds
 # TRAIN_MOLS_PER_BUCKET molecules of each bucket (one batch each per epoch)
 TRAIN_STEPS_PER_BUCKET = 2
@@ -222,6 +258,39 @@ TRAIN_MEAN_ERR_RATIO = 1.5
 TRAIN_WITNESS_RATIO = 2.0
 TRAIN_BWD_LEAF_MAX_FRAC = 0.05
 TRAIN_WITNESS_SEEDS = (0, 1, 2)
+# phase 17: the bond predictor's training (configs/train/train_bondpred_v2.yml)
+# from the checkpoint that config resumes, on phase 10's corpus
+BOND_PREDICTOR_40K = "ckpts/bondpred_40k.ckpt"
+# phase 18: training from scratch (configs/train/train_full_synthetic_xl_scratch.yml):
+# its steps (a checkpoint after each, SCRATCH_KEEP kept), on the first
+# SCRATCH_CORPUS_MOLS molecules of its corpus recipe (synthetic_xl, v1)
+SCRATCH_STEPS = 3
+SCRATCH_KEEP = 2
+SCRATCH_CORPUS_MOLS = 400
+# --train-gate NAME: a training run from scratch of TRAIN_GATE_STEPS steps on
+# the ./data/synthetic recipe (8000 molecules, seed 7, v1, split 80/10/10)
+TRAIN_GATES = {"demo_scratch": TRAIN_DEMO_SYNTHETIC_30K,
+               "bondpred_demo_scratch": TRAIN_BONDPRED_DEMO}
+TRAIN_GATE_STEPS = 4000
+TRAIN_GATE_CORPUS = ("./data/synthetic", 8000)
+# demo_scratch: JAX's validation losses of the same config from scratch
+# (results/demo30k_metrics.jsonl, "val/loss"; a CPU test holds the two
+# equal); it passes when the mean of the port's at these steps lies within
+# DEMO_VAL_MEAN_TOL of the mean of JAX's (1.7089)
+JAX_DEMO30K_VAL = {500: 1.8426229655742645, 1000: 1.7408255636692047,
+                   1500: 1.7310275733470917, 2000: 1.626937747001648,
+                   2500: 1.663754940032959, 3000: 1.6986547410488129,
+                   3500: 1.7342965304851532, 4000: 1.633127123117447}
+DEMO_VAL_MEAN_TOL = 0.10
+# bondpred_demo_scratch: the port's step-4000 predictor and the committed
+# ckpts/demo_bondpred_4k.ckpt (the same config's step 4000 in JAX) on the
+# whole validation split, the same noise for both under each seed; it passes
+# when the port's mean loss is at most BONDPRED_LOSS_RATIO x the committed
+# one's and its acc_bond at most BONDPRED_ACC_DROP below
+DEMO_BONDPRED_4K = "ckpts/demo_bondpred_4k.ckpt"
+BONDPRED_EVAL_SEEDS = (0, 1, 2, 3)
+BONDPRED_LOSS_RATIO = 1.10
+BONDPRED_ACC_DROP = 0.03
 # the guidance delta (8 predictor blocks forward and backward in bf16) with
 # kernels against it with plain versions: one-ulp bf16 differences grow
 # through the blocks and their gradients, so the bound is on the largest
@@ -905,17 +974,45 @@ def collect_corpus(futures) -> dict:
     return {"train": recs, "val": recs[:16], "test": []}
 
 
-def train_batch(records: list, b: int, n: int, device) -> dict:
-    """The first b records of at most n atoms as one padded batch on the card."""
+def featurizer(settings: dict):
+    from moldiff_tpu_torch.data.featurize import featurizer_from_config
+    from moldiff_tpu_torch.utils.config import Config
+
+    return featurizer_from_config(Config(settings))
+
+
+def train_model(settings: dict, device, dtype: "str | None" = None):
+    """The model of a training configuration (MolDiff or BondPredictor),
+    its compute dtype set to ``dtype`` when given."""
+    import copy
+
+    from moldiff_tpu_torch.models.bond_predictor import BondPredictor
+    from moldiff_tpu_torch.models.moldiff import MolDiff
+
+    cfg = copy.deepcopy(settings["model"])
+    if dtype is not None:
+        net(cfg)["dtype"] = dtype
+    feat = featurizer(settings)
+    cls = BondPredictor if cfg.get("name") == "bond_predictor" else MolDiff
+    return cls(cfg, feat.num_node_types, feat.num_edge_types, device=device)
+
+
+def net(model_cfg: dict) -> dict:
+    """The NodeEdgeNet section of a model config: the denoiser's or the bond
+    predictor's encoder."""
+    return model_cfg["encoder" if model_cfg.get("name") == "bond_predictor" else "denoiser"]
+
+
+def train_batch(records: list, b: int, n: int, device, settings: "dict | None" = None) -> dict:
+    """The first b records of at most n atoms as one padded batch on the
+    card, featurized as ``settings`` (by default TRAIN_SETTINGS) say."""
     import numpy as np
 
     from moldiff_tpu_torch.data.batching import pad_mols
-    from moldiff_tpu_torch.data.featurize import featurizer_from_config
     from moldiff_tpu_torch.data.loader import featurize_record
     from moldiff_tpu_torch.train.trainer import batch_to_device
-    from moldiff_tpu_torch.utils.config import Config
 
-    feat = featurizer_from_config(Config(TRAIN_SETTINGS))
+    feat = featurizer(settings or TRAIN_SETTINGS)
     rng = np.random.default_rng(0)
     mols = [featurize_record(r, feat, rng) for r in records if len(r["element"]) <= n][:b]
     assert len(mols) == b
@@ -940,16 +1037,25 @@ def with_denoiser(settings: dict, **flags) -> dict:
 
 
 def route(settings: dict) -> str:
-    den = settings["model"]["denoiser"]
+    den = net(settings["model"])
     return "fuse_block" if den.get("fuse_block") else "edge_full" if den.get("edge_full") \
         else "partial"
 
 
+def train_kernels(settings: dict) -> tuple:
+    """The kernels a training step of ``settings`` runs: its route's, less
+    PosUpdate's without ``update_pos`` (the bond predictor)."""
+    runs = TRAIN_ROUTES[route(settings)]
+    if not net(settings["model"]).get("update_pos", True):
+        runs = tuple(k for k in runs if not k.startswith("pos_update"))
+    return runs
+
+
 def train_launches(settings: dict, results: dict) -> dict:
     """Each kernel's launches in one training step of ``settings``: its
-    launches per call x the blocks, for the kernels of its route, else 0."""
-    blocks = settings["model"]["denoiser"]["num_blocks"]
-    runs = TRAIN_ROUTES[route(settings)]
+    launches per call x the blocks, for the kernels it runs, else 0."""
+    blocks = net(settings["model"])["num_blocks"]
+    runs = train_kernels(settings)
     return {name: results[name]["per_call"] * blocks if name in runs else 0 for name in KERNELS}
 
 
@@ -982,15 +1088,13 @@ def ulp_witness(kern, plain, gen, shares: list):
 def check_train_gradient(params, records: list, device, settings: dict, b: int = 16,
                          n: int = 32) -> dict:
     """Phase 9: the training loss and every parameter gradient of
-    flagship_v2 with ``settings`` at B = b, N = n, kernels against plain
-    versions, both bf16, with the plain versions at float32 as the ground
-    truth; each forward kernel of the route alone, its backward kernels
-    alone, and the one-ulp witness against plain."""
-    import copy
-
+    ``params`` (flagship_v2's; phase 17: bondpred_40k's) with ``settings``
+    at B = b, N = n, kernels against plain versions, both bf16, with the
+    plain versions at float32 as the ground truth; each forward kernel of
+    the route alone, its backward kernels alone, and the one-ulp witness
+    against plain."""
     import torch
 
-    from moldiff_tpu_torch.models.moldiff import MolDiff
     from moldiff_tpu_torch.ops import kernels as K
     from moldiff_tpu_torch.train.optim import global_norm, tree_leaves, tree_unflatten
 
@@ -1001,11 +1105,9 @@ def check_train_gradient(params, records: list, device, settings: dict, b: int =
             return [tree_map_paths(v, f"{path}/{k}") for k, v in enumerate(tree)]
         return path
 
-    cfg32 = copy.deepcopy(settings["model"])
-    cfg32["denoiser"]["dtype"] = "float32"
-    model = MolDiff(settings["model"], 8, 6, device=device)
-    model32 = MolDiff(cfg32, 8, 6, device=device)
-    batch = train_batch(records, b, n, device)
+    model = train_model(settings, device)
+    model32 = train_model(settings, device, dtype="float32")
+    batch = train_batch(records, b, n, device, settings)
     noise = model.draw_loss_noise(b, n, torch.Generator(device=device).manual_seed(9))
     kern = {name: getattr(K, fn) for name, fn in KERNEL_FUNCTIONS.items()}
     plain = {name: getattr(K, fn + "_plain") for name, fn in KERNEL_FUNCTIONS.items()}
@@ -1024,7 +1126,7 @@ def check_train_gradient(params, records: list, device, settings: dict, b: int =
                 setattr(K, fn, kern[name])
         return float(loss.detach()), grads
 
-    runs = TRAIN_ROUTES[route(settings)]
+    runs = train_kernels(settings)
     fwd_kernels = [k for k in runs if not k.endswith("_bwd")]
     bwd_kernels = [k for k in runs if k.endswith("_bwd")]
     before = dict(K.launch_counts)
@@ -1057,7 +1159,7 @@ def check_train_gradient(params, records: list, device, settings: dict, b: int =
     mean_k, mean_p = statistics.mean(err_k), statistics.mean(err_p)
     top = worst(differ)
     at_top = lambda fr: fr[paths.index(top[1])]
-    say(f"train gradient ({route(settings)}) B={b} N={n}: loss kernels {loss_k:.6f} plain "
+    say(f"train gradient ({settings['model']['name']}, {route(settings)}) B={b} N={n}: loss kernels {loss_k:.6f} plain "
         f"{loss_p:.6f} float32 "
         f"{loss_t:.6f}; grad norm kernels {norm_k:.6f} plain {norm_p:.6f}; mean error against "
         f"float32: kernels {mean_k:.4g}, plain {mean_p:.4g}; launches {launched}")
@@ -1076,10 +1178,10 @@ def check_train_gradient(params, records: list, device, settings: dict, b: int =
         fr = frac(grads)
         say(f"  one-ulp witness, seed {seed}: median {statistics.median(fr):.3g}, largest "
             f"{worst(fr)[0]:.3g} ({worst(fr)[1]}), on {top[1]} {at_top(fr):.3g}")
-    pos_bwd = max((f, p) for f, p in zip(bwd, paths) if "/pos_block/" in p)
+    pos_bwd = max(((f, p) for f, p in zip(bwd, paths) if "/pos_block/" in p), default=None)
     say(f"  the backward kernels alone: median {statistics.median(bwd):.3g}, largest "
-        f"{worst(bwd)[0]:.3g} ({worst(bwd)[1]}), largest pos_block leaf {pos_bwd[0]:.3g} "
-        f"({pos_bwd[1]})")
+        f"{worst(bwd)[0]:.3g} ({worst(bwd)[1]})" + (
+            f", largest pos_block leaf {pos_bwd[0]:.3g} ({pos_bwd[1]})" if pos_bwd else ""))
     assert abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p), (loss_k, loss_p)
     assert abs(norm_k - norm_p) <= TRAIN_NORM_RTOL * norm_p, (norm_k, norm_p)
     assert top[0] <= TRAIN_LEAF_MAX_FRAC, top
@@ -1103,13 +1205,12 @@ def check_train_kernels(params, records: list, results: dict, device, settings: 
     events."""
     import torch
 
-    from moldiff_tpu_torch.models.moldiff import MolDiff
     from moldiff_tpu_torch.ops import kernels as K
     from moldiff_tpu_torch.train.optim import tree_leaves, tree_unflatten
 
     b, n = settings["train"]["batch_size"], max(settings["train"]["buckets"])
-    model = MolDiff(settings["model"], 8, 6, device=device)
-    batch = train_batch(records, b, n, device)
+    model = train_model(settings, device)
+    batch = train_batch(records, b, n, device, settings)
     noise = model.draw_loss_noise(b, n, torch.Generator(device=device).manual_seed(5))
     kern = {name: getattr(K, fn) for name, fn in KERNEL_FUNCTIONS.items()}
     captured = {}
@@ -1139,37 +1240,54 @@ def check_train_kernels(params, records: list, results: dict, device, settings: 
             check_modes(name, captured[name], blk0, results, what, iters=10)
 
 
+def check_step_terms(step: dict, settings: dict) -> None:
+    """Every loss term, accuracy and the gradient norm that a training step
+    of ``settings``' model reports is in the step record and finite: loss,
+    loss_pos, loss_node, loss_edge, loss_len and grad_norm for MolDiff;
+    loss, loss_edge, acc_bond and grad_norm for the bond predictor."""
+    names = ("loss", "loss_pos", "loss_node", "loss_edge", "loss_len", "grad_norm")
+    if settings["model"]["name"] == "bond_predictor":
+        names = ("loss", "loss_edge", "acc_bond", "grad_norm")
+    assert all(math.isfinite(step[k]) for k in names), step
+
+
 def fine_tune(corpus: dict, results: dict, device, settings: dict,
-              steps_per_bucket: int = TRAIN_STEPS_PER_BUCKET) -> tuple:
-    """Phase 10: the train CLI's run() with ``settings`` from flagship_v2 at
-    batch 128, ``steps_per_bucket`` steps in each bucket (or one step in
-    all, with 0); launch counts set to 0 just before and read just after,
-    each step's equal to train_launches(). Then one eval step, one scheduler
-    step and the written checkpoint reloaded in the port, its config
-    carrying the route's flags."""
+              steps_per_bucket: int = TRAIN_STEPS_PER_BUCKET,
+              checkpoint: str = CHECKPOINT) -> tuple:
+    """Phase 10 (and 17): the train CLI's run() with ``settings`` from
+    flagship_v2 (--reset_ema, --reset_optim), or the bond CLI's from
+    ``checkpoint`` for a bond predictor's settings, at batch 128,
+    ``steps_per_bucket`` steps in each bucket (or one step in all, with 0);
+    launch counts set to 0 just before and read just after, each step's
+    equal to train_launches(). Then one eval step, one scheduler step and
+    the written checkpoint reloaded in the port, its config carrying the
+    route's flags."""
     import torch
 
     from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.train import bond_cli
     from moldiff_tpu_torch.train import cli as train_cli
     from moldiff_tpu_torch.train.optim import tree_leaves
     from moldiff_tpu_torch.train.trainer import Trainer
     from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
 
-    start = int(load_checkpoint_numpy(CHECKPOINT)["step"])
+    start = int(load_checkpoint_numpy(checkpoint)["step"])
     steps = max(2 * steps_per_bucket, 1)
+    name = os.path.splitext(os.path.basename(checkpoint))[0]
+    run = functools.partial(train_cli.run, reset_ema=True, reset_optim=True)
+    if settings["model"]["name"] == "bond_predictor":
+        run = bond_cli.run
     kernels.reset_launch_counts()
-    out = train_cli.run(settings, CHECKPOINT, device=device,
-                        logdir=os.path.join("outputs_torch", "chip_smoke"),
-                        name=f"train_v2_cont_{route(settings)}", max_iters=start + steps,
-                        reset_ema=True, reset_optim=True, subsets=corpus,
-                        log=lambda m: say(f"  {m}"))
+    out = run(settings, checkpoint, device=device,
+              logdir=os.path.join("outputs_torch", "chip_smoke"),
+              name=f"train_{name}_{route(settings)}", max_iters=start + steps, subsets=corpus,
+              log=lambda m: say(f"  {m}"))
     counts = dict(kernels.launch_counts)
     per_step = train_launches(settings, results)
     by_bucket = {}
     for st in out["steps"]:
         assert st["launches"] == per_step, (st["it"], st["launches"], per_step)
-        assert all(math.isfinite(st[k]) for k in ("loss", "loss_pos", "loss_node",
-                                                   "loss_edge", "loss_len", "grad_norm"))
+        check_step_terms(st, settings)
         by_bucket.setdefault(st["n"], []).append(st["s"])
         say(f"  train step {st['it']} N={st['n']}: {st['s']:.4f} s loss {st['loss']:.4f} "
             f"grad_norm {st['grad_norm']:.4f}")
@@ -1178,9 +1296,10 @@ def fine_tune(corpus: dict, results: dict, device, settings: dict,
         assert all(len(v) >= steps_per_bucket for v in by_bucket.values()), by_bucket
     assert counts == {k: v * len(out["steps"]) for k, v in per_step.items()}, counts
     trainer, state = out["trainer"], out["state"]
-    batch = train_batch(corpus["val"], 16, 40, device)
+    batch = train_batch(corpus["val"], 16, 40, device, settings)
     gen = torch.Generator(device=device).manual_seed(3)
-    vaux = trainer.eval_step(state.params, batch, trainer.draw_noise(batch, gen))
+    vaux = trainer.eval_step(state.params, batch,
+                             trainer.draw_noise(batch, gen))
     lr0 = state.opt_state.lr
     state = trainer.scheduler_step(state, float(vaux["loss"]))
     assert math.isfinite(float(vaux["loss"])) and state.opt_state.lr == lr0
@@ -1189,11 +1308,11 @@ def fine_tune(corpus: dict, results: dict, device, settings: dict,
     assert back.step == start + steps and back.opt_state.count == steps
     for a, b in zip(tree_leaves(back.params), tree_leaves(state.params)):
         assert torch.equal(a, b)
-    saved = load_checkpoint_numpy(path)["config"]["model"]["denoiser"]
+    saved = net(load_checkpoint_numpy(path)["config"]["model"])
     for flag in ("fuse_block", "edge_full"):
-        assert bool(saved.get(flag)) == bool(settings["model"]["denoiser"].get(flag)), saved
+        assert bool(saved.get(flag)) == bool(net(settings["model"]).get(flag)), saved
     s_step = {n: statistics.mean(v[1:] or v) for n, v in sorted(by_bucket.items())}
-    say(f"fine-tuning ({route(settings)}): {len(out['steps'])} steps at batch "
+    say(f"fine-tuning {name} ({route(settings)}): {len(out['steps'])} steps at batch "
         f"{settings['train']['batch_size']}, s/step by bucket (first step of each left out) "
         f"{s_step}, eval loss {float(vaux['loss']):.4f}, checkpoint {path} reloaded (its "
         f"denoiser config {dict(saved)}); launches {counts}")
@@ -1397,6 +1516,191 @@ def step_launches(sampler, params, device) -> dict:
     return counts
 
 
+def _make_corpus(args: tuple) -> dict:
+    from moldiff_tpu_torch.data.dataset import make_corpus
+
+    return make_corpus(*args)
+
+
+def check_bond_training(corpus: dict, results: dict, device) -> dict:
+    """Phase 17: the bond CLI's run() with TRAIN_BONDPRED_V2 from
+    bondpred_40k (step 40000) at batch 128, two steps in each bucket on
+    phase 10's corpus; each step's launches rows 1, 4 and rows 3, 5 in full
+    mode (grad.cu's kernels included) per call x 8 blocks, none of the
+    others; one eval step, one scheduler step and the checkpoint reloaded
+    (fine_tune). Then the predictor's loss and every gradient at B = 16,
+    N = 32, kernels against plain versions, under phase 9's rule
+    (check_train_gradient) on bondpred_40k's weights."""
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint
+
+    counts, _ = fine_tune(corpus, results, device, TRAIN_BONDPRED_V2,
+                          checkpoint=BOND_PREDICTOR_40K)
+    params = load_checkpoint(BOND_PREDICTOR_40K, device)["params"]
+    check_train_gradient(params, corpus["train"], device, TRAIN_BONDPRED_V2)
+    return counts
+
+
+def train_from_scratch(corpus: dict, results: dict, device) -> tuple:
+    """Phase 18: the train CLI's run() with TRAIN_FULL_SYNTHETIC_XL_SCRATCH
+    and no checkpoint (params drawn on the card from train.seed), batch 128,
+    bucket 32, SCRATCH_STEPS steps with ckpt_freq 1, keep_ckpts SCRATCH_KEEP
+    and the config's ckpt_async: each step's launches rows 1, 4, 8 and 3,
+    5, 9 per call x 6 blocks, every loss finite; exactly SCRATCH_KEEP
+    numeric checkpoints remain, the last equal to the final state. Then
+    one step with grad_accum 2 on that state: twice a step's launches.
+    Returns the launches of both."""
+    import copy
+
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.train import cli as train_cli
+    from moldiff_tpu_torch.train.optim import tree_leaves
+    from moldiff_tpu_torch.train.trainer import Trainer
+
+    settings = copy.deepcopy(TRAIN_FULL_SYNTHETIC_XL_SCRATCH)
+    settings["train"].update(ckpt_freq=1, keep_ckpts=SCRATCH_KEEP)
+    assert settings["train"]["ckpt_async"] and settings["train"]["buckets"] == [32]
+    kernels.reset_launch_counts()
+    out = train_cli.run(settings, None, device=device,
+                        logdir=os.path.join("outputs_torch", "chip_smoke"), name="train_xl_scratch",
+                        max_iters=SCRATCH_STEPS, subsets=corpus, log=lambda m: say(f"  {m}"))
+    counts = dict(kernels.launch_counts)
+    per_step = train_launches(settings, results)
+    assert [st["it"] for st in out["steps"]] == list(range(1, SCRATCH_STEPS + 1))
+    for st in out["steps"]:
+        assert st["launches"] == per_step, (st["it"], st["launches"], per_step)
+        check_step_terms(st, settings)
+        say(f"  scratch step {st['it']} N={st['n']}: {st['s']:.4f} s loss {st['loss']:.4f} "
+            f"grad_norm {st['grad_norm']:.4f}")
+    assert counts == {k: v * SCRATCH_STEPS for k, v in per_step.items()}, counts
+    ckpt_dir = os.path.join(out["log_dir"], "checkpoints")
+    kept = sorted(os.listdir(ckpt_dir), key=lambda f: int(f.split(".")[0]))
+    assert kept == [f"{it}.ckpt" for it in range(SCRATCH_STEPS - SCRATCH_KEEP + 1,
+                                                  SCRATCH_STEPS + 1)], kept
+    trainer, state = out["trainer"], out["state"]
+    back = Trainer(trainer.model, settings["train"]).load_checkpoint(
+        os.path.join(ckpt_dir, kept[-1]), device)
+    assert back.step == SCRATCH_STEPS and back.opt_state.count == SCRATCH_STEPS
+    for a, b in zip(tree_leaves((back.params, back.ema_params)),
+                    tree_leaves((state.params, state.ema_params))):
+        assert torch.equal(a, b)
+
+    accum = Trainer(trainer.model, dict(settings["train"], grad_accum=2))
+    batch = train_batch(corpus["train"], settings["train"]["batch_size"], 32, device, settings)
+    noise = accum.draw_step_noise(batch, torch.Generator(device=device).manual_seed(4))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    new, aux = accum.train_step(state, batch, noise)
+    aux = {k: float(v) for k, v in aux.items()}
+    dt = time.perf_counter() - t0
+    a_counts = dict(kernels.launch_counts)
+    assert a_counts == {k: 2 * v for k, v in per_step.items()}, a_counts
+    assert new.step == SCRATCH_STEPS + 1, new.step
+    check_step_terms(aux, settings)
+    say(f"from scratch: {SCRATCH_STEPS} steps at batch {settings['train']['batch_size']}, N = 32, "
+        f"kept {kept} (async, keep {SCRATCH_KEEP}), the last equal to the final state; "
+        f"launches {counts}; grad_accum 2: {dt:.4f} s loss {aux['loss']:.4f} grad_norm "
+        f"{aux['grad_norm']:.4f}, launches {a_counts}")
+    return counts, a_counts
+
+
+def bond_gate_eval(out: dict, settings: dict, corpus: dict, device) -> bool:
+    """bondpred_demo_scratch: the port's final predictor and the committed
+    DEMO_BONDPRED_4K on every validation molecule (batch 128, the config's
+    buckets), the same noise for both under each of BONDPRED_EVAL_SEEDS;
+    prints both means and returns whether the port meets the bars."""
+    import torch
+
+    from moldiff_tpu_torch.data.loader import BucketedLoader
+    from moldiff_tpu_torch.train.trainer import batch_to_device
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint
+
+    committed = load_checkpoint(DEMO_BONDPRED_4K, device)
+    assert committed["step"] == TRAIN_GATE_STEPS and committed["config"]["model"] == \
+        settings["model"], committed["config"]
+    trainer = out["trainer"]
+    models = {"port": out["state"].params, "committed": committed["params"]}
+    terms = {k: {"loss": [], "acc_bond": []} for k in models}
+    n_mols = 0
+    for seed in BONDPRED_EVAL_SEEDS:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        loader = BucketedLoader(corpus["val"], featurizer(settings),
+                                settings["train"]["batch_size"], settings["train"]["buckets"],
+                                shuffle=False, infinite=False, drop_last=False, prefetch=0)
+        for vb in loader:
+            batch = batch_to_device(vb, device)
+            n_mols += int((batch["node_mask"].sum(1) > 0).sum()) if seed == 0 else 0
+            noise = trainer.draw_noise(batch, gen)
+            for k, params in models.items():
+                aux = trainer.eval_step(params, batch, noise)
+                for t in terms[k]:
+                    terms[k][t].append(float(aux[t]))
+    mean = {k: {t: statistics.mean(v) for t, v in d.items()} for k, d in terms.items()}
+    passed = (mean["port"]["loss"] <= BONDPRED_LOSS_RATIO * mean["committed"]["loss"]
+              and mean["port"]["acc_bond"] >= mean["committed"]["acc_bond"] - BONDPRED_ACC_DROP)
+    say(f"bond predictors on the validation split ({n_mols} molecules, "
+        f"{len(terms['port']['loss']) // len(BONDPRED_EVAL_SEEDS)} batches, seeds "
+        f"{BONDPRED_EVAL_SEEDS}): port loss {mean['port']['loss']:.4f} acc_bond "
+        f"{mean['port']['acc_bond']:.4f}; committed {DEMO_BONDPRED_4K} loss "
+        f"{mean['committed']['loss']:.4f} acc_bond {mean['committed']['acc_bond']:.4f}; bars: "
+        f"loss <= {BONDPRED_LOSS_RATIO} x, acc_bond >= committed - {BONDPRED_ACC_DROP}: "
+        f"{'pass' if passed else 'miss'}")
+    return passed
+
+
+def run_train_gate(name: str, corpus: dict, device) -> None:
+    """--train-gate NAME: TRAIN_GATES[NAME] from scratch for TRAIN_GATE_STEPS
+    steps through the train or bond CLI's run(); every step launches what
+    the first does (the kernels of its route, none other) and every loss
+    is finite; then the gate's comparison with JAX. Fails on a miss, after
+    printing it."""
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.train import bond_cli
+    from moldiff_tpu_torch.train import cli as train_cli
+
+    settings = TRAIN_GATES[name]
+    is_bond = settings["model"]["name"] == "bond_predictor"
+    run = bond_cli.run if is_bond else train_cli.run
+    t0 = time.time()
+    kernels.reset_launch_counts()
+    out = run(settings, None, device=device, logdir=os.path.join("outputs_torch", "chip_smoke"),
+              name=f"gate_{name}", max_iters=TRAIN_GATE_STEPS, subsets=corpus,
+              log=lambda m: say(f"  {m}"))
+    wall = time.time() - t0
+    counts = dict(kernels.launch_counts)
+    first = out["steps"][0]["launches"]
+    assert {k for k, v in first.items() if v} == set(train_kernels(settings)), first
+    assert all(st["launches"] == first for st in out["steps"])
+    # the validation batches add forward launches only
+    steps = len(out["steps"])
+    assert all(counts[k] == v * steps if k.endswith("_bwd") else counts[k] >= v * steps
+               for k, v in first.items()), counts
+    for st in out["steps"]:
+        check_step_terms(st, settings)
+    by_bucket = {}
+    for st in out["steps"][1:]:
+        by_bucket.setdefault(st["n"], []).append(st["s"])
+    s_step = {n: round(statistics.mean(v), 5) for n, v in sorted(by_bucket.items())}
+    say(f"gate {name}: {len(out['steps'])} steps from scratch at batch "
+        f"{settings['train']['batch_size']}, s/step by bucket (steps) {s_step} "
+        f"({ {n: len(v) for n, v in sorted(by_bucket.items())} }), wall {wall:.1f} s, launches "
+        f"per step {first}")
+    if is_bond:
+        passed = bond_gate_eval(out, settings, corpus, device)
+    else:
+        port = {v["it"]: v["loss"] for v in out["val"]}
+        assert sorted(port) == sorted(JAX_DEMO30K_VAL), sorted(port)
+        for it, want in sorted(JAX_DEMO30K_VAL.items()):
+            say(f"  val loss at {it}: port {port[it]:.4f} JAX {want:.4f}")
+        mean_p = statistics.mean(port.values())
+        mean_j = statistics.mean(JAX_DEMO30K_VAL.values())
+        passed = abs(mean_p - mean_j) <= DEMO_VAL_MEAN_TOL
+        say(f"gate {name}: mean val loss port {mean_p:.4f} JAX {mean_j:.4f} (bar: within "
+            f"{DEMO_VAL_MEAN_TOL}): {'pass' if passed else 'miss'}")
+    assert passed, f"train gate {name}: missed its bar"
+
+
 def run_gate(cli, name: str, num_mols: int, batch_size: int, device) -> None:
     """--gate NAME: run() with gate_settings(NAME) until ``num_mols``
     finished at ``batch_size``; its launches are one reverse step's (with
@@ -1446,6 +1750,9 @@ def main() -> None:
     ap.add_argument("--gate", choices=sorted(GATES), default=None,
                     help="run only this gate (after the build): its settings until "
                          "--gate-num-mols finished at --gate-batch-size")
+    ap.add_argument("--train-gate", choices=sorted(TRAIN_GATES), default=None,
+                    help="run only this training check (after the build): TRAIN_GATES[NAME] "
+                         "from scratch for TRAIN_GATE_STEPS steps, against JAX's run")
     ap.add_argument("--gate-num-mols", type=int, default=1000)
     ap.add_argument("--gate-batch-size", type=int, default=128)
     ap.add_argument("--budget-s", type=float, default=540.0,
@@ -1473,15 +1780,28 @@ def main() -> None:
     device = torch.device("cuda", 0)
     assert "jax" not in sys.modules and "moldiff_tpu" not in sys.modules
 
-    # phase 10's corpus, made by worker processes while the kernels build
+    # the corpora of phases 10 and 18 (or of a training gate), made by worker
+    # processes while the kernels build
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=4, mp_context=multiprocessing.get_context("spawn"))
-    corpus_jobs = start_corpus(pool)
+    if args.train_gate:
+        gate_corpus_job = pool.submit(_make_corpus, TRAIN_GATE_CORPUS)
+    elif not args.gate:
+        corpus_jobs = start_corpus(pool)
+        scratch_job = pool.submit(_make_corpus, (TRAIN_FULL_SYNTHETIC_XL_SCRATCH["dataset"]["root"],
+                                                 SCRATCH_CORPUS_MOLS))
 
     # 1. environment
     smi = nvidia_smi()
     say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     say(f"card: {smi}")
+    # what the eval slice will need (printed only): does each module import here?
+    for module in ("scipy", "yaml"):
+        probe = subprocess.run([sys.executable, "-c", f"import {module}; print({module}.__version__)"],
+                               capture_output=True, text=True, timeout=120)
+        say(f"import {module}: " + (f"yes, {probe.stdout.strip()}" if probe.returncode == 0
+                                    else "no (" + (probe.stderr.strip().splitlines() or ["?"])[-1]
+                                    + ")"))
 
     # 2. build
     t0 = time.time()
@@ -1494,8 +1814,16 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             say(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
 
-    if args.gate:
-        run_gate(cli, args.gate, args.gate_num_mols, args.gate_batch_size, device)
+    if args.gate or args.train_gate:
+        if args.gate:
+            run_gate(cli, args.gate, args.gate_num_mols, args.gate_batch_size, device)
+        else:
+            t0 = time.time()
+            corpus = gate_corpus_job.result(timeout=900)
+            say(f"corpus {TRAIN_GATE_CORPUS}: {len(corpus['train'])} train, {len(corpus['val'])} "
+                f"val (ready {time.time() - t0:.1f} s after the build)")
+            run_train_gate(args.train_gate, corpus, device)
+        pool.shutdown()
         say(f"total {time.time() - t_start:.1f} s")
         say(nvidia_smi())
         faulthandler.cancel_dump_traceback_later()
@@ -1570,6 +1898,7 @@ def main() -> None:
 
     # 9. the training gradient, kernels against plain versions
     corpus = collect_corpus(corpus_jobs)
+    scratch_corpus = scratch_job.result(timeout=300)
     pool.shutdown()
     check_train_gradient(params, corpus["train"], device, TRAIN_SETTINGS)
     say(f"launches made by the checks (not counted below): {kernels.launch_counts}")
@@ -1632,7 +1961,20 @@ def main() -> None:
     s_counts = check_server(results, dn_blocks, device)
     say(f"phase 16 (server): {time.time() - t0:.1f} s")
 
-    main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts)
+    # 17. the bond predictor's training: the bond CLI from bondpred_40k, and
+    # its loss and gradient, kernels against plain versions
+    t0 = time.time()
+    b_counts = check_bond_training(corpus, results, device)
+    say(f"phase 17 (bond predictor training): {time.time() - t0:.1f} s")
+
+    # 18. training from scratch at the flagship widths, async and pruned
+    # checkpoints, and one grad_accum step
+    t0 = time.time()
+    x_counts, a_counts = train_from_scratch(scratch_corpus, results, device)
+    say(f"phase 18 (training from scratch): {time.time() - t0:.1f} s")
+
+    main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts,
+                  b_counts, x_counts, a_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(c[name] for c in main_paths),

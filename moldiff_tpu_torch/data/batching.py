@@ -1,10 +1,12 @@
 """Padded dense batches (the parts of moldiff_tpu/data/batching.py that
-sampling and training use)."""
+sampling and training use, and moldiff_tpu/parallel/mesh.py's
+``pad_batch_to_multiple``)."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..ops.graph_ops import num_halfedges
 
@@ -46,6 +48,16 @@ def pad_mols(mols: List[dict], n_max: Optional[int] = None) -> dict:
             halfedge_type[i, flat] = m["halfedge_type"]
     return {"node_type": node_type, "pos": pos, "halfedge_type": halfedge_type,
             "node_mask": node_mask_from_counts(sizes, n_max), "n_nodes": sizes}
+
+
+def pad_batch_to_multiple(batch: dict, multiple: int) -> dict:
+    """Pad the leading axis of every tensor to a multiple of ``multiple``
+    with zeros: the padded graphs have node_mask 0 and add nothing to any
+    masked reduction (mesh.py:337-349)."""
+    rem = (-next(iter(batch.values())).shape[0]) % multiple
+    if rem == 0:
+        return batch
+    return {k: torch.cat([v, v.new_zeros((rem,) + tuple(v.shape[1:]))]) for k, v in batch.items()}
 
 
 def unpad_arrays(batch_arrays, n_nodes: np.ndarray):

@@ -6,12 +6,17 @@ It runs the NodeEdgeNet encoder of models/denoiser.py with
 ``update_pos: false`` (distances computed once), so its gradient goes
 through the NodeBlock and EdgeBlock pair kernels, forward and backward.
 Sampling builds it with ``num_edge_types = num_bond_types + 1``: no mask
-class (scripts/sample_drug3d.py:191-197). Only the forward is ported; the
-loss is not.
+class (scripts/sample_drug3d.py:191-197).
+
+Training (bond_predictor.py:67-87, :172-219): :meth:`init_params` and the
+loss :meth:`get_loss`, a weighted cross-entropy on the clean bond labels
+given noised positions and atom types. Its random numbers (the antithetic
+time draw and the two forward noisings) come in as :class:`BondLossNoise`,
+so one loss can be checked against the JAX package's given the same noise.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,9 +24,16 @@ from ..ops import graph_ops
 from ..ops.categorical import CategoricalTransition
 from ..ops.gaussian import GaussianTransition
 from ..ops.schedules import get_beta_schedule
-from .denoiser import denoiser_static_config, node_edge_net, prepare_blocks
-from .moldiff import resolve_device
-from .nn import GaussianSmearing, linear, linear_parts, mlp
+from .denoiser import denoiser_static_config, init_node_edge_net, node_edge_net, prepare_blocks
+from .moldiff import masked_mean, resolve_device, sample_time_antithetic
+from .nn import GaussianSmearing, init_linear, init_mlp, linear, linear_parts, mlp
+
+
+class BondLossNoise(NamedTuple):
+    """The random numbers of one predictor loss (all None without time)."""
+    t: Optional[torch.Tensor]      # [B] int timesteps (sample_time_antithetic)
+    pos: Optional[torch.Tensor]    # [B, N, 3] standard normal
+    node: Optional[torch.Tensor]   # [B, N, Kn] uniform [0, 1)
 
 
 class BondPredictor:
@@ -51,7 +63,29 @@ class BondPredictor:
         self.edge_dim = config["edge_dim"]
         encoder_cfg = dict(config["encoder"])
         encoder_cfg.pop("backbone", None)
+        self._encoder_cfg = encoder_cfg
         self.encoder_static = denoiser_static_config(**encoder_cfg)
+        # cross-entropy class weights, "no bond" down-weighted (:60-62)
+        self.edge_weight = torch.tensor([0.1] + [1.0] * (num_edge_types - 1),
+                                        dtype=torch.float32, device=self.device)
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """Fresh float32 params on the predictor's device from ``generator``
+        (bond_predictor.py:67-87): the embedders without bias, the encoder
+        and a 3-layer edge decoder."""
+        dev = self.device
+        encoder, _ = init_node_edge_net(generator, self.node_dim, self.edge_dim, dev,
+                                        **self._encoder_cfg)
+        return {
+            "node_embedder": init_linear(generator, self.num_node_types,
+                                         self.node_dim - self.time_dim, bias=False, device=dev),
+            "edge_embedder": init_linear(generator, self.num_node_types * 2,
+                                         self.edge_dim - self.time_dim, bias=False, device=dev),
+            "encoder": encoder,
+            "edge_decoder": init_mlp(generator, self.edge_dim + self.node_dim,
+                                     self.num_edge_types, self.edge_dim, num_layer=3,
+                                     device=dev),
+        }
 
     def prepare(self, params: dict) -> list:
         """Per-block encoder params in the compute dtype, made once per
@@ -90,3 +124,44 @@ class BondPredictor:
         h_half_sym = graph_ops.dense_to_halfedge(graph_ops.symmetrize_dense(h_edge_out))
         h_node_pair = h_node_out[:, iu] + h_node_out[:, ju]
         return mlp(params["edge_decoder"], torch.cat([h_half_sym, h_node_pair], dim=-1))
+
+    # -- training loss ---------------------------------------------------------
+
+    def draw_loss_noise(self, b: int, n: int, generator: torch.Generator) -> BondLossNoise:
+        """Fresh noise for one :meth:`get_loss` on a [B, N] batch, drawn in
+        the order of JAX's ``split(key, 3)``: time, positions, atom types."""
+        if self.num_timesteps == 0:
+            return BondLossNoise(None, None, None)
+        dev = self.device
+        half = torch.randint(0, self.num_timesteps, (b // 2 + 1,), generator=generator,
+                             device=dev)
+        return BondLossNoise(
+            t=sample_time_antithetic(half, b, self.num_timesteps),
+            pos=torch.randn((b, n, 3), generator=generator, device=dev),
+            node=torch.rand((b, n, self.num_node_types), generator=generator, device=dev))
+
+    def get_loss(self, params: dict, node_type, node_pos, halfedge_type, node_mask,
+                 noise: BondLossNoise):
+        """Weighted cross-entropy on the half-edge logits (bond_predictor.py:
+        172-219): positions and atom types noised at the drawn time, bond
+        labels clean; normalised by the summed weights of the real targets,
+        as torch's CrossEntropyLoss(weight=w). ``acc_bond`` is the accuracy
+        over real bonded half-edges. node_type [B,N] int, node_pos [B,N,3],
+        halfedge_type [B,E] int, node_mask [B,N] -> (loss, dict of terms)."""
+        halfedge_mask = graph_ops.halfedge_mask_from_node_mask(node_mask)
+        if self.num_timesteps > 0:
+            t = noise.t
+            pos = self.pos_transition.add_noise(node_pos, t, noise.pos)
+            h_node, _, _ = self.node_transition.add_noise(node_type, t, noise.node)
+        else:
+            t, pos = None, node_pos
+            h_node = torch.nn.functional.one_hot(node_type.long(), self.num_node_types).float()
+        pred = self.forward(params, h_node, pos, t, node_mask)
+        log_prob = torch.log_softmax(pred, dim=-1)
+        labels = halfedge_type.long()
+        nll = -torch.gather(log_prob, -1, labels[..., None])[..., 0]
+        w = self.edge_weight[labels] * halfedge_mask
+        loss = torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1e-8)
+        acc = masked_mean((torch.argmax(pred, dim=-1) == labels).float(),
+                          halfedge_mask * (labels > 0))
+        return loss, {"loss": loss, "loss_edge": loss, "acc_bond": acc}

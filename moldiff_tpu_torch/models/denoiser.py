@@ -35,7 +35,9 @@ from typing import Optional
 import torch
 
 from ..ops import kernels
-from .nn import GaussianSmearing, layernorm, linear, linear_parts, safe_distance
+from ..utils.tree import tree_map
+from .nn import (GaussianSmearing, init_layernorm, init_linear, init_mlp, layernorm, linear,
+                 linear_parts, safe_distance)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -70,6 +72,79 @@ def denoiser_static_config(num_blocks: int, cutoff: float, use_gate: bool,
 
 def compute_dtype(static: dict) -> torch.dtype:
     return _DTYPES[static.get("dtype", "float32")]
+
+
+# -- initialisation (the JAX package's trees; models/nn.py's rule) ---------------
+# Every block is gated: denoiser_static_config refuses use_gate: false.
+
+def init_node_block(gen, node_dim, edge_dim, hidden_dim, device):
+    """denoiser.py:51-69."""
+    return {
+        "node_net": init_mlp(gen, node_dim, hidden_dim, hidden_dim, device=device),
+        "edge_net": init_mlp(gen, edge_dim, hidden_dim, hidden_dim, device=device),
+        "msg_net": init_linear(gen, hidden_dim, hidden_dim, device=device),
+        "centroid_lin": init_linear(gen, node_dim, hidden_dim, device=device),
+        "ln": init_layernorm(hidden_dim, device),
+        "out": init_linear(gen, hidden_dim, node_dim, device=device),
+        "gate": init_mlp(gen, edge_dim + node_dim + 1, hidden_dim, hidden_dim, device=device),
+    }
+
+
+def init_bond_ffn(gen, bond_dim, node_dim, inter_dim, device, out_dim=None):
+    """denoiser.py:150-160."""
+    out_dim = bond_dim if out_dim is None else out_dim
+    return {
+        "bond_linear": init_linear(gen, bond_dim, inter_dim, bias=False, device=device),
+        "node_linear": init_linear(gen, node_dim, inter_dim, bias=False, device=device),
+        "inter": init_mlp(gen, inter_dim, out_dim, inter_dim, device=device),
+        "gate": init_mlp(gen, bond_dim + node_dim + 1, out_dim, 32, device=device),
+    }
+
+
+def init_edge_block(gen, edge_dim, node_dim, device):
+    """denoiser.py:198-210."""
+    inter_dim = edge_dim * 2
+    return {
+        "bond_ffn_left": init_bond_ffn(gen, edge_dim, node_dim, inter_dim, device),
+        "bond_ffn_right": init_bond_ffn(gen, edge_dim, node_dim, inter_dim, device),
+        "node_ffn_left": init_linear(gen, node_dim, edge_dim, device=device),
+        "node_ffn_right": init_linear(gen, node_dim, edge_dim, device=device),
+        "self_ffn": init_linear(gen, edge_dim, edge_dim, device=device),
+        "ln": init_layernorm(edge_dim, device),
+        "out": init_linear(gen, edge_dim, edge_dim, device=device),
+    }
+
+
+def init_pos_update(gen, node_dim, edge_dim, hidden_dim, device):
+    """denoiser.py:326-332."""
+    return {
+        "left_lin_edge": init_mlp(gen, node_dim, edge_dim, hidden_dim, device=device),
+        "right_lin_edge": init_mlp(gen, node_dim, edge_dim, hidden_dim, device=device),
+        "edge_lin": init_bond_ffn(gen, edge_dim, edge_dim, node_dim, device, out_dim=1),
+    }
+
+
+def init_node_edge_net(gen: torch.Generator, node_dim: int, edge_dim: int,
+                       device: "str | torch.device", **denoiser_cfg):
+    """(params, static config) with the blocks stacked on a leading
+    ``num_blocks`` axis (denoiser.py:434-462): ``edge_emb`` reads
+    [edge features || smeared distances] (the distances alone without
+    ``update_edge``), ``edge_block`` exists with ``update_edge`` and
+    ``pos_block`` with ``update_pos``."""
+    static = denoiser_static_config(**denoiser_cfg)
+    update_edge, update_pos = static["update_edge"], static["update_pos"]
+    num_gaussians = static["num_gaussians"]
+    input_edge_dim = edge_dim + num_gaussians if update_edge else num_gaussians
+    blocks = []
+    for _ in range(static["num_blocks"]):
+        blk = {"node_block": init_node_block(gen, node_dim, edge_dim, node_dim, device),
+               "edge_emb": init_linear(gen, input_edge_dim, edge_dim, device=device)}
+        if update_edge:
+            blk["edge_block"] = init_edge_block(gen, edge_dim, node_dim, device)
+        if update_pos:
+            blk["pos_block"] = init_pos_update(gen, node_dim, edge_dim, edge_dim, device)
+        blocks.append(blk)
+    return {"blocks": tree_map(lambda *leaves: torch.stack(leaves), *blocks)}, static
 
 
 def node_block(p, x, edge_attr, node_time, pair_mask):
@@ -168,22 +243,14 @@ def apply_block(blk, static, h_node, pos_node, h_edge, node_time, edge_time, pai
     return h_node, pos_node, h_edge_i
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def prepare_blocks(params: dict, static: dict) -> list:
     """Stacked block params (leading ``num_blocks`` axis, float32) -> a list
     of per-block trees in the compute dtype. The JAX forward casts every
     float32 leaf to the compute dtype first (denoiser.py:631-635); this does
     the same once, so a sampler can reuse the result at every step."""
     dt = compute_dtype(static)
-    cast = _tree_map(lambda x: x.to(dt) if x.dtype == torch.float32 else x, params["blocks"])
-    return [_tree_map(lambda x, k=k: x[k], cast) for k in range(static["num_blocks"])]
+    cast = tree_map(lambda x: x.to(dt) if x.dtype == torch.float32 else x, params["blocks"])
+    return [tree_map(lambda x, k=k: x[k], cast) for k in range(static["num_blocks"])]
 
 
 def node_edge_net(params, static, h_node, pos_node, h_edge, node_time, edge_time,

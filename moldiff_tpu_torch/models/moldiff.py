@@ -9,8 +9,8 @@ the JAX package's ``lax.scan``. Every random draw of a step comes in as
 function itself is deterministic, so one step can be checked against the
 JAX package given the same noise.
 
-Ported: ``forward`` (:178-249), ``sample`` (:425) and its step (:559) in
-every discrete mode: full or respaced chains (``_respaced``, :375: the
+Ported: ``init_params`` (:159-176), ``forward`` (:178-249), ``sample``
+(:425) and its step (:559) in every discrete mode: full or respaced chains (``_respaced``, :375: the
 posterior math on the respaced transitions, the denoiser and the bond
 predictor on the original timestep), ``ddpm`` or ``ddim`` positions,
 ``commit`` in {"none", "nodes", "edges", "both"} and trajectories; the bond
@@ -38,8 +38,8 @@ from ..ops.categorical import CategoricalTransition, index_to_log_onehot, log_sa
 from ..ops.gaussian import GaussianTransition
 from ..ops.respace import respace_timesteps, respaced_betas
 from ..ops.schedules import get_beta_schedule
-from .denoiser import denoiser_static_config, node_edge_net, prepare_blocks
-from .nn import GaussianSmearing, linear, mlp, safe_distance
+from .denoiser import denoiser_static_config, init_node_edge_net, node_edge_net, prepare_blocks
+from .nn import GaussianSmearing, init_linear, init_mlp, linear, mlp, safe_distance
 
 COMMIT_MODES = ("none", "nodes", "edges", "both")
 POS_SAMPLERS = ("ddpm", "ddim")
@@ -151,8 +151,11 @@ class MolDiff:
         self._respace_cache = {}
         self.pos_transition, self.node_transition, self.edge_transition = \
             self._transitions(self._raw_betas)
+        self.node_dim = config["node_dim"]
+        self.edge_dim = config["edge_dim"]
         denoiser_cfg = dict(config["denoiser"])
         denoiser_cfg.pop("backbone", None)
+        self._denoiser_cfg = denoiser_cfg
         self.denoiser_static = denoiser_static_config(**denoiser_cfg)
         self.time_emb = GaussianSmearing(stop=T, num_gaussians=self.time_dim, type_="linear")
 
@@ -177,6 +180,27 @@ class MolDiff:
             betas = {k: respaced_betas(v, subset) for k, v in self._raw_betas.items()}
             self._respace_cache[key] = (self._transitions(betas), subset)
         return self._respace_cache[key]
+
+    # -- params --------------------------------------------------------------
+
+    def init_params(self, generator: torch.Generator) -> dict:
+        """Fresh float32 params on the model's device from ``generator``
+        (moldiff.py:159-176): the embedders without bias, the denoiser and
+        the two decoders."""
+        dev = self.device
+        denoiser, _ = init_node_edge_net(generator, self.node_dim, self.edge_dim, dev,
+                                         **self._denoiser_cfg)
+        return {
+            "node_embedder": init_linear(generator, self.num_node_types,
+                                         self.node_dim - self.time_dim, bias=False, device=dev),
+            "edge_embedder": init_linear(generator, self.num_edge_types,
+                                         self.edge_dim - self.time_dim, bias=False, device=dev),
+            "denoiser": denoiser,
+            "node_decoder": init_mlp(generator, self.node_dim, self.num_node_types,
+                                     self.node_dim, device=dev),
+            "edge_decoder": init_mlp(generator, self.edge_dim, self.num_edge_types,
+                                     self.edge_dim, device=dev),
+        }
 
     # -- denoiser forward ----------------------------------------------------
 

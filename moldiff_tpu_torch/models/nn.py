@@ -4,11 +4,56 @@
 Params keep the JAX layout: ``w`` is ``[in, out]`` and ``y = x @ w``, so
 checkpoints load with no transposes. Every function computes in the dtype
 of its inputs, as the JAX functions do; LayerNorm statistics are float32.
+
+The ``init_*`` functions build the JAX package's trees with torch
+``nn.Linear``'s rule, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for ``w`` and
+``b`` (nn.py:21-27), from an explicit ``torch.Generator`` on the device the
+tensors go to. ``jax.random`` and torch's generators differ, so a tree
+matches JAX's in keys, shapes, dtype and distribution, not in its numbers.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+
+def _uniform(generator: torch.Generator, shape: tuple, bound: float, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=device).uniform_(
+        -bound, bound, generator=generator)
+
+
+def init_linear(generator: torch.Generator, din: int, dout: int, bias: bool = True,
+                device: "str | torch.device" = "cpu") -> dict:
+    """{"w": [din, dout], "b": [dout]} (nn.py:21-27)."""
+    bound = 1.0 / math.sqrt(din)
+    p = {"w": _uniform(generator, (din, dout), bound, device)}
+    if bias:
+        p["b"] = _uniform(generator, (dout,), bound, device)
+    return p
+
+
+def init_layernorm(dim: int, device: "str | torch.device" = "cpu") -> dict:
+    return {"scale": torch.ones(dim, dtype=torch.float32, device=device),
+            "bias": torch.zeros(dim, dtype=torch.float32, device=device)}
+
+
+def init_mlp(generator: torch.Generator, din: int, dout: int, hidden: int,
+             num_layer: int = 2, norm: bool = True, act_last: bool = False,
+             device: "str | torch.device" = "cpu") -> dict:
+    """Linear(in, h) -> [LN, ReLU] -> ... -> Linear(h, out), optionally with
+    a trailing LN + ReLU; an ``ln`` leaf marks "normalize and activate after
+    this layer" (nn.py:98-124)."""
+    layers = []
+    for i in range(num_layer):
+        d_in = din if i == 0 else hidden
+        d_out = dout if i == num_layer - 1 else hidden
+        lp = {"lin": init_linear(generator, d_in, d_out, device=device)}
+        if (i < num_layer - 1 or act_last) and norm:
+            lp["ln"] = init_layernorm(d_out, device)
+        layers.append(lp)
+    return {"layers": layers}
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -6,13 +6,16 @@ of a few training steps of flagship_v2 (the loss, its gradient through the
 backward kernels, adamw and EMA) with the settings of
 configs/train/train_v2_cont.yml (train/settings.py), on one batch of v2
 molecules per bucket drawn at sizes inside the bucket, as chip_smoke.py's
-fine-tuning corpus. ``--fuse-block`` and ``--edge-full`` set those flags on
-the model config the trace builds (models/denoiser.py): the whole-block
-kernel in every block, or the full-EdgeBlock kernels.
+fine-tuning corpus; with ``--bond-predictor``, of the bond predictor's
+training steps instead (configs/train/train_bondpred_v2.yml from the
+weights of ckpts/bondpred_40k.ckpt, the checkpoint that config resumes).
+``--fuse-block`` and ``--edge-full`` set those flags on the model config
+the trace builds (models/denoiser.py): the whole-block kernel in every
+block, or the full-EdgeBlock kernels.
 
   python -m moldiff_tpu_torch.sample.profile_steps [--batch 16 128]
-      [--bucket 32 40] [--steps 5] [--guided | --train] [--fuse-block] [--edge-full]
-      [--out outputs_torch/profile]
+      [--bucket 32 40] [--steps 5] [--guided | --train [--bond-predictor]]
+      [--fuse-block] [--edge-full] [--out outputs_torch/profile]
 
 For each (batch, bucket) it runs WARMUP steps, times ``--steps`` steps with
 CUDA events, then traces as many more under torch.profiler and prints one
@@ -47,6 +50,7 @@ import torch
 
 CHECKPOINT = "ckpts/flagship_v2.ckpt"
 BOND_PREDICTOR = "ckpts/bondpred_v2.ckpt"
+BOND_PREDICTOR_40K = "ckpts/bondpred_40k.ckpt"
 GUIDANCE = ("uncertainty", 1.0e-4)
 SETTINGS = {"seed": 2023, "batch_size": 128, "size_mean": 24.923, "size_std": 5.516,
             "sanitize_mode": "reference", "commit": "nodes", "buckets": [32, 40]}
@@ -170,7 +174,8 @@ def profile_train(trainer, params, data: dict, steps: int, out_dir: str,
                   seed: int = 0) -> Dict[str, object]:
     """Training steps (train_step: loss, backward, optimizer, EMA) on one
     fixed batch ``data``."""
-    dev = trainer.model.device
+    model = trainer.model
+    dev = model.device
     batch, bucket = data["node_mask"].shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     state = trainer.init_from_params(params)
@@ -178,11 +183,15 @@ def profile_train(trainer, params, data: dict, steps: int, out_dir: str,
     def run(k: int) -> None:
         nonlocal state
         for _ in range(k):
-            state, _ = trainer.train_step(state, data, trainer.draw_noise(data, gen))
+            state, _ = trainer.train_step(state, data, trainer.draw_step_noise(data, gen))
 
-    return {"train": True, "batch": batch, "bucket": bucket,
-            "route": {k: trainer.model.denoiser_static[k] for k in ("fuse_block", "edge_full")},
-            **_timed_and_traced(run, steps, dev, out_dir, f"trace_train_B{batch}_N{bucket}.json")}
+    bond = hasattr(model, "encoder_static")
+    static = model.encoder_static if bond else model.denoiser_static
+    tag = "bond_" if bond else ""
+    return {"train": True, "bond_predictor": bond, "batch": batch, "bucket": bucket,
+            "route": {k: static[k] for k in ("fuse_block", "edge_full")},
+            **_timed_and_traced(run, steps, dev, out_dir,
+                                f"trace_train_{tag}B{batch}_N{bucket}.json")}
 
 
 def profile(model, params, batch: int, bucket: int, steps: int, out_dir: str,
@@ -229,6 +238,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                       help="guided steps (bondpred_v2, uncertainty guidance at 1e-4)")
     mode.add_argument("--train", action="store_true",
                       help="training steps (configs/train/train_v2_cont.yml)")
+    ap.add_argument("--bond-predictor", action="store_true",
+                    help="with --train: the bond predictor's training steps "
+                         "(configs/train/train_bondpred_v2.yml, bondpred_40k's weights)")
     ap.add_argument("--fuse-block", action="store_true",
                     help="model.denoiser.fuse_block: the whole-block kernel in every block")
     ap.add_argument("--edge-full", action="store_true",
@@ -244,20 +256,29 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                       if args.guided else None)
     trainer = None
     if args.train:
+        from ..data.featurize import featurizer_from_config
+        from ..models.bond_predictor import BondPredictor
         from ..models.moldiff import MolDiff
-        from ..train.settings import TRAIN_V2_CONT
+        from ..train.settings import TRAIN_BONDPRED_V2, TRAIN_V2_CONT
         from ..train.trainer import Trainer
+        from ..utils.checkpoint import load_checkpoint
+        from ..utils.config import Config
 
-        cfg = dict(TRAIN_V2_CONT["model"])
-        cfg["denoiser"] = dict(cfg["denoiser"], **flags)
-        model = MolDiff(cfg, sampler.featurizer.num_node_types,
-                        sampler.featurizer.num_edge_types, device=device)
-        trainer = Trainer(model, TRAIN_V2_CONT["train"])
+        settings = TRAIN_BONDPRED_V2 if args.bond_predictor else TRAIN_V2_CONT
+        cfg = dict(settings["model"])
+        net = "encoder" if args.bond_predictor else "denoiser"
+        cfg[net] = dict(cfg[net], **flags)
+        feat = featurizer_from_config(Config(settings))
+        cls = BondPredictor if args.bond_predictor else MolDiff
+        model = cls(cfg, feat.num_node_types, feat.num_edge_types, device=device)
+        trainer = Trainer(model, settings["train"])
+        if args.bond_predictor:
+            params = load_checkpoint(BOND_PREDICTOR_40K, device)["params"]
     lines = []
     for batch in args.batch:
         for bucket in args.bucket:
             if trainer is not None:
-                data = train_batch(TRAIN_V2_CONT, batch, bucket, seed=bucket, dev=device)
+                data = train_batch(settings, batch, bucket, seed=bucket, dev=device)
                 line = profile_train(trainer, params, data, args.steps, args.out)
             else:
                 line = profile(sampler.model, params, batch, bucket, args.steps, args.out,

@@ -1,4 +1,4 @@
-"""``python -m moldiff_tpu_torch.train --config ... --resume ...`` (see cli.py)."""
+"""``python -m moldiff_tpu_torch.train --config ... [--resume ...]`` (see cli.py)."""
 from .cli import main
 
 if __name__ == "__main__":

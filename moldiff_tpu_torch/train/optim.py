@@ -21,34 +21,11 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, List
+from typing import Any, List
 
 import torch
 
-
-def tree_leaves(tree: Any) -> List[Any]:
-    """Leaves of a nested dict / list tree, dict keys in sorted order (the
-    order jax.tree.leaves gives)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """fn over the leaves of trees of one structure, in tree_leaves order."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
-    return fn(tree, *rest)
-
-
-def tree_unflatten(like: Any, leaves: List[Any]) -> Any:
-    """The tree of ``like``'s structure holding ``leaves`` (tree_leaves order)."""
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
+from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:

@@ -4,8 +4,10 @@ has only PyTorch and numpy: every module imports, flagship_v2.ckpt loads,
 the demo checkpoint runs MolDiff.forward, one reverse step, one respaced
 DDIM step with commit both, one SamplerService.generate and one training
 step (on an in-memory corpus) on the CPU, and the same forward with
-fuse_block and a training step with edge_full, in a fresh interpreter with
-those modules blocked."""
+fuse_block and a training step with edge_full; the demo bond predictor
+initialised from scratch takes a training step, and the demo denoiser one
+with grad_accum 2; all in a fresh interpreter with those modules
+blocked."""
 import json
 import os
 import subprocess
@@ -90,7 +92,7 @@ trainer = Trainer(model, train_cfg)
 tstate = trainer.init_from_params(ck["params"])
 recs = make_corpus("./data/synthetic", 10)["train"]
 batch = batch_to_device(next(iter(BucketedLoader(recs, feat, 2, (16, 24, 32), prefetch=0))), "cpu")
-tstate, aux = trainer.train_step(tstate, batch, trainer.draw_noise(batch, g))
+tstate, aux = trainer.train_step(tstate, batch, trainer.draw_step_noise(batch, g))
 assert tstate.step == 1 and all(bool(torch.isfinite(v)) for v in aux.values()), aux
 
 # the two other routes: a whole-block (fuse_block) forward and an
@@ -108,7 +110,28 @@ fused = routed["fuse_block"].forward(ck["params"], state.h_node, state.pos, stat
 assert all(bool(torch.isfinite(x).all()) for x in fused)
 trainer = Trainer(routed["edge_full"], train_cfg)
 tstate, aux = trainer.train_step(trainer.init_from_params(ck["params"]), batch,
-                                 trainer.draw_noise(batch, g))
+                                 trainer.draw_step_noise(batch, g))
+assert tstate.step == 1 and all(bool(torch.isfinite(v)) for v in aux.values()), aux
+
+# training from scratch: the bond predictor's init and one step of its loss
+# (the demo predictor's config), and one grad_accum step of the denoiser
+from moldiff_tpu_torch.models.bond_predictor import BondPredictor
+from moldiff_tpu_torch.train.settings import TRAIN_BONDPRED_DEMO
+from moldiff_tpu_torch.utils.config import Config
+bp_cfg = Config(TRAIN_BONDPRED_DEMO)
+bp_feat = featurizer_from_config(bp_cfg)
+bp_model = BondPredictor(bp_cfg.model, bp_feat.num_node_types, bp_feat.num_edge_types,
+                         device="cpu")
+trainer = Trainer(bp_model, dict(bp_cfg.train, batch_size=2))
+bp_batch = batch_to_device(next(iter(BucketedLoader(recs, bp_feat, 2, (16, 24, 32),
+                                                    prefetch=0))), "cpu")
+tstate, aux = trainer.train_step(trainer.init_state(g), bp_batch,
+                                 trainer.draw_step_noise(bp_batch, g))
+assert tstate.step == 1 and "acc_bond" in aux, aux
+assert all(bool(torch.isfinite(v)) for v in aux.values()), aux
+trainer = Trainer(model, dict(train_cfg, grad_accum=2))
+tstate, aux = trainer.train_step(trainer.init_state(g), batch,
+                                 trainer.draw_step_noise(batch, g))
 assert tstate.step == 1 and all(bool(torch.isfinite(v)) for v in aux.values()), aux
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
@@ -127,6 +150,7 @@ def test_port_runs_without_jax_yaml_pandas():
                  "moldiff_tpu_torch.models.bond_predictor",
                  "moldiff_tpu_torch.chem.bond_perception", "moldiff_tpu_torch.train.cli",
                  "moldiff_tpu_torch.train.trainer", "moldiff_tpu_torch.train.optim",
+                 "moldiff_tpu_torch.train.bond_cli", "moldiff_tpu_torch.train.checkpoint_async",
                  "moldiff_tpu_torch.data.synthetic_v2", "moldiff_tpu_torch.data.loader",
                  "moldiff_tpu_torch.ops.respace", "moldiff_tpu_torch.serve.server"):
         assert name in out["modules"]

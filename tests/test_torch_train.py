@@ -426,7 +426,8 @@ def test_checkpoint_loads_in_jax_and_port(small_params, tmp_path):
 def test_cli_fine_tunes_on_cpu(small_params, tmp_path):
     """The train CLI on the CPU with a tiny config, resumed from a JAX
     checkpoint at step 0: 3 steps, one validation (which steps the
-    scheduler) and one checkpoint, every loss finite."""
+    scheduler) and one checkpoint, every loss finite; and without a
+    checkpoint, 2 steps from fresh params."""
     from moldiff_tpu_torch.train import cli as train_cli
 
     full = load_config(TRAIN_CONFIG).to_dict()
@@ -450,8 +451,12 @@ def test_cli_fine_tunes_on_cpu(small_params, tmp_path):
         blob = pickle.load(f)
     assert blob["step"] == 3 and blob["extra"]["optimizer"]["count"] == 3
     assert jax_load_checkpoint(out["checkpoints"][0])["step"] == 3
-    with pytest.raises(NotImplementedError, match="resume"):
-        train_cli.run(full, None, device="cpu", logdir=str(tmp_path / "logs"))
+    # without a checkpoint the run starts from fresh params and takes its steps
+    scratch = train_cli.run(full, None, device="cpu", logdir=str(tmp_path / "logs"),
+                            max_iters=2, corpus_mols=40, log=logs.append)
+    assert [s["it"] for s in scratch["steps"]] == [1, 2]
+    assert all(math.isfinite(s["loss"]) and s["grad_norm"] > 0 for s in scratch["steps"])
+    assert any(m.startswith("initialised from train.seed") for m in logs)
 
 
 def test_entry_point_defaults_to_cuda(small_params, tmp_path):
