@@ -12,6 +12,8 @@
                                         # one sampling gate alone (after the build)
   python3 chip_smoke.py --train-gate demo_scratch --budget-s 1500
                                         # one training check alone (after the build)
+  python3 chip_smoke.py --eval-gate demo30k
+                                        # one evaluation check alone (after the build)
 
 Phases, each asserting and none catching a failure:
   1. environment: torch and CUDA versions, the card's name and power limit,
@@ -127,7 +129,17 @@ Phases, each asserting and none catching a failure:
      ckpt_freq 1, keep_ckpts 2 and the config's async checkpoints; each
      step's launches rows 1, 4, 8 and 3, 5, 9 per call x 6 blocks; exactly
      2 numeric checkpoints remain, the last equal to the final state; then
-     one step with grad_accum 2 on that state, twice a step's launches.
+     one step with grad_accum 2 on that state, twice a step's launches;
+ 19. scoring: run() with the settings of configs/sample/sample_demo.yml
+     (ckpts/demo_synthetic_30k.ckpt: node_dim 128, edge_dim 32, 4 blocks,
+     T = 200) until 16 finished at batch 16, rows 1, 4 and 8 launched 2 x
+     4 x 200 x chains times each; the eval CLI (moldiff_tpu_torch.eval,
+     every family but global_3d) on its output directory, with similarity
+     against the train and val splits of the first 400 molecules of the
+     ./data/synthetic recipe, and on that recipe's test split; analyze on
+     the two. Every output file exists, validity.json holds summary.json's
+     counts; each family's empty rows and the host seconds per molecule are
+     printed.
 --gate NAME runs one sampling gate instead of the phases (after 1 and 2):
 the settings of a committed YAML with named overrides (GATES; a CPU test
 holds each equal to its YAML plus its overrides): s100, ddim_s100,
@@ -148,6 +160,15 @@ the whole validation split with the same noise under four seeds, and
 passes when the port's loss is at most 1.10 x the committed one's and its
 acc_bond at most 0.03 below. Every step of either launches the kernels of
 its route, as many as the first step.
+--eval-gate NAME runs one evaluation check instead (after phases 1 and 2):
+demo30k samples configs/sample/sample_demo.yml as written (256 molecules,
+batch 128, seed 2023), scores them with the eval CLI and holds them to the
+JAX package's scores of its own such run (results/demo30k_eval, read only):
+the success interval (Wilson 95 %) must overlap the bar's and each mean of
+EVAL_GATE_COLUMNS lie within |z| <= 3 (Welch) of the bar's; analyze then
+compares both with the whole test split of the ./data/synthetic recipe
+(8000 molecules, scored by the eval CLI in a process of its own while the
+kernels build) and prints their count-property JSDs side by side.
 The last line is {"ok": true, "device": {...}}. A hang ends in a traceback
 and a non-zero exit (faulthandler) before the budget runs out. The script
 imports only torch, numpy, the standard library and moldiff_tpu_torch.
@@ -413,6 +434,38 @@ GATES = {
 def gate_settings(name: str) -> dict:
     path, top, sample = GATES[name]
     return with_sample(YAML_SETTINGS[path], top, **sample)
+
+
+# phase 19 and --eval-gate: configs/sample/sample_demo.yml (a CPU test holds
+# the two equal): the demo denoiser (node_dim 128, edge_dim 32, 4 blocks,
+# T = 200), unguided, the sampler's defaults otherwise
+SAMPLE_DEMO = {
+    "model": {"checkpoint": DEMO_CHECKPOINT},
+    "sample": {"seed": 2023, "batch_size": 128, "num_mols": 256, "save_traj_prob": 0.0},
+}
+# phase 19: molecules finished and per chain; the corpus recipe whose test
+# split (its first 400 molecules, split 80/10/10) analyze compares with
+EVAL_NUM_MOLS = 16
+EVAL_BATCH = 16
+EVAL_CORPUS = ("./data/synthetic", 400)
+# the files the eval CLI writes for generated molecules (similarity.json
+# when given a dataset) and for a dataset split
+EVAL_FILES = ("mols.csv", "validity.json", "local3d.pkl", "freq_ring_type.pkl")
+EVAL_SPLIT_FILES = ("mols.csv", "local3d.pkl", "freq_ring_type.pkl")
+# --eval-gate NAME: (settings, the JAX package's scripts/evaluate_all.py run
+# on molecules it sampled with them; results/README.md). The port's run of
+# the same settings passes when its success interval (Wilson 95 %) overlaps
+# the bar's and each of EVAL_GATE_COLUMNS' means lies within |z| <=
+# EVAL_GATE_Z of the bar's (Welch's z on the two samples); a column that is
+# zero in every row on both sides must have equal means. The count-property
+# JSDs of both against the whole test split of EVAL_GATE_CORPUS (8000
+# molecules, made in memory) are printed side by side, not held.
+EVAL_GATES = {"demo30k": (SAMPLE_DEMO, "results/demo30k_eval")}
+EVAL_GATE_COLUMNS = ("qed", "sa", "logp", "lipinski", "n_atoms", "n_bonds", "n_rings",
+                     "n_rotatable", "weight", "n_hacc", "n_hdon")
+EVAL_GATE_Z = 3.0
+EVAL_GATE_CORPUS = "./data/synthetic"
+COUNT_PROPS = ("n_atoms", "n_bonds", "n_rings", "n_rotatable", "n_hacc", "n_hdon")
 
 
 def say(*args) -> None:
@@ -1720,6 +1773,159 @@ def run_gate(cli, name: str, num_mols: int, batch_size: int, device) -> None:
     report(f"gate {name}", summary, steps)
 
 
+def validity_interval(metrics_dir: str) -> tuple:
+    """(complete, classified, lo, hi) of a validity.json: the molecules
+    complete of all classified and their Wilson 95 % interval."""
+    from moldiff_tpu_torch.sample.cli import wilson_interval
+
+    with open(os.path.join(metrics_dir, "validity.json")) as f:
+        v = json.load(f)
+    n = v["n_complete"] + v["n_disconnect"] + v["n_invalid"]
+    return (v["n_complete"], n) + tuple(wilson_interval(v["n_complete"], n))
+
+
+def mean_se(values) -> tuple:
+    """Mean and standard error (sample standard deviation / sqrt n)."""
+    values = [float(v) for v in values]
+    return statistics.fmean(values), statistics.stdev(values) / math.sqrt(len(values))
+
+
+def compare_with_bar(port_dir: str, bar_dir: str) -> dict:
+    """--eval-gate's rule on two metric directories (the port's and the
+    bar's: validity.json and mols.csv, read with csv and json): each check
+    and whether all passed."""
+    from moldiff_tpu_torch.eval.analyze import read_metrics_csv
+
+    k, n, lo, hi = validity_interval(port_dir)
+    bk, bn, blo, bhi = validity_interval(bar_dir)
+    out = {"success": {"port": [k, n, lo, hi], "jax": [bk, bn, blo, bhi],
+                       "ok": lo <= bhi and blo <= hi}}
+    say(f"success: port {k}/{n} = {k / n:.4f} [{lo:.4f}, {hi:.4f}], JAX {bk}/{bn} = "
+        f"{bk / bn:.4f} [{blo:.4f}, {bhi:.4f}]: {'overlap' if out['success']['ok'] else 'MISS'}")
+    port = read_metrics_csv(os.path.join(port_dir, "mols.csv"))
+    bar = read_metrics_csv(os.path.join(bar_dir, "mols.csv"))
+    for col in EVAL_GATE_COLUMNS:
+        (mp, sp), (mb, sb) = mean_se(port[col]), mean_se(bar[col])
+        if sp == 0 and sb == 0:
+            # zero (or constant) in every row on both sides: equal means
+            z = 0.0 if mp == mb else math.inf
+        else:
+            z = (mp - mb) / math.sqrt(sp * sp + sb * sb)
+        ok = abs(z) <= EVAL_GATE_Z
+        out[col] = {"port": [mp, sp], "jax": [mb, sb], "z": z, "ok": ok}
+        say(f"  {col}: port {mp:.4f} (SE {sp:.4f}), JAX {mb:.4f} (SE {sb:.4f}), z {z:+.2f}: "
+            f"{'ok' if ok else 'MISS'}")
+    out["passed"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def check_eval(cli, results: dict, blocks: int) -> dict:
+    """Phase 19: the sample CLI's run() with SAMPLE_DEMO until
+    EVAL_NUM_MOLS finished at batch EVAL_BATCH (rows 1, 4 and 8 launched
+    per call x 4 blocks x 200 steps x chains, none of the others); then the
+    eval CLI's main on its output directory (every family but global_3d;
+    similarity against EVAL_CORPUS's train and val splits) and on
+    EVAL_CORPUS's test split, and analyze on the two. Every output file
+    exists and validity.json holds summary.json's counts; the empty rows
+    of each family and the host seconds per molecule are printed."""
+    from moldiff_tpu_torch.eval import analyze, evaluate
+    from moldiff_tpu_torch.ops import kernels
+
+    summary, counts = run_path(cli, SAMPLE_DEMO, EVAL_NUM_MOLS, EVAL_BATCH, "demo_eval")
+    steps = summary["num_steps"]
+    expected = forward_expected(results, blocks * steps * summary["chains"])
+    say(f"demo sampling: {summary['chains']} chains x {steps} steps, launches {counts}, "
+        f"expected {expected}")
+    assert (blocks, steps) == (4, 200), (blocks, steps)
+    assert counts == expected, (counts, expected)
+    kernels.reset_launch_counts()
+    assert summary["num_finished"] >= EVAL_NUM_MOLS
+    report("demo sampling", summary, steps)
+
+    out_dir = os.path.join("outputs_torch", "chip_smoke", "demo_eval")
+    root, n_corpus = EVAL_CORPUS
+    gen = evaluate.main(["--root", out_dir, "--dataset_root", root,
+                         "--corpus_mols", str(n_corpus)])
+    ref_dir = os.path.join("outputs_torch", "chip_smoke", "demo_eval_test_split")
+    ref = evaluate.main(["--from_where", "dataset", "--dataset_root", root, "--split", "test",
+                         "--corpus_mols", str(n_corpus), "--outdir", ref_dir, "--force"])
+    table = os.path.join(out_dir, "metrics_all_methods.csv")
+    rows = analyze.main(["--ref", ref_dir, "--methods", f"port={gen['out_dir']}",
+                         "--out", table])
+    for d, names in ((gen["out_dir"], EVAL_FILES + ("similarity.json",)),
+                     (ref_dir, EVAL_SPLIT_FILES)):
+        for name in names:
+            assert os.path.exists(os.path.join(d, name)), (d, name)
+    assert os.path.exists(table)
+    k, n, _, _ = validity_interval(gen["out_dir"])
+    assert (k, n) == (summary["num_finished"], summary["num_finished"] + summary["num_failed"]), \
+        (k, n, summary)
+    for tag, rep in (("generated", gen), ("test split", ref)):
+        for family, idx in rep["empty_rows"].items():
+            say(f"eval {tag}: {family}: {len(idx)} empty rows {idx}")
+        score_s = rep["seconds"] - rep["load_s"] - rep["similarity_s"]
+        say(f"eval {tag}: {rep['num_mols']} molecules, {score_s:.3f} s host time scoring "
+            f"({score_s / max(rep['num_mols'], 1):.4f} s/molecule), {rep['load_s']:.3f} s "
+            f"reading or making them, {rep['similarity_s']:.3f} s similarity")
+    say(f"analyze: {json.dumps(rows)}")
+    return counts
+
+
+def start_eval_reference(name: str):
+    """--eval-gate: the eval CLI on EVAL_GATE_CORPUS's whole test split, in
+    a process of its own (its own worker pool, no CUDA context) while the
+    kernels build and the chains run; (process, metrics dir)."""
+    out = os.path.join("outputs_torch", "chip_smoke", f"eval_gate_{name}_test_split")
+    proc = subprocess.Popen([sys.executable, "-m", "moldiff_tpu_torch.eval", "--from_where",
+                             "dataset", "--dataset_root", EVAL_GATE_CORPUS, "--split", "test",
+                             "--outdir", out, "--force", "--parallel"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def run_eval_gate(cli, name: str, device, reference) -> None:
+    """--eval-gate NAME: run() with EVAL_GATES[NAME]'s settings as written
+    (its launches one reverse step's x steps x chains), the eval CLI on its
+    output, compare_with_bar against the bar's directory, then analyze on
+    both against the test split's metrics."""
+    from moldiff_tpu_torch.eval import analyze, evaluate
+
+    settings, bar_dir = EVAL_GATES[name]
+    batch = settings["sample"]["batch_size"]
+    sampler, params = cli.build_sampler(settings["model"]["checkpoint"], settings["sample"],
+                                        device, batch)
+    per_step = step_launches(sampler, params, device)
+    summary, counts = run_path(cli, settings, None, batch, f"eval_gate_{name}")
+    steps = summary["num_steps"]
+    expected = {k: v * steps * summary["chains"] for k, v in per_step.items()}
+    say(f"eval gate {name}: {summary['chains']} chains x {steps} steps, launches {counts}, "
+        f"expected {expected}")
+    assert counts == expected, (counts, expected)
+    assert any(expected[k] for k in FORWARD_KERNELS)
+    report(f"eval gate {name}", summary, steps)
+    out_dir = os.path.join("outputs_torch", "chip_smoke", f"eval_gate_{name}")
+    gen = evaluate.main(["--root", out_dir])
+    score_s = gen["seconds"] - gen["load_s"]
+    say(f"eval gate {name}: {gen['num_mols']} molecules scored in {score_s:.3f} s "
+        f"({score_s / max(gen['num_mols'], 1):.4f} s/molecule); empty rows "
+        f"{ {f: len(i) for f, i in gen['empty_rows'].items()} }")
+    result = compare_with_bar(gen["out_dir"], bar_dir)
+    proc, ref_dir = reference
+    t0 = time.time()
+    log, _ = proc.communicate(timeout=900)
+    say(f"test split metrics (ready {time.time() - t0:.1f} s after the port's): "
+        + " | ".join(log.strip().splitlines()[-3:]))
+    assert proc.returncode == 0, log[-3000:]
+    rows = analyze.main(["--ref", ref_dir, "--methods", f"port={gen['out_dir']}",
+                         f"jax={bar_dir}", "--out", os.path.join(out_dir, "metrics_all_methods.csv")])
+    for col in COUNT_PROPS:
+        say(f"  jsd_{col} against the test split: port {rows['port'][f'jsd_{col}']:.4f}, "
+            f"JAX {rows['jax'][f'jsd_{col}']:.4f}")
+    say(json.dumps({"eval_gate": name, "result": result, "analyze": rows}))
+    say(f"eval gate {name}: {'pass' if result['passed'] else 'miss'}")
+    assert result["passed"], f"eval gate {name}: missed its bar"
+
+
 def report(tag: str, summary: dict, steps: int) -> None:
     chains = summary["chains"]
     say(f"{tag}: success {summary['success_rate']:.4f} (Wilson 95% "
@@ -1753,6 +1959,9 @@ def main() -> None:
     ap.add_argument("--train-gate", choices=sorted(TRAIN_GATES), default=None,
                     help="run only this training check (after the build): TRAIN_GATES[NAME] "
                          "from scratch for TRAIN_GATE_STEPS steps, against JAX's run")
+    ap.add_argument("--eval-gate", choices=sorted(EVAL_GATES), default=None,
+                    help="run only this evaluation check (after the build): EVAL_GATES[NAME]'s "
+                         "settings as written, scored and held to the JAX package's scores")
     ap.add_argument("--gate-num-mols", type=int, default=1000)
     ap.add_argument("--gate-batch-size", type=int, default=128)
     ap.add_argument("--budget-s", type=float, default=540.0,
@@ -1786,6 +1995,8 @@ def main() -> None:
         max_workers=4, mp_context=multiprocessing.get_context("spawn"))
     if args.train_gate:
         gate_corpus_job = pool.submit(_make_corpus, TRAIN_GATE_CORPUS)
+    elif args.eval_gate:
+        eval_reference = start_eval_reference(args.eval_gate)
     elif not args.gate:
         corpus_jobs = start_corpus(pool)
         scratch_job = pool.submit(_make_corpus, (TRAIN_FULL_SYNTHETIC_XL_SCRATCH["dataset"]["root"],
@@ -1814,9 +2025,11 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             say(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
 
-    if args.gate or args.train_gate:
+    if args.gate or args.train_gate or args.eval_gate:
         if args.gate:
             run_gate(cli, args.gate, args.gate_num_mols, args.gate_batch_size, device)
+        elif args.eval_gate:
+            run_eval_gate(cli, args.eval_gate, device, eval_reference)
         else:
             t0 = time.time()
             corpus = gate_corpus_job.result(timeout=900)
@@ -1973,8 +2186,14 @@ def main() -> None:
     x_counts, a_counts = train_from_scratch(scratch_corpus, results, device)
     say(f"phase 18 (training from scratch): {time.time() - t0:.1f} s")
 
+    # 19. scoring: the demo denoiser's samples through the eval and analyze
+    # CLIs
+    t0 = time.time()
+    v_counts = check_eval(cli, results, d_sampler.model.denoiser_static["num_blocks"])
+    say(f"phase 19 (evaluation): {time.time() - t0:.1f} s")
+
     main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts,
-                  b_counts, x_counts, a_counts)
+                  b_counts, x_counts, a_counts, v_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(c[name] for c in main_paths),

@@ -6,8 +6,9 @@ DDIM step with commit both, one SamplerService.generate and one training
 step (on an in-memory corpus) on the CPU, and the same forward with
 fuse_block and a training step with edge_full; the demo bond predictor
 initialised from scratch takes a training step, and the demo denoiser one
-with grad_accum 2; all in a fresh interpreter with those modules
-blocked."""
+with grad_accum 2; the evaluation CLI scores a tiny sample directory and a
+dataset split and the analysis CLI compares them; all in a fresh
+interpreter with those modules blocked."""
 import json
 import os
 import subprocess
@@ -133,6 +134,41 @@ trainer = Trainer(model, dict(train_cfg, grad_accum=2))
 tstate, aux = trainer.train_step(trainer.init_state(g), batch,
                                  trainer.draw_step_noise(batch, g))
 assert tstate.step == 1 and all(bool(torch.isfinite(v)) for v in aux.values()), aux
+# evaluation: both CLIs on a tiny sample directory in the sample CLI's
+# layout, scored against a dataset split made by its corpus recipe
+import os, pickle, shutil, tempfile
+from moldiff_tpu_torch.chem.sanitize import sanitize
+from moldiff_tpu_torch.chem.sdf import write_sdf
+from moldiff_tpu_torch.data.dataset import mol_to_arrays
+from moldiff_tpu_torch.data.synthetic_v2 import random_molecule_v2
+from moldiff_tpu_torch.eval import analyze, evaluate
+work = tempfile.mkdtemp()
+try:
+    gen_dir = os.path.join(work, "gen")
+    os.makedirs(os.path.join(gen_dir, "SDF"))
+    rng = np.random.default_rng(3)
+    finished = []
+    for k in range(4):
+        mol = sanitize(random_molecule_v2(rng))
+        write_sdf([mol], os.path.join(gen_dir, "SDF", f"{k}.sdf"))
+        arr = mol_to_arrays(mol)
+        finished.append({"decoded": {"element": arr["element"], "atom_pos": arr["pos"],
+                                     "bond_index": arr["bond_index"],
+                                     "bond_type": arr["bond_type"]}})
+    with open(os.path.join(gen_dir, "samples_all.pkl"), "wb") as f:
+        pickle.dump({"finished": finished, "failed": []}, f)
+    with open(os.path.join(gen_dir, "summary.json"), "w") as f:
+        json.dump({"sanitize_mode": "reference"}, f)
+    report = evaluate.main(["--root", gen_dir])
+    assert report["num_mols"] == 4, report
+    ref_dir = os.path.join(work, "ref")
+    evaluate.main(["--from_where", "dataset", "--dataset_root", "./data/synthetic",
+                   "--corpus_mols", "40", "--outdir", ref_dir])
+    table = analyze.main(["--ref", ref_dir, "--methods", "port=" + report["out_dir"],
+                          "--out", os.path.join(work, "metrics_all_methods.csv")])
+    assert "jsd_n_atoms" in table["port"] and table["port"]["v_n_complete"] >= 1, table
+finally:
+    shutil.rmtree(work)
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print(json.dumps({"modules": names, "settings": chip_smoke.SAMPLE_SETTINGS,
@@ -152,7 +188,10 @@ def test_port_runs_without_jax_yaml_pandas():
                  "moldiff_tpu_torch.train.trainer", "moldiff_tpu_torch.train.optim",
                  "moldiff_tpu_torch.train.bond_cli", "moldiff_tpu_torch.train.checkpoint_async",
                  "moldiff_tpu_torch.data.synthetic_v2", "moldiff_tpu_torch.data.loader",
-                 "moldiff_tpu_torch.ops.respace", "moldiff_tpu_torch.serve.server"):
+                 "moldiff_tpu_torch.ops.respace", "moldiff_tpu_torch.serve.server",
+                 "moldiff_tpu_torch.eval", "moldiff_tpu_torch.eval.evaluate",
+                 "moldiff_tpu_torch.eval.analyze", "moldiff_tpu_torch.eval.metrics",
+                 "moldiff_tpu_torch.chem.smarts", "moldiff_tpu_torch.chem.embed"):
         assert name in out["modules"]
     # chip_smoke's sample settings are the committed YAML config's
     with open(os.path.join(REPO, "configs/sample/sample_flagship_v2.yml")) as f:
