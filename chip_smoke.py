@@ -139,7 +139,24 @@ Phases, each asserting and none catching a failure:
      ./data/synthetic recipe, and on that recipe's test split; analyze on
      the two. Every output file exists, validity.json holds summary.json's
      counts; each family's empty rows and the host seconds per molecule are
-     printed.
+     printed;
+ 20. the data path: the first 512 molecules of the ./data/synthetic_xl2
+     recipe written as an SDF directory (sdf/, mol_summary.csv,
+     split_by_molid.pkl) by a worker while the kernels build; the native
+     SDF parser built from moldiff_tpu_torch/native (its time printed);
+     get_dataset processes the directory into a record store, every record
+     equal to the recipe's in elements and bonds and within 5e-5 in
+     positions, its bytes and read rate printed; the train CLI's run() with
+     the settings of configs/train/train_v2_cont.yml pointed at that
+     directory, from flagship_v2 (--reset_ema, --reset_optim), 4 steps at
+     batch 128 (val_freq 2, ckpt_freq 2, val_batches 1), its summary's data
+     "store", each step's launches as in phase 10; log.txt,
+     metrics.jsonl and the event file written and agreeing; a second run()
+     resumed from the newest checkpoint for 2 steps in a new log dir; the
+     test split read and sanitized from the store; flagship_v2's params
+     exported to the reference .pt format, loaded and converted back with
+     every leaf bit-equal, and one forward (B = 16, N = 32) through the
+     kernels on them bit-equal to the forward on the original params.
 --gate NAME runs one sampling gate instead of the phases (after 1 and 2):
 the settings of a committed YAML with named overrides (GATES; a CPU test
 holds each equal to its YAML plus its overrides): s100, ddim_s100,
@@ -288,6 +305,19 @@ BOND_PREDICTOR_40K = "ckpts/bondpred_40k.ckpt"
 SCRATCH_STEPS = 3
 SCRATCH_KEEP = 2
 SCRATCH_CORPUS_MOLS = 400
+# phase 20: the data path. The first STORE_CORPUS molecules of the
+# synthetic_xl2 recipe (train_v2_cont.yml's corpus) written as an SDF
+# directory under STORE_ROOT while the kernels build, processed into a record
+# store whose positions match the recipe's within STORE_POS_ATOL (the SDF
+# files round them to 4 decimals) plus one float32 spacing; STORE_STEPS training steps from it, then
+# STORE_RESUME_STEPS more resumed from the newest checkpoint. At the
+# generator's N(24.9, 5.5) only bucket 32 fills a batch of 128 from the
+# 409 training molecules.
+STORE_ROOT = os.path.join("outputs_torch", "chip_smoke", "synthetic_xl2_512")
+STORE_CORPUS = ("./data/synthetic_xl2", 512)
+STORE_POS_ATOL = 5e-5
+STORE_STEPS = 4
+STORE_RESUME_STEPS = 2
 # --train-gate NAME: a training run from scratch of TRAIN_GATE_STEPS steps on
 # the ./data/synthetic recipe (8000 molecules, seed 7, v1, split 80/10/10)
 TRAIN_GATES = {"demo_scratch": TRAIN_DEMO_SYNTHETIC_30K,
@@ -811,6 +841,19 @@ def check_grid_invariance(blk: dict, demo_blk: dict, device) -> None:
         "runs, every output bit-equal to the first")
 
 
+def forward_inputs(model, device, b: int = 16, n: int = 32) -> tuple:
+    """Seeded arguments of MolDiff.forward after the params: a noised state
+    of b molecules of 12..n atoms at t = 500, and its node mask."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(7)
+    node_mask = (torch.arange(n, device=device)[None, :]
+                 < torch.randint(12, n + 1, (b, 1), generator=g, device=device)).float()
+    state = model.init_state(node_mask, model.draw_noise(b, n, g))
+    t = torch.full((b,), 500, dtype=torch.long, device=device)
+    return state.h_node, state.pos, state.h_halfedge, t, node_mask
+
+
 def check_forward(model, params, device) -> None:
     """MolDiff.forward at flagship width, kernels against plain versions
     (every forward kernel's wrapper replaced by its plain version)."""
@@ -818,14 +861,8 @@ def check_forward(model, params, device) -> None:
 
     from moldiff_tpu_torch.ops import kernels as K
 
-    b, n = 16, 32
-    g = torch.Generator(device=device).manual_seed(7)
-    node_mask = (torch.arange(n, device=device)[None, :]
-                 < torch.randint(12, n + 1, (b, 1), generator=g, device=device)).float()
-    state = model.init_state(node_mask, model.draw_noise(b, n, g))
-    t = torch.full((b,), 500, dtype=torch.long, device=device)
     blocks = model.prepare(params)
-    args = (params, state.h_node, state.pos, state.h_halfedge, t, node_mask)
+    args = (params,) + forward_inputs(model, device)
     got = model.forward(*args, blocks=blocks)
     saved = {fn: getattr(K, fn) for fn in FORWARD_FUNCTIONS.values()}
     for fn in saved:
@@ -1658,6 +1695,209 @@ def train_from_scratch(corpus: dict, results: dict, device) -> tuple:
     return counts, a_counts
 
 
+def _make_store_dir(args: tuple) -> str:
+    """Phase 20's dataset directory: the first n molecules of a corpus
+    recipe written as SDF files, a summary and a split (the store is built
+    in the phase), anew."""
+    import shutil
+
+    from moldiff_tpu_torch.data.dataset import CORPORA
+    from moldiff_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    root, recipe, n_mols = args
+    _, seed, chemistry = CORPORA[recipe]
+    shutil.rmtree(root, ignore_errors=True)
+    make_synthetic_dataset(root, n_mols=n_mols, seed=seed, chemistry=chemistry)
+    return root
+
+
+def start_store(pool) -> tuple:
+    """Phase 20's directory and the same molecules made in memory by their
+    recipe, in worker processes while the kernels build."""
+    recipe, n_mols = STORE_CORPUS
+    return (pool.submit(_make_store_dir, (STORE_ROOT, recipe, n_mols)),
+            pool.submit(_make_corpus, STORE_CORPUS))
+
+
+def check_store_records(dataset, corpus: dict) -> None:
+    """Every record of the store against the recipe's record of its molid:
+    element, bond_index and bond_type equal, positions within
+    STORE_POS_ATOL (the SDF files round them to 4 decimals) plus one
+    float32 spacing of the position."""
+    import numpy as np
+
+    want = {r["molid"]: r for split in corpus.values() for r in split}
+    assert len(dataset) == len(want) == STORE_CORPUS[1], (len(dataset), len(want))
+    worst = 0.0
+    for i in range(len(dataset)):
+        rec = dataset[i]
+        ref = want[rec["molid"]]
+        for k in ("element", "bond_index", "bond_type"):
+            assert rec[k].dtype == ref[k].dtype and np.array_equal(rec[k], ref[k]), \
+                (rec["molid"], k)
+        assert rec["pos"].shape == ref["pos"].shape, (rec["molid"], rec["pos"].shape)
+        # both sides are float32 roundings: one float32 spacing beyond the
+        # 4-decimal rounding
+        diff = np.abs(rec["pos"].astype(np.float64) - ref["pos"])
+        assert (diff <= STORE_POS_ATOL + np.spacing(np.abs(ref["pos"]))).all(), rec["molid"]
+        worst = max(worst, float(diff.max()))
+    say(f"store: {len(dataset)} records equal to the recipe's (elements, bonds), positions "
+        f"within {worst:.7g} (bound {STORE_POS_ATOL} + one float32 spacing)")
+
+
+def check_run_records(out: dict) -> list:
+    """A train run's directory: log.txt, metrics.jsonl with the JAX CLI's
+    (tag, step) pairs for its iterations, and an event file whose (tag,
+    step, value) triples are the JSONL's (values as float32). Returns the
+    JSONL's records."""
+    import numpy as np
+
+    from moldiff_tpu_torch.utils.tb_writer import read_events
+
+    assert os.path.getsize(os.path.join(out["log_dir"], "log.txt")) > 0
+    with open(out["metrics"]) as f:
+        rows = [json.loads(line) for line in f]
+    settings = out["trainer"].config
+    want = []
+    for st in out["steps"]:
+        it = st["it"]
+        if it % 100 == 0 or it == 1:
+            want += [(f"train/{k}", it) for k in ("loss", "loss_pos", "loss_node", "loss_edge",
+                                                   "grad_norm", "loss_len", "lr",
+                                                   "steps_per_sec")]
+        if it % int(settings["val_freq"]) == 0:
+            want.append(("val/loss", it))
+    assert sorted((r["tag"], r["step"]) for r in rows) == sorted(want), (rows, want)
+    events = read_events(out["events"])
+    assert events[0]["file_version"] == "brain.Event:2"
+    assert [(e["tag"], e["step"], e["value"]) for e in events[1:]] == \
+        [(r["tag"], r["step"], float(np.float32(r["value"]))) for r in rows], events
+    return rows
+
+
+def train_from_store(results: dict, model, params, store_jobs, device) -> tuple:
+    """Phase 20: the data path. STORE_CORPUS's directory (made while the
+    kernels build) processed into a record store by the port's native
+    parser, each record held to the recipe's; the train CLI's run() with
+    TRAIN_SETTINGS from flagship_v2 (--reset_ema, --reset_optim) fed from
+    that store, STORE_STEPS steps at batch 128, then resumed from its newest
+    checkpoint for STORE_RESUME_STEPS more in a new log dir; each step's
+    launches train_launches(), each run's those and its validation
+    forwards'; run records written and agreeing; the test
+    split read and sanitized from the store; flagship_v2's params exported
+    to the reference format, saved, loaded and converted back bit for bit,
+    and one kernel forward of ``model`` on them bit-equal to the original
+    params'. Returns the two runs' launches."""
+    import copy
+    import shutil
+
+    import torch
+
+    from moldiff_tpu_torch.chem import sdf_native
+    from moldiff_tpu_torch.data.dataset import get_dataset
+    from moldiff_tpu_torch.data.record_store import RecordReader
+    from moldiff_tpu_torch.eval.evaluate import load_dataset_mols
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.train import cli as train_cli
+    from moldiff_tpu_torch.utils import convert
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint, load_checkpoint_numpy
+
+    t_phase = time.time()
+    root = store_jobs[0].result(timeout=600)
+    corpus = store_jobs[1].result(timeout=600)
+    t0 = time.time()
+    built = sdf_native.lib_path().exists()
+    sdf_native.build()
+    say(f"native SDF parser: {'reused' if built else 'built'} in {time.time() - t0:.2f} s "
+        f"({sdf_native.lib_path()})")
+    settings = copy.deepcopy(TRAIN_SETTINGS)
+    settings["dataset"]["root"] = root
+    settings["train"].update(val_freq=2, ckpt_freq=2, val_batches=1)
+    t0 = time.time()
+    dataset, subsets = get_dataset(settings["dataset"])
+    assert dataset.parser == "native"
+    say(f"store: {len(dataset)} records processed in {time.time() - t0:.2f} s, "
+        f"{os.path.getsize(dataset.store_path + '.bin')} + "
+        f"{os.path.getsize(dataset.store_path + '.idx')} bytes (.bin + .idx); splits "
+        + ", ".join(f"{k} {len(v)}" for k, v in subsets.items()))
+    check_store_records(dataset, corpus)
+    with RecordReader(dataset.store_path) as reader:
+        t0 = time.perf_counter()
+        for i in range(len(reader)):
+            reader[i]
+        dt = time.perf_counter() - t0
+    say(f"store: {len(dataset)} records read back in {dt:.4f} s ({len(dataset) / dt:.0f} "
+        f"records/s, RecordReader, warm page cache)")
+
+    start = int(load_checkpoint_numpy(CHECKPOINT)["step"])
+    logdir = os.path.join("outputs_torch", "chip_smoke")
+    per_step = train_launches(settings, results)
+    counts = []
+    outs = []
+    for resume, steps, flags in ((CHECKPOINT, STORE_STEPS, {"reset_ema": True,
+                                                            "reset_optim": True}),
+                                 (None, STORE_RESUME_STEPS, {})):
+        resume = resume or outs[-1]["checkpoints"][-1]
+        first = int(load_checkpoint_numpy(resume)["step"]) + 1
+        kernels.reset_launch_counts()
+        out = train_cli.run(settings, resume, device=device, logdir=logdir, name="train_store",
+                            max_iters=first + steps - 1, log=lambda m: say(f"  {m}"), **flags)
+        counts.append(dict(kernels.launch_counts))
+        assert out["data"] == "store", out["data"]
+        assert [st["it"] for st in out["steps"]] == list(range(first, first + steps))
+        for st in out["steps"]:
+            assert st["launches"] == per_step, (st["it"], st["launches"], per_step)
+            check_step_terms(st, settings)
+            say(f"  store step {st['it']} N={st['n']}: {st['s']:.4f} s loss {st['loss']:.4f} "
+                f"grad_norm {st['grad_norm']:.4f}")
+        # and each validation batch's forward: rows 1, 4, 8 per call x blocks
+        val_calls = net(settings["model"])["num_blocks"] * sum(v["batches"] for v in out["val"])
+        val_launches = forward_expected(results, val_calls)
+        assert counts[-1] == {k: v * steps + val_launches[k] for k, v in per_step.items()}, \
+            (counts[-1], per_step, val_launches)
+        rows = check_run_records(out)
+        assert [r["step"] for r in rows if r["tag"] == "val/loss"] == \
+            [it for it in range(first, first + steps) if it % 2 == 0]
+        say(f"run records of {out['log_dir']}: {len(rows)} scalars in metrics.jsonl and "
+            f"{os.path.basename(out['events'])}, equal; log.txt; timer {out['timer']}")
+        outs.append(out)
+    assert outs[0]["log_dir"] != outs[1]["log_dir"]
+    assert outs[0]["steps"][0]["it"] == start + 1
+    s_step = [st["s"] for out in outs for st in out["steps"][1:]]
+    say(f"training from the store: {STORE_STEPS} + {STORE_RESUME_STEPS} steps at batch "
+        f"{settings['train']['batch_size']}, N {sorted({st['n'] for o in outs for st in o['steps']})}"
+        f", s/step (each run's first left out) mean {statistics.mean(s_step):.4f}; launches "
+        f"{counts}")
+
+    mols = load_dataset_mols(root, "test")
+    assert 0 < len(mols) <= len(subsets["test"]), (len(mols), len(subsets["test"]))
+    say(f"scoring input: {len(mols)} sanitized molecules of the store's test split "
+        f"({len(subsets['test'])} records)")
+
+    ckpt = load_checkpoint(CHECKPOINT, device)
+    exported = convert.export_moldiff_state_dict(params)
+    path = os.path.join(logdir, "flagship_v2_reference.pt")
+    torch.save({"config": ckpt["config"].to_dict(),
+                "model": {k: torch.from_numpy(v) for k, v in exported.items()},
+                "iteration": start}, path)
+    sd, config = convert.load_reference_checkpoint(path)
+    back = convert.convert_moldiff_state_dict(sd, config.model, device=device)
+    got_leaves, want_leaves = dict(_leaves(back)), dict(_leaves(params))
+    assert sorted(got_leaves) == sorted(want_leaves)
+    for k, w in want_leaves.items():
+        assert got_leaves[k].dtype == w.dtype and torch.equal(got_leaves[k], w), k
+    args = forward_inputs(model, device)
+    got = model.forward(back, *args)
+    want = model.forward(params, *args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    say(f"reference checkpoint: {len(exported)} tensors exported to {path} "
+        f"({os.path.getsize(path)} bytes), loaded and converted back: every leaf bit-equal, "
+        f"one kernel forward (B=16, N=32) bit-equal")
+    shutil.rmtree(root)
+    say(f"phase 20 (data path and run records): {time.time() - t_phase:.1f} s")
+    return counts[0], counts[1]
+
+
 def bond_gate_eval(out: dict, settings: dict, corpus: dict, device) -> bool:
     """bondpred_demo_scratch: the port's final predictor and the committed
     DEMO_BONDPRED_4K on every validation molecule (batch 128, the config's
@@ -2001,6 +2241,7 @@ def main() -> None:
         corpus_jobs = start_corpus(pool)
         scratch_job = pool.submit(_make_corpus, (TRAIN_FULL_SYNTHETIC_XL_SCRATCH["dataset"]["root"],
                                                  SCRATCH_CORPUS_MOLS))
+        store_jobs = start_store(pool)
 
     # 1. environment
     smi = nvidia_smi()
@@ -2192,8 +2433,13 @@ def main() -> None:
     v_counts = check_eval(cli, results, d_sampler.model.denoiser_static["num_blocks"])
     say(f"phase 19 (evaluation): {time.time() - t0:.1f} s")
 
+    # 20. the data path: training fed from a record store built by the
+    # native SDF parser, its run records, scoring input from the store, and
+    # the reference-checkpoint round trip
+    r_counts, rr_counts = train_from_store(results, model, params, store_jobs, device)
+
     main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts,
-                  b_counts, x_counts, a_counts, v_counts)
+                  b_counts, x_counts, a_counts, v_counts, r_counts, rr_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(c[name] for c in main_paths),

@@ -1,10 +1,14 @@
-"""Random valence-respecting molecules (a copy of the generator half of
+"""Random valence-respecting molecules (a copy of
 moldiff_tpu/data/synthetic.py): trees plus ring closures over
-C/N/O/F/S/Cl with a crude force-layout for coordinates. The v2 generator
-(synthetic_v2.py) falls back to it.
+C/N/O/F/S/Cl with a crude force-layout for coordinates (the v2 generator,
+synthetic_v2.py, falls back to it), and :func:`make_synthetic_dataset`,
+which writes a corpus as a reference-layout SDF directory.
 """
 from __future__ import annotations
 
+import csv
+import os
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -91,3 +95,45 @@ def _embed_coords(mol: Mol, rng: np.random.Generator, iters: int = 60) -> None:
     pos -= pos.mean(axis=0)
     for i, a in enumerate(mol.atoms):
         a.pos = pos[i].astype(np.float64)
+
+
+def make_synthetic_dataset(root: str, n_mols: int = 200, seed: int = 0, n_confs: int = 1,
+                           chemistry: str = "v1") -> None:
+    """Write a reference-layout dataset directory: sdf/<molid>.sdf,
+    mol_summary.csv and split_by_molid.pkl (80/10/10 in molid order), the
+    JAX package's bytes for the same arguments. ``chemistry``: "v1" (this
+    module's generator) or "v2" (synthetic_v2.py: aromatic rings, triple
+    bonds, GEOM-Drug size statistics). Conformers after the first are the
+    same graph re-laid out from the same stream."""
+    from ..chem.sdf import write_sdf
+
+    if chemistry == "v2":
+        from .synthetic_v2 import random_molecule_v2 as gen
+    else:
+        gen = random_molecule
+
+    rng = np.random.default_rng(seed)
+    sdf_dir = os.path.join(root, "sdf")
+    os.makedirs(sdf_dir, exist_ok=True)
+    molids = []
+    for k in range(n_mols):
+        molid = f"syn{k:05d}"
+        mol = gen(rng)
+        confs = [mol]
+        for _ in range(n_confs - 1):
+            c = mol.copy()
+            _embed_coords(c, rng)
+            confs.append(c)
+        write_sdf(confs, os.path.join(sdf_dir, f"{molid}.sdf"))
+        molids.append(molid)
+    with open(os.path.join(root, "mol_summary.csv"), "w", newline="") as f:
+        wr = csv.writer(f)
+        wr.writerow(["molid", "pass_size", "pass_element", "broken", "error_mol"])
+        for m in molids:
+            wr.writerow([m, True, True, False, False])
+    n_tr = int(0.8 * n_mols)
+    n_val = int(0.1 * n_mols)
+    split = {"train": molids[:n_tr], "val": molids[n_tr:n_tr + n_val],
+             "test": molids[n_tr + n_val:]}
+    with open(os.path.join(root, "split_by_molid.pkl"), "wb") as f:
+        pickle.dump(split, f)

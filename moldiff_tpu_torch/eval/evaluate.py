@@ -5,7 +5,9 @@ families (scripts/evaluate_all.py, without pandas).
   # JAX CLI: the same layout)
   python -m moldiff_tpu_torch.eval --from_where generated --root <out_dir>
 
-  # a dataset split: a corpus recipe of data/dataset.py's CORPORA
+  # a dataset split: a dataset directory (its record store, built from its
+  # SDF directory on first use), or a corpus recipe of data/dataset.py's
+  # CORPORA made in memory
   python -m moldiff_tpu_torch.eval --from_where dataset \
       --dataset_root ./data/synthetic --split test [--corpus_mols N]
 
@@ -25,7 +27,6 @@ import argparse
 import csv
 import glob
 import json
-import logging
 import math
 import numbers
 import os
@@ -36,6 +37,7 @@ from typing import Dict, List, Optional, Sequence
 from ..chem.mol import Mol, MolError
 from ..chem.sanitize import sanitize
 from ..chem.sdf import read_sdf
+from ..utils.misc import get_logger
 from .local3d import Local3D
 from .metrics import RingAnalyzer, calculate_validity, get_metric
 from .sa_score import _default_scorer
@@ -43,28 +45,6 @@ from .similarity import SimilarityAnalysis
 
 FAMILIES = ("drug_chem", "count_prop", "frags_counts", "groups_counts", "ring_topo")
 LOGGER = "moldiff_tpu_torch.eval"
-
-
-def get_logger(name: str, log_dir: Optional[str] = None) -> logging.Logger:
-    """A logger to stderr and, for this run, to ``<log_dir>/log.txt``
-    (utils/misc.py's format); a later call moves the file handler."""
-    logger = logging.getLogger(name)
-    logger.setLevel(logging.DEBUG)
-    formatter = logging.Formatter("[%(asctime)s::%(name)s::%(levelname)s] %(message)s")
-    for h in list(logger.handlers):
-        if isinstance(h, logging.FileHandler):
-            logger.removeHandler(h)
-            h.close()
-    if not logger.handlers:
-        sh = logging.StreamHandler()
-        sh.setFormatter(formatter)
-        logger.addHandler(sh)
-    if log_dir is not None:
-        os.makedirs(log_dir, exist_ok=True)
-        fh = logging.FileHandler(os.path.join(log_dir, "log.txt"))
-        fh.setFormatter(formatter)
-        logger.addHandler(fh)
-    return logger
 
 
 def load_generated(root: str):
@@ -113,21 +93,26 @@ def load_smiles_file(path: str, limit=None):
 
 def load_dataset_mols(dataset_root: str, split: str, limit=None,
                       corpus_mols: Optional[int] = None) -> List[Mol]:
-    """The sanitized molecules of one split of the corpus at
-    ``dataset_root``, a key of data/dataset.py's CORPORA, made in memory by
-    its recipe (the first ``corpus_mols`` molecules, split 80/10/10; by
-    default the whole corpus, as the JAX script reads it from its record
-    store). They differ from the SDF corpus the JAX script reads only in
-    positions: the SDF files round them to 4 decimals. The port has no
-    record store yet (ROADMAP.md §1, item 5), so any other root raises."""
-    from ..data.dataset import CORPORA, make_corpus
+    """The sanitized molecules of one split of the dataset at
+    ``dataset_root`` (the first conformer of each). A directory is read
+    through its record store (data/dataset.py get_dataset, processed from
+    its SDF directory on first use), as the JAX script reads it
+    (scripts/evaluate_all.py:93). Otherwise the root must be a key of
+    data/dataset.py's CORPORA, made in memory by its recipe (the first
+    ``corpus_mols`` molecules, split 80/10/10; by default the whole
+    corpus), which differs from the corpus directory only in positions (the
+    SDF files round them to 4 decimals); any other root raises."""
+    from ..data.dataset import CORPORA, DEFAULT_PATH_DICT, get_dataset, make_corpus
 
-    key = "./" + os.path.normpath(dataset_root)
-    if key not in CORPORA:
-        raise NotImplementedError(
-            f"{dataset_root!r} is not a corpus recipe ({sorted(CORPORA)}); reading a record "
-            "store or an SDF directory is ROADMAP.md §1 item 5 (data)")
-    subsets = make_corpus(dataset_root, corpus_mols or CORPORA[key][0])
+    if os.path.isdir(dataset_root):
+        _, subsets = get_dataset({"root": dataset_root, "path_dict": DEFAULT_PATH_DICT,
+                                  "split": "split_by_molid.pkl"})
+    else:
+        key = "./" + os.path.normpath(dataset_root)
+        if key not in CORPORA:
+            raise ValueError(f"{dataset_root!r} is neither a directory nor a corpus recipe "
+                             f"({sorted(CORPORA)})")
+        subsets = make_corpus(dataset_root, corpus_mols or CORPORA[key][0])
     subset = subsets.get(split) or subsets["train"]
     mols = []
     n = len(subset) if limit is None else min(limit, len(subset))
@@ -214,8 +199,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--dataset_root", default=None)
     ap.add_argument("--split", default="test")
     ap.add_argument("--corpus_mols", type=int, default=None,
-                    help="make only the first N molecules of the dataset's corpus recipe "
-                         "(default: all of it) before splitting")
+                    help="when --dataset_root is a corpus recipe and no directory: make only "
+                         "the first N molecules of it (default: all of it) before splitting")
     ap.add_argument("--outdir", default=None)
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--parallel", action="store_true")

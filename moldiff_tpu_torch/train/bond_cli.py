@@ -7,7 +7,10 @@
 The loop is the denoiser's (cli.fit): from fresh params drawn from
 ``train.seed`` or from ``--resume``; a log line of ``loss`` and
 ``acc_bond``; validation whose mean loss steps the scheduler; checkpoints
-with ``train.keep_ckpts`` and ``train.ckpt_async``. The featurizer is the
+with ``train.keep_ckpts`` and ``train.ckpt_async``; the data source and
+the run's directory (log.txt, metrics.jsonl with the JAX CLI's
+``train/loss`` and ``train/acc_bond`` at iteration 1 and every 100th and
+``val/loss``, the event file) as cli.fit says. The featurizer is the
 config's (``transform.use_mask_edge: false``: bond types and "none", no
 mask class), so the predictor has num_bond_types + 1 edge classes, as
 sampling builds it. :func:`run` takes the config as a dict (the card
@@ -28,10 +31,15 @@ from ..utils.config import Config
 from .cli import DEFAULT_CORPUS_MOLS, fit
 
 
+def bond_scalars(aux: dict, lr: float, steps_per_sec: float) -> dict:
+    """The bond predictor's logged scalars (scripts/train_bond.py:131-132)."""
+    return {"train/loss": aux["loss"], "train/acc_bond": aux["acc_bond"]}
+
+
 def run(config: dict, resume: Optional[str] = None, device: "str | torch.device | None" = None,
         logdir: str = "./logs_torch", name: str = "train_bond", max_iters: Optional[int] = None,
         corpus_mols: int = DEFAULT_CORPUS_MOLS, subsets: Optional[Dict[str, list]] = None,
-        log: Callable[[str], None] = print) -> dict:
+        log: Optional[Callable[[str], None]] = None, config_path: Optional[str] = None) -> dict:
     """Train the bond predictor with ``config``, from ``resume`` or from
     scratch -> cli.fit's summary."""
     config = Config(config)
@@ -40,7 +48,8 @@ def run(config: dict, resume: Optional[str] = None, device: "str | torch.device 
     model = BondPredictor(config.model, featurizer.num_node_types, featurizer.num_edge_types,
                           device=device)
     return fit(config, model, featurizer, device, resume, logdir, name, max_iters, corpus_mols,
-               subsets, log)
+               subsets, log, config_path=config_path, logger_name="train_bond",
+               scalars=bond_scalars)
 
 
 def main(argv=None) -> str:
@@ -54,11 +63,12 @@ def main(argv=None) -> str:
     ap.add_argument("--name", default=None)
     ap.add_argument("--max_iters", type=int, default=None)
     ap.add_argument("--corpus_mols", type=int, default=DEFAULT_CORPUS_MOLS,
-                    help="molecules of the config's corpus to generate in memory")
+                    help="when dataset.root is a corpus recipe and no directory: molecules "
+                         "of it to generate in memory")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     config = load_config(args.config)
     name = args.name or os.path.splitext(os.path.basename(args.config))[0]
     out = run(config, args.resume, device=args.device, logdir=args.logdir, name=name,
-              max_iters=args.max_iters, corpus_mols=args.corpus_mols)
+              max_iters=args.max_iters, corpus_mols=args.corpus_mols, config_path=args.config)
     return out["log_dir"]

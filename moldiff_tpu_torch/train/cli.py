@@ -24,28 +24,42 @@ iteration N to ``<log dir>/profile/trace_it<N>.json`` (the JAX CLI's
 ``jax.profiler`` trace). Unlike the JAX CLI, a failing step raises instead
 of being skipped: on the card a skipped step would hide a kernel fault.
 
-The training data is the config's ``dataset.root`` corpus, generated in
-memory (data/dataset.py make_corpus): its first ``--corpus_mols``
-molecules, split 80/10/10. :func:`run` is the same path for a caller that
-holds the config as a dict (the card machine has no PyYAML).
+The run's directory also holds what the JAX CLI leaves there: ``log.txt``
+(every log line), a copy of the config file (when ``main`` has one),
+``metrics.jsonl`` and a TensorBoard event file (utils/misc.py
+MetricsWriter; ``MOLDIFF_TB=0`` leaves out the event file) with the JAX
+CLI's scalars at its iterations: the ``train/*`` loss terms, grad norm,
+learning rate and steps per second at iteration 1 and every 100th, and
+``val/loss`` at each validation.
+
+The training data (:func:`load_subsets`): when the config's
+``dataset.root`` is a directory, its record store (data/dataset.py
+get_dataset, processed from its SDF directory on first use, as the JAX CLI
+reads it); else, when the root is a corpus recipe (data/dataset.py
+CORPORA), the first ``--corpus_mols`` molecules of that corpus generated in
+memory, split 80/10/10; anything else raises. :func:`run` is the same path
+for a caller that holds the config as a dict (the card machine has no
+PyYAML).
 """
 from __future__ import annotations
 
 import argparse
 import os
-import random
+import shutil
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..data.dataset import make_corpus
+from ..data.dataset import CORPORA, get_dataset, make_corpus
 from ..data.featurize import featurizer_from_config
 from ..data.loader import BucketedLoader
 from ..models.moldiff import MolDiff, resolve_device
 from ..ops import kernels
 from ..utils.config import Config
+from ..utils.misc import MetricsWriter, get_logger, get_new_log_dir, seed_all
+from ..utils.profiling import StepTimer, device_memory_stats, trace
 from .checkpoint_async import AsyncCheckpointer
 from .optim import get_lr, set_lr, tree_leaves, tree_map
 from .trainer import Trainer, batch_to_device, prune_checkpoints
@@ -53,48 +67,69 @@ from .trainer import Trainer, batch_to_device, prune_checkpoints
 DEFAULT_CORPUS_MOLS = 2000
 
 
-def _new_log_dir(root: str, prefix: str) -> str:
-    log_dir = os.path.join(root, f"{prefix}_{time.strftime('%Y_%m_%d__%H_%M_%S')}")
-    os.makedirs(log_dir, exist_ok=True)
-    return log_dir
+def load_subsets(dataset_cfg, corpus_mols: int, log: Callable[[str], None]) -> Tuple[dict, str]:
+    """({split: records}, "store" or "recipe") for a config's ``dataset``
+    section: the record store of ``root`` when it is a directory, else the
+    first ``corpus_mols`` molecules of its corpus recipe made in memory."""
+    root = dataset_cfg["root"]
+    t0 = time.time()
+    if os.path.isdir(root):
+        dataset, subsets = get_dataset(dataset_cfg)
+        log(f"dataset {root}: record store {dataset.store_path} ({len(dataset)} records; "
+            + ", ".join(f"{len(v)} {k}" for k, v in subsets.items())
+            + f"), ready in {time.time() - t0:.1f} s")
+        return subsets, "store"
+    if "./" + os.path.normpath(root) in CORPORA:
+        subsets = make_corpus(root, corpus_mols)
+        log(f"corpus {root}: no such directory, {corpus_mols} molecules of its recipe "
+            f"generated in {time.time() - t0:.1f} s ({len(subsets['train'])} train, "
+            f"{len(subsets['val'])} val)")
+        return subsets, "recipe"
+    raise ValueError(f"dataset.root {root!r} is neither a directory nor a corpus recipe "
+                     f"({sorted(CORPORA)})")
 
 
-def _profiled(fn, path: str):
-    """fn() under torch.profiler (the card's activity too on a card), its
-    trace written to ``path``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with profile(activities=activities) as prof:
-        out = fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    prof.export_chrome_trace(path)
+def train_scalars(aux: dict, lr: float, steps_per_sec: float) -> dict:
+    """The denoiser's logged scalars (scripts/train_drug3d.py:184-191): its
+    loss terms, the optional ones it reports, grad norm, lr, steps/s."""
+    out = {f"train/{k}": aux[k] for k in ("loss", "loss_pos", "loss_node", "loss_edge",
+                                          "grad_norm")}
+    out.update({f"train/{k}": aux[k] for k in ("loss_len", "loss_v0ce", "loss_moe") if k in aux})
+    out.update({"train/lr": lr, "train/steps_per_sec": steps_per_sec})
     return out
 
 
 def fit(config: Config, model, featurizer, device: torch.device, resume: Optional[str],
         logdir: str, name: str, max_iters: Optional[int], corpus_mols: int,
-        subsets: Optional[Dict[str, list]], log: Callable[[str], None],
+        subsets: Optional[Dict[str, list]], log: Optional[Callable[[str], None]],
         reset_ema: bool = False, reset_optim: bool = False,
-        override_lr: Optional[float] = None, profile_at: int = 0) -> dict:
+        override_lr: Optional[float] = None, profile_at: int = 0,
+        config_path: Optional[str] = None, logger_name: str = "train",
+        scalars: Callable[[dict, float, float], dict] = train_scalars) -> dict:
     """The training loop of both CLIs for ``model`` (MolDiff or
-    BondPredictor) -> summary: the log dir, one record per train step
+    BondPredictor) -> summary: the log dir, the data source ("store",
+    "recipe", or "given" for ``subsets``), one record per train step
     (iteration, bucket, loss terms, grad norm, lr, seconds, kernel
-    launches), the validation losses, the checkpoints written, and the
-    final state and trainer."""
+    launches), the validation losses, the checkpoints written, the step
+    timer's summary, the metrics and event files, and the final state and
+    trainer. Log lines go to ``log.txt`` and stderr, and to ``log`` when
+    given; ``scalars`` maps a step's terms to the scalars written."""
     train_cfg = config.train
     if train_cfg.get("ckpt_sharded", False):
         raise NotImplementedError("sharded checkpoints (train.ckpt_sharded) are not ported yet")
     seed = int(train_cfg.seed)
-    random.seed(seed)
-    np.random.seed(seed)
-    log_dir = _new_log_dir(logdir, name)
+    seed_all(seed)
+    log_dir = get_new_log_dir(logdir, prefix=name)
     ckpt_dir = os.path.join(log_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
+    if config_path:
+        shutil.copyfile(config_path, os.path.join(log_dir, os.path.basename(config_path)))
+    logger = get_logger(logger_name, log_dir)
+
+    def say(msg: str) -> None:
+        logger.info(msg)
+        if log is not None:
+            log(msg)
 
     trainer = Trainer(model, train_cfg)
     # one stream from the seed: the initial params (when not resumed), then
@@ -102,30 +137,28 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
     gen = torch.Generator(device=device).manual_seed(seed)
     if resume:
         state = trainer.load_checkpoint(resume, device)
-        log(f"resumed from {resume} at step {state.step} | device {device}")
+        say(f"resumed from {resume} at step {state.step} | device {device}")
         if reset_ema and state.ema_params is not None:
             state = state._replace(ema_params=tree_map(lambda p: p.detach().clone(),
                                                        state.params))
-            log("EMA re-seeded from restored params (--reset_ema)")
+            say("EMA re-seeded from restored params (--reset_ema)")
         if reset_optim:
             state = state._replace(opt_state=trainer.optimizer.init(state.params))
             trainer.scheduler.reset()
-            log("optimizer + scheduler state reset (--reset_optim)")
+            say("optimizer + scheduler state reset (--reset_optim)")
         if override_lr:
             set_lr(state.opt_state, override_lr)
-            log(f"override LR -> {override_lr} (--override_lr)")
+            say(f"override LR -> {override_lr} (--override_lr)")
     else:
         state = trainer.init_state(gen)
-        log(f"initialised from train.seed {seed} | device {device}")
+        say(f"initialised from train.seed {seed} | device {device}")
     n_params = sum(p.numel() for p in tree_leaves(state.params))
-    log(f"trainable params: {n_params / 1e6:.2f}M")
+    say(f"trainable params: {n_params / 1e6:.2f}M")
 
     if subsets is None:
-        t0 = time.time()
-        subsets = make_corpus(config.dataset.root, corpus_mols)
-        log(f"corpus {config.dataset.root}: {corpus_mols} molecules generated in "
-            f"{time.time() - t0:.1f} s ({len(subsets['train'])} train, "
-            f"{len(subsets['val'])} val)")
+        subsets, data = load_subsets(config.dataset, corpus_mols, say)
+    else:
+        data = "given"
     buckets = tuple(train_cfg.get("buckets", (24, 32, 48)))
     batch_size = int(train_cfg.batch_size)
     train_loader = iter(BucketedLoader(subsets["train"], featurizer, batch_size, buckets,
@@ -138,79 +171,95 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
     keep = int(train_cfg.get("keep_ckpts", 0) or 0)
     async_ckpt = AsyncCheckpointer() if train_cfg.get("ckpt_async", False) else None
 
+    writer = MetricsWriter(log_dir)
+    timer = StepTimer()
     steps: List[dict] = []
     vals: List[dict] = []
     ckpts: List[str] = []
     first = state.step + 1
     t_log = time.time()
-    for it in range(first, max_iters + 1):
-        batch = batch_to_device(next(train_loader), device)
-        noise = trainer.draw_step_noise(batch, gen)
-        before = dict(kernels.launch_counts)
-        t0 = time.perf_counter()
-        if it == profile_at:
-            path = os.path.join(log_dir, "profile", f"trace_it{it}.json")
-            state, aux = _profiled(lambda: trainer.train_step(state, batch, noise), path)
-            log(f"profiler trace of iteration {it} written to {path}")
-        else:
-            state, aux = trainer.train_step(state, batch, noise)
-        aux = {k: float(v) for k, v in aux.items()}
-        dt = time.perf_counter() - t0
-        steps.append({"it": it, "n": int(batch["node_type"].shape[1]), "s": dt,
-                      "launches": {k: kernels.launch_counts[k] - before[k] for k in before},
-                      **aux, "lr": get_lr(state.opt_state)})
-        if it % 100 == 0 or it == first:
-            elapsed = time.time() - t_log
-            sps = (100 if it > first else 1) / elapsed
-            t_log = time.time()
-            terms = " ".join(f"{k} {v:.4f}" for k, v in aux.items()
-                             if k not in ("loss", "grad_norm"))
-            log(f"[it {it}] loss {aux['loss']:.4f} ({terms}) "
-                f"| grad {aux['grad_norm']:.2f} | lr {get_lr(state.opt_state):.2e} "
-                f"| {sps:.2f} it/s")
-
-        if it % val_freq == 0:
-            val_loader = BucketedLoader(val_subset, featurizer, batch_size, buckets,
-                                        shuffle=False, infinite=False, drop_last=False,
-                                        prefetch=0)
-            losses = []
-            for vb, vbatch in enumerate(val_loader):
-                if vb >= val_batches:
-                    break
-                vbatch = batch_to_device(vbatch, device)
-                vnoise = trainer.draw_noise(vbatch, gen)
-                losses.append(float(trainer.eval_step(state.params, vbatch, vnoise)["loss"]))
-            val_loss = float(np.mean(losses)) if losses else float("nan")
-            state = trainer.scheduler_step(state, val_loss)
-            vals.append({"it": it, "loss": val_loss, "batches": len(losses),
-                         "lr": get_lr(state.opt_state)})
-            log(f"[val {it}] loss {val_loss:.4f}")
-
-        if it % ckpt_freq == 0 or it == max_iters:
-            path = os.path.join(ckpt_dir, f"{it}.ckpt")
-            if async_ckpt is not None:
-                async_ckpt.save(path, state, config, scheduler=trainer.scheduler)
+    try:
+        for it in range(first, max_iters + 1):
+            batch = batch_to_device(next(train_loader), device)
+            noise = trainer.draw_step_noise(batch, gen)
+            before = dict(kernels.launch_counts)
+            t0 = time.perf_counter()
+            if it == profile_at:
+                path = os.path.join(log_dir, "profile", f"trace_it{it}.json")
+                with trace(path):
+                    state, aux = trainer.train_step(state, batch, noise)
+                say(f"profiler trace of iteration {it} written to {path}")
             else:
-                trainer.save_checkpoint(path, state, config)
-            ckpts.append(path)
-            log(f"saved {path}")
+                state, aux = trainer.train_step(state, batch, noise)
+            aux = {k: float(v) for k, v in aux.items()}
+            dt = time.perf_counter() - t0
+            timer.tick()
+            lr = get_lr(state.opt_state)
+            steps.append({"it": it, "n": int(batch["node_type"].shape[1]), "s": dt,
+                          "launches": {k: kernels.launch_counts[k] - before[k] for k in before},
+                          **aux, "lr": lr})
+            if it % 100 == 0 or it == first:
+                elapsed = time.time() - t_log
+                sps = (100 if it > first else 1) / elapsed
+                t_log = time.time()
+                terms = " ".join(f"{k} {v:.4f}" for k, v in aux.items()
+                                 if k not in ("loss", "grad_norm"))
+                say(f"[it {it}] loss {aux['loss']:.4f} ({terms}) "
+                    f"| grad {aux['grad_norm']:.2f} | lr {lr:.2e} | {sps:.2f} it/s")
+                # the JAX CLI's scalars, at its iterations (a resume's first
+                # iteration is logged, not written)
+                if it % 100 == 0 or it == 1:
+                    for tag, value in scalars(aux, lr, sps).items():
+                        writer.add_scalar(tag, value, it)
+
+            if it % val_freq == 0:
+                val_loader = BucketedLoader(val_subset, featurizer, batch_size, buckets,
+                                            shuffle=False, infinite=False, drop_last=False,
+                                            prefetch=0)
+                losses = []
+                for vb, vbatch in enumerate(val_loader):
+                    if vb >= val_batches:
+                        break
+                    vbatch = batch_to_device(vbatch, device)
+                    vnoise = trainer.draw_noise(vbatch, gen)
+                    losses.append(float(trainer.eval_step(state.params, vbatch, vnoise)["loss"]))
+                val_loss = float(np.mean(losses)) if losses else float("nan")
+                state = trainer.scheduler_step(state, val_loss)
+                vals.append({"it": it, "loss": val_loss, "batches": len(losses),
+                             "lr": get_lr(state.opt_state)})
+                say(f"[val {it}] loss {val_loss:.4f}")
+                writer.add_scalar("val/loss", val_loss, it)
+
+            if it % ckpt_freq == 0 or it == max_iters:
+                path = os.path.join(ckpt_dir, f"{it}.ckpt")
+                if async_ckpt is not None:
+                    async_ckpt.save(path, state, config, scheduler=trainer.scheduler)
+                else:
+                    trainer.save_checkpoint(path, state, config)
+                ckpts.append(path)
+                say(f"saved {path}")
+                prune_checkpoints(ckpt_dir, keep)
+        if async_ckpt is not None:
+            async_ckpt.wait()
             prune_checkpoints(ckpt_dir, keep)
-    if async_ckpt is not None:
-        async_ckpt.wait()
-        prune_checkpoints(ckpt_dir, keep)
-    log("done")
-    return {"log_dir": log_dir, "steps": steps, "val": vals, "checkpoints": ckpts,
-            "state": state, "trainer": trainer}
+    finally:
+        writer.close()
+    say(f"done | step timer {timer.summary()} | device memory {device_memory_stats()}")
+    return {"log_dir": log_dir, "data": data, "steps": steps, "val": vals, "checkpoints": ckpts,
+            "timer": timer.summary(), "metrics": os.path.join(log_dir, "metrics.jsonl"),
+            "events": writer.event_path, "state": state, "trainer": trainer}
 
 
 def run(config: dict, resume: Optional[str] = None, device: "str | torch.device | None" = None,
         logdir: str = "./logs_torch", name: str = "train", max_iters: Optional[int] = None,
         reset_ema: bool = False, reset_optim: bool = False, override_lr: Optional[float] = None,
         profile_at: int = 0, corpus_mols: int = DEFAULT_CORPUS_MOLS,
-        subsets: Optional[Dict[str, list]] = None, log: Callable[[str], None] = print) -> dict:
+        subsets: Optional[Dict[str, list]] = None,
+        log: Optional[Callable[[str], None]] = None, config_path: Optional[str] = None) -> dict:
     """Train MolDiff with ``config``, from ``resume`` or from scratch ->
     :func:`fit`'s summary. ``subsets``: {"train", "val"} record lists to
-    use instead of the generated corpus."""
+    use instead of the config's dataset; ``config_path``: the file the
+    config came from, copied into the log dir."""
     config = Config(config)
     device = resolve_device(device)
     featurizer = featurizer_from_config(config)
@@ -218,7 +267,7 @@ def run(config: dict, resume: Optional[str] = None, device: "str | torch.device 
                     device=device)
     return fit(config, model, featurizer, device, resume, logdir, name, max_iters, corpus_mols,
                subsets, log, reset_ema=reset_ema, reset_optim=reset_optim,
-               override_lr=override_lr, profile_at=profile_at)
+               override_lr=override_lr, profile_at=profile_at, config_path=config_path)
 
 
 def main(argv=None) -> str:
@@ -238,7 +287,8 @@ def main(argv=None) -> str:
     ap.add_argument("--profile_at", type=int, default=0,
                     help="write a torch.profiler trace of this iteration under the log dir")
     ap.add_argument("--corpus_mols", type=int, default=DEFAULT_CORPUS_MOLS,
-                    help="molecules of the config's corpus to generate in memory")
+                    help="when dataset.root is a corpus recipe and no directory: molecules "
+                         "of it to generate in memory")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     config = load_config(args.config)
@@ -246,5 +296,5 @@ def main(argv=None) -> str:
     out = run(config, args.resume, device=args.device, logdir=args.logdir, name=name,
               max_iters=args.max_iters, reset_ema=args.reset_ema, reset_optim=args.reset_optim,
               override_lr=args.override_lr, profile_at=args.profile_at,
-              corpus_mols=args.corpus_mols)
+              corpus_mols=args.corpus_mols, config_path=args.config)
     return out["log_dir"]

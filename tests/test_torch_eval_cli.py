@@ -102,9 +102,10 @@ def test_smiles_file_matches_jax(tmp_path):
 def test_dataset_split_from_the_corpus_recipe(tmp_path):
     """--from_where dataset on a corpus recipe: the split's molecules are
     the JAX generator's (./data/synthetic: seed 7, v1, 80/10/10), with
-    metrics, local3d and rings written and cached; any other root raises,
-    naming the missing record store; similarity.json for generated
-    molecules against the recipe's train and val splits."""
+    metrics, local3d and rings written and cached; a directory without a
+    store or SDF files raises, naming the missing record store, and a root
+    that is neither a directory nor a recipe raises; similarity.json for
+    generated molecules against the recipe's train and val splits."""
     from moldiff_tpu.chem.smiles import mol_to_smiles as jsmiles
     from moldiff_tpu.data.synthetic import random_molecule
     from moldiff_tpu_torch.chem.smiles import mol_to_smiles as tsmiles
@@ -115,8 +116,10 @@ def test_dataset_split_from_the_corpus_recipe(tmp_path):
     assert [tsmiles(m) for m in got] == want
     assert len(tevaluate.load_dataset_mols("data/synthetic", "train", limit=5,
                                            corpus_mols=60)) == 5
-    with pytest.raises(NotImplementedError, match="record store"):
+    with pytest.raises(FileNotFoundError, match="record store"):
         tevaluate.load_dataset_mols(str(tmp_path), "test")
+    with pytest.raises(ValueError, match="neither a directory nor a corpus recipe"):
+        tevaluate.load_dataset_mols(str(tmp_path / "nowhere"), "test")
 
     out = str(tmp_path / "ref")
     argv = ["--from_where", "dataset", "--dataset_root", "./data/synthetic", "--split", "test",

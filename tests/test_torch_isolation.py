@@ -7,8 +7,10 @@ step (on an in-memory corpus) on the CPU, and the same forward with
 fuse_block and a training step with edge_full; the demo bond predictor
 initialised from scratch takes a training step, and the demo denoiser one
 with grad_accum 2; the evaluation CLI scores a tiny sample directory and a
-dataset split and the analysis CLI compares them; all in a fresh
-interpreter with those modules blocked."""
+dataset split and the analysis CLI compares them; a record store is built
+from an SDF directory by the native parser and a training step reads it;
+a reference state dict converts back to the demo checkpoint's params; all
+in a fresh interpreter with those modules blocked."""
 import json
 import os
 import subprocess
@@ -169,6 +171,34 @@ try:
     assert "jsd_n_atoms" in table["port"] and table["port"]["v_n_complete"] >= 1, table
 finally:
     shutil.rmtree(work)
+
+# the data path: a record store built from an SDF directory by the native
+# parser, one training step read from it, and a reference state dict
+# converted (the demo checkpoint's params exported and read back)
+import copy
+from moldiff_tpu_torch.data.synthetic import make_synthetic_dataset
+from moldiff_tpu_torch.train import cli as train_cli
+from moldiff_tpu_torch.train.settings import TRAIN_DEMO_SYNTHETIC_30K
+from moldiff_tpu_torch.utils import convert
+work = tempfile.mkdtemp()
+try:
+    root = os.path.join(work, "data")
+    make_synthetic_dataset(root, n_mols=12, seed=0, chemistry="v2")
+    cfg = copy.deepcopy(TRAIN_DEMO_SYNTHETIC_30K)
+    cfg["dataset"]["root"] = root
+    cfg["model"]["denoiser"]["dtype"] = "float32"
+    cfg["train"].update(batch_size=2, buckets=[24, 32, 48], val_freq=1, val_batches=1)
+    out = train_cli.run(cfg, device="cpu", logdir=os.path.join(work, "logs"), max_iters=1,
+                        log=lambda m: None)
+    assert out["data"] == "store" and len(out["steps"]) == 1, out["data"]
+    assert os.path.exists(os.path.join(root, "processed.bin"))
+    assert all(np.isfinite(out["steps"][0][k]) for k in ("loss", "grad_norm"))
+    sd = convert.export_moldiff_state_dict(ck["params"])
+    back = convert.convert_moldiff_state_dict(sd, ck["config"]["model"], device="cpu")
+    from moldiff_tpu_torch.utils.tree import tree_leaves
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(ck["params"])))
+finally:
+    shutil.rmtree(work)
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print(json.dumps({"modules": names, "settings": chip_smoke.SAMPLE_SETTINGS,
@@ -191,7 +221,13 @@ def test_port_runs_without_jax_yaml_pandas():
                  "moldiff_tpu_torch.ops.respace", "moldiff_tpu_torch.serve.server",
                  "moldiff_tpu_torch.eval", "moldiff_tpu_torch.eval.evaluate",
                  "moldiff_tpu_torch.eval.analyze", "moldiff_tpu_torch.eval.metrics",
-                 "moldiff_tpu_torch.chem.smarts", "moldiff_tpu_torch.chem.embed"):
+                 "moldiff_tpu_torch.chem.smarts", "moldiff_tpu_torch.chem.embed",
+                 "moldiff_tpu_torch.chem.sdf_native", "moldiff_tpu_torch.data.record_store",
+                 "moldiff_tpu_torch.data.convert_lmdb", "moldiff_tpu_torch.data.make_corpus",
+                 "moldiff_tpu_torch.utils.misc", "moldiff_tpu_torch.utils.tb_writer",
+                 "moldiff_tpu_torch.utils.profiling", "moldiff_tpu_torch.utils.convert",
+                 "moldiff_tpu_torch.utils.strip_checkpoint",
+                 "moldiff_tpu_torch.train.supervisor"):
         assert name in out["modules"]
     # chip_smoke's sample settings are the committed YAML config's
     with open(os.path.join(REPO, "configs/sample/sample_flagship_v2.yml")) as f:
