@@ -156,7 +156,29 @@ Phases, each asserting and none catching a failure:
      test split read and sanitized from the store; flagship_v2's params
      exported to the reference .pt format, loaded and converted back with
      every leaf bit-equal, and one forward (B = 16, N = 32) through the
-     kernels on them bit-equal to the forward on the original params.
+     kernels on them bit-equal to the forward on the original params;
+ 21. the model variants at flagship_v2's widths (train/settings.py: its
+     training config with one override each), params from train.seed:
+     MOE_V2 (an expert bank of 4, top-2, in every NodeBlock) trained 4
+     steps at batch 128 on phase 10's corpus (both buckets), then with
+     edge_full 4, with fuse_block 1 (off under MoE) and MOE_BONDPRED_V2 (8
+     blocks) 1: each step's launches rows 4, 5, 8, 9 (edge_full: 6, 7, 8,
+     9; the predictor 4, 5) per call x blocks and none of rows 1-3,
+     loss_moe finite and above 0; a 100-step respaced chain of its
+     checkpoint through run() at batch 16 (rows 4 and 8 only); phases 4
+     and 9 on the MoE path at bf16 with flagship_v2's weights, its node MLP
+     copied into every expert, the plain runs routed as the kernel run was
+     (the router's argmax is discontinuous); the forward on the 4-step
+     weights held to the one-ulp witness; the tokens that choose another
+     expert with the kernels, the plain versions and at float32 printed;
+     CONT_V2 (the continuous categorical space, scaling [1, 4, 8]) trained
+     4 steps (rows 1, 3, 4, 5, 8, 9), its full 1000-step chain at batch 16
+     (rows 1, 4, 8; its s/step beside phase 5's), a 100-step fuse_block
+     chain (row 2), a 100-step chain guided by bondpred_v2 (rows 3, 5
+     inputs-only), edge_guidance refused before any launch, phases 4 and 9
+     on flagship_v2's weights and the 4-step forward held to the witness;
+     UNGATED_V2: one forward and two training steps at B = 128, N = 40,
+     timed, no launch of any kernel.
 --gate NAME runs one sampling gate instead of the phases (after 1 and 2):
 the settings of a committed YAML with named overrides (GATES; a CPU test
 holds each equal to its YAML plus its overrides): s100, ddim_s100,
@@ -194,6 +216,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import faulthandler
 import functools
 import json
@@ -263,13 +286,15 @@ GUIDED_SETTINGS = {
 # profile_steps --train runs the same settings (a CPU test holds it equal
 # to the YAML file); a copy of this script without the package stops in main()
 try:
-    from moldiff_tpu_torch.train.settings import (TRAIN_BONDPRED_DEMO, TRAIN_BONDPRED_V2,
+    from moldiff_tpu_torch.train.settings import (CONT_V2, MOE_BONDPRED_V2, MOE_V2,
+                                                  TRAIN_BONDPRED_DEMO, TRAIN_BONDPRED_V2,
                                                   TRAIN_DEMO_SYNTHETIC_30K,
-                                                  TRAIN_FULL_SYNTHETIC_XL_SCRATCH)
+                                                  TRAIN_FULL_SYNTHETIC_XL_SCRATCH, UNGATED_V2)
     from moldiff_tpu_torch.train.settings import TRAIN_V2_CONT as TRAIN_SETTINGS
 except ImportError:
     TRAIN_SETTINGS = TRAIN_BONDPRED_V2 = TRAIN_BONDPRED_DEMO = None
     TRAIN_DEMO_SYNTHETIC_30K = TRAIN_FULL_SYNTHETIC_XL_SCRATCH = None
+    MOE_V2 = MOE_BONDPRED_V2 = CONT_V2 = UNGATED_V2 = None
 # the fine-tuning phase: steps per bucket; the in-memory corpus holds
 # TRAIN_MOLS_PER_BUCKET molecules of each bucket (one batch each per epoch)
 TRAIN_STEPS_PER_BUCKET = 2
@@ -411,6 +436,13 @@ LIBRARY_NOTE = ("library_ms is null: no single PyTorch call computes these fused
 PERSISTENT_KERNELS = ("node_block", "edge_pair", "pos_update", "fused_block", "edge_block_full")
 GRID_CAPS = (0, 1, 7, 33)
 GRID_REPEATS = 3
+# phase 21: the model variants (train/settings.py: MOE_V2, MOE_BONDPRED_V2,
+# CONT_V2, UNGATED_V2) from a seed: training steps at batch 128 (fuse_block
+# and the predictor one each), respaced chains of VARIANT_CHAIN_STEPS and the
+# continuous model's full chain, at batch VARIANT_BATCH
+VARIANT_STEPS = 4
+VARIANT_CHAIN_STEPS = 100
+VARIANT_BATCH = 16
 
 
 def with_sample(settings: dict, top: "dict | None" = None, **sample) -> dict:
@@ -859,19 +891,11 @@ def check_forward(model, params, device) -> None:
     (every forward kernel's wrapper replaced by its plain version)."""
     import torch
 
-    from moldiff_tpu_torch.ops import kernels as K
-
     blocks = model.prepare(params)
     args = (params,) + forward_inputs(model, device)
     got = model.forward(*args, blocks=blocks)
-    saved = {fn: getattr(K, fn) for fn in FORWARD_FUNCTIONS.values()}
-    for fn in saved:
-        setattr(K, fn, getattr(K, fn + "_plain"))
-    try:
+    with plain_forward_kernels():
         want = model.forward(*args, blocks=blocks)
-    finally:
-        for fn, f in saved.items():
-            setattr(K, fn, f)
     torch.cuda.synchronize()
     for name, a, w in zip(got._fields, got, want):
         assert bool(torch.isfinite(a).all()), name
@@ -1127,17 +1151,26 @@ def with_denoiser(settings: dict, **flags) -> dict:
 
 
 def route(settings: dict) -> str:
+    """The route a configuration's blocks take (models/denoiser.py):
+    fuse_block is off under MoE and without gates."""
     den = net(settings["model"])
-    return "fuse_block" if den.get("fuse_block") else "edge_full" if den.get("edge_full") \
-        else "partial"
+    fuse = den.get("fuse_block") and den.get("use_gate", True) and not den.get("moe")
+    return "fuse_block" if fuse else "edge_full" if den.get("edge_full") else "partial"
 
 
 def train_kernels(settings: dict) -> tuple:
     """The kernels a training step of ``settings`` runs: its route's, less
-    PosUpdate's without ``update_pos`` (the bond predictor)."""
+    PosUpdate's without ``update_pos`` (the bond predictor), less the
+    NodeBlock's under MoE (the NodeBlock runs JAX's plain path there), and
+    none without gates."""
+    den = net(settings["model"])
+    if not den.get("use_gate", True):
+        return ()
     runs = TRAIN_ROUTES[route(settings)]
-    if not net(settings["model"]).get("update_pos", True):
+    if not den.get("update_pos", True):
         runs = tuple(k for k in runs if not k.startswith("pos_update"))
+    if den.get("moe"):
+        runs = tuple(k for k in runs if not k.startswith("node_block"))
     return runs
 
 
@@ -1453,6 +1486,22 @@ def run_path(cli, settings: dict, args_num_mols: int, batch_size: int, run_name:
                       num_mols=args_num_mols, batch_size=batch_size, run_name=run_name,
                       log=lambda m: say(f"  {m}"))
     return summary, dict(kernels.launch_counts)
+
+
+def guided_expected(results: dict, dn_blocks: int, bp_blocks: int, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` guided reverse steps: the
+    denoiser's forward kernels and the predictor's (no PosUpdate), and the
+    predictor's backward kernels inputs-only (guidance differentiates
+    positions alone)."""
+    out = {}
+    for name in KERNELS:
+        per_step = {"node_block": dn_blocks + bp_blocks, "edge_pair": dn_blocks + bp_blocks,
+                    "pos_update": dn_blocks, "node_block_bwd": bp_blocks,
+                    "edge_pair_bwd": bp_blocks}.get(name, 0)
+        per_call = results[name]["per_call_guided" if name in INPUTS_ONLY_KERNELS
+                                 else "per_call"]
+        out[name] = per_call * per_step * steps
+    return out
 
 
 def forward_expected(results: dict, calls: int) -> dict:
@@ -1898,6 +1947,368 @@ def train_from_store(results: dict, model, params, store_jobs, device) -> tuple:
     return counts[0], counts[1]
 
 
+class RoutePins:
+    """Phase 21's MoE checks: moe.choose (each token's experts) recorded
+    over the first ``calls`` routings, one forward's (a call per block),
+    then replayed in that order, so every later forward routes each token
+    to the first forward's experts. The router's argmax is discontinuous:
+    a one-ulp difference in a block's input can send a token to another
+    expert, which moves the output far more than any kernel difference.
+    The first forward runs the kernels; the plain versions then take its
+    routing, and the comparison holds what the kernels compute."""
+
+    def __init__(self, calls: int):
+        self.calls = calls
+        self.recorded = []
+        self.replays = 0
+
+    def __enter__(self):
+        from moldiff_tpu_torch.models import moe
+
+        self.moe, self.choose_free = moe, moe.choose
+        moe.choose = self.choose
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.moe.choose = self.choose_free
+
+    def choose(self, probs, top_k: int) -> list:
+        if len(self.recorded) < self.calls:
+            self.recorded.append(self.choose_free(probs, top_k))
+            return self.recorded[-1]
+        out = self.recorded[self.replays % self.calls]
+        self.replays += 1
+        return out
+
+
+@contextlib.contextmanager
+def plain_forward_kernels():
+    """Every forward kernel's wrapper replaced by its plain version."""
+    from moldiff_tpu_torch.ops import kernels as K
+
+    saved = {fn: getattr(K, fn) for fn in FORWARD_FUNCTIONS.values()}
+    for fn in saved:
+        setattr(K, fn, getattr(K, fn + "_plain"))
+    try:
+        yield
+    finally:
+        for fn, f in saved.items():
+            setattr(K, fn, f)
+
+
+def upcycle_moe(dense: dict, moe: dict) -> dict:
+    """MoE params whose leaves are a dense model's (flagship_v2's) but for
+    the NodeBlock's node MLP: every expert a copy of it, the router
+    ``moe``'s. Top-2 gates sum to 1, so a token that keeps both its slots
+    gets the dense node MLP's output: the MoE path on trained weights, the
+    weights phases 4 and 9 hold the dense path on."""
+    import torch
+
+    from moldiff_tpu_torch.utils.tree import tree_map
+
+    experts = moe["denoiser"]["blocks"]["node_block"]["node_net"]["router"]["w"].shape[-1]
+    node_block = dict(dense["denoiser"]["blocks"]["node_block"])
+    node_block["node_net"] = {
+        "router": moe["denoiser"]["blocks"]["node_block"]["node_net"]["router"],
+        "experts": tree_map(lambda x: torch.stack([x] * experts, dim=1),
+                            node_block["node_net"])}
+    return dict(dense, denoiser={"blocks": dict(dense["denoiser"]["blocks"],
+                                                node_block=node_block)})
+
+
+def check_forward_witnessed(model, params, device) -> None:
+    """MolDiff.forward (phase 4's inputs) with the kernels against the plain
+    versions on weights trained a few steps from a seed. Such a network can
+    carry a kernel's one-ulp bf16 differences further than flagship_v2's,
+    so each output's largest difference relative to its range is held to
+    TRAIN_WITNESS_RATIO x that of the plain versions with one ulp added at
+    the share of elements where each kernel differs (ulp_witness, over
+    TRAIN_WITNESS_SEEDS), not to phase 4's bound. Under MoE the plain runs
+    take the kernel run's routing (RoutePins)."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels as K
+
+    blocks = model.prepare(params)
+    args = (params,) + forward_inputs(model, device)
+    kern = {fn: getattr(K, fn) for fn in FORWARD_FUNCTIONS.values()}
+    plain = {fn: getattr(K, fn + "_plain") for fn in kern}
+
+    def run(use: dict):
+        for fn, f in use.items():
+            setattr(K, fn, f)
+        try:
+            with torch.no_grad():
+                return model.forward(*args, blocks=blocks)
+        finally:
+            for fn, f in kern.items():
+                setattr(K, fn, f)
+
+    moe = model.denoiser_static["moe"] is not None
+    with (RoutePins(len(blocks)) if moe else contextlib.nullcontext()):
+        got, want = run(kern), run(plain)
+        witness = []
+        for seed in TRAIN_WITNESS_SEEDS:
+            gen = torch.Generator(device=device).manual_seed(seed)
+            witness.append(run({fn: ulp_witness(kern[fn], plain[fn], gen, [])
+                                for fn in kern}))
+    torch.cuda.synchronize()
+    frac = lambda a, w: float((a - w).abs().max() / w.abs().max())
+    for k, name in enumerate(got._fields):
+        assert bool(torch.isfinite(got[k]).all()), name
+        f_k = frac(got[k], want[k])
+        f_w = max(frac(w[k], want[k]) for w in witness)
+        say(f"forward {name} (few-step weights): max |kernels - plain| / max |plain| = "
+            f"{f_k:.3g}, the one-ulp witness's largest {f_w:.3g}")
+        assert f_k <= TRAIN_WITNESS_RATIO * f_w, (name, f_k, f_w)
+
+
+def moe_routing_flips(model, model32, params, device) -> dict:
+    """How many real tokens chose another expert (first or second choice,
+    summed over the blocks) in MolDiff.forward of phase 4's inputs (B = 16,
+    N = 32, t = 500) with the kernels at bf16, with the plain versions at
+    bf16 and with the plain versions at float32, pair by pair, each run
+    routing freely."""
+    import torch
+
+    args = (params,) + forward_inputs(model, device)
+    real = args[-1].reshape(-1) > 0
+    blocks = model.denoiser_static["num_blocks"]
+    choices = {}
+    for name, m, plain in (("kernels_bf16", model, False), ("plain_bf16", model, True),
+                           ("plain_f32", model32, True)):
+        with RoutePins(blocks) as pins, torch.no_grad(), (
+                plain_forward_kernels() if plain else contextlib.nullcontext()):
+            m.forward(*args)
+        choices[name] = pins.recorded
+    flips = {}
+    for a, b in (("kernels_bf16", "plain_bf16"), ("kernels_bf16", "plain_f32"),
+                 ("plain_bf16", "plain_f32")):
+        flips[f"{a}_vs_{b}"] = [
+            sum(int(((x[j] != y[j]) & real).sum()) for x, y in zip(choices[a], choices[b]))
+            for j in range(len(choices[a][0]))]
+    flips["real_tokens_x_blocks"] = int(real.sum()) * blocks
+    return flips
+
+
+def train_variant(settings: dict, corpus: dict, results: dict, device, steps: int,
+                  name: str) -> tuple:
+    """The train CLI's run() (the bond CLI's for a predictor) with
+    ``settings`` from scratch (params from train.seed) for ``steps`` steps
+    at batch 128 on phase 10's corpus: launch counts set to 0 just before
+    and read just after, each step's equal to train_launches(); every loss
+    term finite, and under MoE loss_moe finite and above 0. Returns the
+    counts, the run's summary and its s/step by bucket (first step of each
+    left out when a bucket has more)."""
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.train import bond_cli
+    from moldiff_tpu_torch.train import cli as train_cli
+
+    bond = settings["model"]["name"] == "bond_predictor"
+    run = bond_cli.run if bond else train_cli.run
+    kernels.reset_launch_counts()
+    out = run(settings, None, device=device, logdir=os.path.join("outputs_torch", "chip_smoke"),
+              name=f"variant_{name}", max_iters=steps, subsets=corpus,
+              log=lambda m: say(f"  {m}"))
+    counts = dict(kernels.launch_counts)
+    per_step = train_launches(settings, results)
+    moe = bool(net(settings["model"]).get("moe"))
+    by_bucket = {}
+    for st in out["steps"]:
+        assert st["launches"] == per_step, (name, st["it"], st["launches"], per_step)
+        check_step_terms(st, settings)
+        if moe:
+            assert math.isfinite(st["loss_moe"]) and st["loss_moe"] > 0, st
+        by_bucket.setdefault(st["n"], []).append(st["s"])
+    assert len(out["steps"]) == steps
+    assert counts == {k: v * steps for k, v in per_step.items()}, counts
+    s_step = {n: statistics.mean(v[1:] or v) for n, v in sorted(by_bucket.items())}
+    say(f"variant {name} ({route(settings)}): {steps} steps at batch "
+        f"{settings['train']['batch_size']}, s/step by bucket {s_step}, losses "
+        + ", ".join(f"{st['loss']:.4f}" + (f" (moe {st['loss_moe']:.5f})" if moe else "")
+                    for st in out["steps"]) + f"; launches per step {per_step}")
+    return counts, out, s_step
+
+
+def sample_variant(cli, settings: dict, results: dict, expected_per_step: dict, num_mols: int,
+                   batch_size: int, run_name: str) -> tuple:
+    """run_path() of ``settings``; its launches must equal
+    ``expected_per_step`` (launches a reverse step) x steps x chains.
+    Returns the counts and the summary."""
+    summary, counts = run_path(cli, settings, num_mols, batch_size, run_name)
+    steps = summary["num_steps"] * summary["chains"]
+    expected = {k: expected_per_step.get(k, 0) * steps for k in KERNELS}
+    s_step = summary["chain_s"] / steps
+    say(f"{run_name}: {summary['chains']} chains x {summary['num_steps']} steps at batch "
+        f"{batch_size}, {s_step:.5f} s/step, finished {summary['num_finished']} failed "
+        f"{summary['num_failed']}; launches {counts}, expected {expected}")
+    assert counts == expected, (run_name, counts, expected)
+    assert summary["num_finished"] + summary["num_failed"] >= 1, summary
+    return counts, summary, s_step
+
+
+def check_ungated(corpus: dict, device, b: int = 128, n: int = 40) -> dict:
+    """UNGATED_V2 from a seed: one MolDiff.forward of a sampling state and
+    training steps (loss, backward, adamw, EMA) at batch b, bucket n on a
+    corpus batch, each timed (the second of two, after a synchronize), with
+    no launch of any kernel (JAX takes its kernels only where blocks are
+    gated) and finite outputs; peak device memory printed."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.train.trainer import Trainer
+
+    model = train_model(UNGATED_V2, device)
+    trainer = Trainer(model, UNGATED_V2["train"])
+    gen = torch.Generator(device=device).manual_seed(UNGATED_V2["train"]["seed"])
+    state = trainer.init_state(gen)
+    batch = train_batch(corpus["train"], b, n, device, UNGATED_V2)
+    mask = batch["node_mask"]
+    sample = model.init_state(mask, model.draw_noise(b, n, gen))
+    t = torch.full((b,), 500, dtype=torch.long, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    times = {"forward": [], "train_step": []}
+    with torch.no_grad():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            preds = model.forward(state.params, sample.h_node, sample.pos, sample.h_halfedge, t,
+                                  mask)
+            torch.cuda.synchronize(device)
+            times["forward"].append(time.perf_counter() - t0)
+    assert all(bool(torch.isfinite(x).all()) for x in preds)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, aux = trainer.train_step(state, batch, trainer.draw_step_noise(batch, gen))
+        torch.cuda.synchronize(device)
+        times["train_step"].append(time.perf_counter() - t0)
+        check_step_terms({k: float(v) for k, v in aux.items()}, UNGATED_V2)
+    counts = dict(kernels.launch_counts)
+    assert not any(counts.values()), counts
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    say(f"ungated (use_gate: false) B={b} N={n}: forward {times['forward'][1] * 1e3:.3f} ms, "
+        f"train step {times['train_step'][1] * 1e3:.3f} ms (first {times['train_step'][0]:.3f} "
+        f"s), loss {float(aux['loss']):.4f}, peak memory {peak:.2f} GB; launches {counts}")
+    return counts
+
+
+def check_variants(cli, corpus: dict, results: dict, device, dense: dict,
+                   dense_params: dict) -> list:
+    """Phase 21: the model variants at flagship_v2's widths from a seed
+    (train/settings.py), their launches on their main paths, their kernels
+    against the plain versions, and their times beside the dense model's in
+    this call (``dense``: phase 5's unguided s/step at batch 16 and phase
+    10's s/step by bucket; ``dense_params``: flagship_v2's). Returns the
+    launch counts of the main paths."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+
+    t_phase = time.time()
+    paths = []
+    blocks = MOE_V2["model"]["denoiser"]["num_blocks"]
+    per_call = lambda name: results[name]["per_call"]
+
+    # MoE: training on the default route, edge_full and fuse_block (fuse
+    # is off under MoE); the predictor; a respaced chain from its checkpoint
+    t0 = time.time()
+    counts, moe_out, moe_s = train_variant(MOE_V2, corpus, results, device, VARIANT_STEPS, "moe")
+    paths.append(counts)
+    assert sorted(moe_s) == MOE_V2["train"]["buckets"], moe_s
+    say(f"MoE training step s by bucket {moe_s} against the dense model's {dense['train_s']} "
+        f"(phase 10, this call)")
+    paths.append(train_variant(with_denoiser(MOE_V2, edge_full=True), corpus, results, device,
+                               VARIANT_STEPS, "moe_edge_full")[0])
+    paths.append(train_variant(with_denoiser(MOE_V2, fuse_block=True), corpus, results, device,
+                               1, "moe_fuse_block")[0])
+    paths.append(train_variant(MOE_BONDPRED_V2, corpus, results, device, 1, "moe_bondpred")[0])
+    moe_ckpt = moe_out["checkpoints"][-1]
+    counts, _, _ = sample_variant(
+        cli, with_sample(SAMPLE_SETTINGS, {"model": {"checkpoint": moe_ckpt}},
+                         num_steps=VARIANT_CHAIN_STEPS),
+        results, {"edge_pair": per_call("edge_pair") * blocks,
+                  "pos_update": per_call("pos_update") * blocks},
+        1, VARIANT_BATCH, "moe_v2_s100")
+    paths.append(counts)
+    say(f"  MoE main paths: {time.time() - t0:.1f} s")
+
+    # MoE kernels against the plain versions at bf16, the plain runs routed
+    # as the kernel run was (RoutePins): phases 4 and 9 on flagship_v2's
+    # weights with its node MLP as every expert, and the few-step weights
+    # against the one-ulp witness; the routing flips
+    t0 = time.time()
+    moe_params = moe_out["state"].params
+    upcycled = upcycle_moe(dense_params, moe_params)
+    model, model32 = train_model(MOE_V2, device), train_model(MOE_V2, device, dtype="float32")
+    with RoutePins(blocks):
+        check_forward(model, upcycled, device)
+    with RoutePins(blocks):
+        check_train_gradient(upcycled, corpus["train"], device, MOE_V2)
+    check_forward_witnessed(model, moe_params, device)
+    flips = moe_routing_flips(model, model32, moe_params, device)
+    say(f"MoE routing (first, second choice) that differ over {flips.pop('real_tokens_x_blocks')} "
+        f"real tokens x blocks: {flips}")
+    say(f"  MoE checks: {time.time() - t0:.1f} s")
+
+    # the continuous categorical space: training, a full unguided chain
+    # (default route, then fuse_block respaced), a guided respaced chain,
+    # edge guidance refused; its kernels against the plain versions
+    t0 = time.time()
+    counts, cont_out, cont_s = train_variant(CONT_V2, corpus, results, device, VARIANT_STEPS,
+                                             "cont")
+    paths.append(counts)
+    cont_ckpt = cont_out["checkpoints"][-1]
+    cont = with_sample(SAMPLE_SETTINGS, {"model": {"checkpoint": cont_ckpt}})
+    counts, _, s_cont = sample_variant(
+        cli, cont, results, {k: per_call(k) * blocks for k in FORWARD_KERNELS}, 1,
+        VARIANT_BATCH, "cont_v2_1000")
+    paths.append(counts)
+    say(f"continuous chain {s_cont:.5f} s/step against the discrete chain's "
+        f"{dense['sample_s']:.5f} (phase 5, batch 16, this call): ratio "
+        f"{s_cont / dense['sample_s']:.3f}")
+    fused = with_sample(SAMPLE_SETTINGS, {"model": {"checkpoint": cont_ckpt,
+                                                    "denoiser": {"fuse_block": True}}},
+                        num_steps=VARIANT_CHAIN_STEPS)
+    paths.append(sample_variant(cli, fused, results,
+                                {"fused_block": per_call("fused_block") * blocks}, 1,
+                                VARIANT_BATCH, "cont_v2_fuse_s100")[0])
+    bp_blocks = TRAIN_BONDPRED_V2["model"]["encoder"]["num_blocks"]
+    guided = with_sample(GUIDED_SETTINGS, {"model": {"checkpoint": cont_ckpt}},
+                         num_steps=VARIANT_CHAIN_STEPS)
+    paths.append(sample_variant(cli, guided, results,
+                                guided_expected(results, blocks, bp_blocks, 1), 1,
+                                VARIANT_BATCH, "cont_v2_guided_s100")[0])
+    refused = with_sample(SAMPLE_SETTINGS, {"model": {"checkpoint": cont_ckpt},
+                                            "bond_predictor": BOND_PREDICTOR},
+                          edge_guidance=1.0, num_steps=VARIANT_CHAIN_STEPS)
+    kernels.reset_launch_counts()
+    try:
+        cli.run(refused, device="cuda", outdir=os.path.join("outputs_torch", "chip_smoke"),
+                num_mols=1, batch_size=VARIANT_BATCH, run_name="cont_v2_eg", log=say)
+    except ValueError as exc:
+        assert "edge_guidance" in str(exc), exc
+        say(f"continuous edge_guidance 1.0 refused: {exc}")
+    else:
+        raise AssertionError("edge_guidance on a continuous model was not refused")
+    assert not any(kernels.launch_counts.values()), kernels.launch_counts
+    # phases 4 and 9 on flagship_v2's weights (the continuous space's tree
+    # is the dense one), and the few-step weights against the witness
+    cont_model = train_model(CONT_V2, device)
+    check_forward(cont_model, dense_params, device)
+    check_train_gradient(dense_params, corpus["train"], device, CONT_V2)
+    check_forward_witnessed(cont_model, cont_out["state"].params, device)
+    say(f"  continuous space: {time.time() - t0:.1f} s")
+
+    # ungated blocks: no kernel at all
+    t0 = time.time()
+    paths.append(check_ungated(corpus, device))
+    say(f"  ungated: {time.time() - t0:.1f} s")
+    del model, model32
+    torch.cuda.empty_cache()
+    say(f"phase 21 (model variants): {time.time() - t_phase:.1f} s")
+    return paths
+
+
 def bond_gate_eval(out: dict, settings: dict, corpus: dict, device) -> bool:
     """bondpred_demo_scratch: the port's final predictor and the committed
     DEMO_BONDPRED_4K on every validation molecule (batch 128, the config's
@@ -2204,9 +2615,9 @@ def main() -> None:
                          "settings as written, scored and held to the JAX package's scores")
     ap.add_argument("--gate-num-mols", type=int, default=1000)
     ap.add_argument("--gate-batch-size", type=int, default=128)
-    ap.add_argument("--budget-s", type=float, default=540.0,
+    ap.add_argument("--budget-s", type=float, default=900.0,
                     help="wall-clock budget; the run is stopped with a traceback after it "
-                         "(the default ends a hang well inside a 900 s call)")
+                         "(the default ends a hang inside a 1200 s call)")
     args = ap.parse_args()
     faulthandler.dump_traceback_later(args.budget_s, exit=True)
     t_start = time.time()
@@ -2333,15 +2744,7 @@ def main() -> None:
     g_chains = g_summary["chains"]
     dn_blocks = model.denoiser_static["num_blocks"]
     bp_blocks = bp.encoder_static["num_blocks"]
-    g_expected = {}
-    for name in KERNELS:
-        per_step = {"node_block": dn_blocks + bp_blocks, "edge_pair": dn_blocks + bp_blocks,
-                    "pos_update": dn_blocks, "node_block_bwd": bp_blocks,
-                    "edge_pair_bwd": bp_blocks}.get(name, 0)
-        # guidance differentiates positions only: rows 3 and 5 run inputs-only
-        per_call = results[name]["per_call_guided" if name in INPUTS_ONLY_KERNELS
-                                 else "per_call"]
-        g_expected[name] = per_call * per_step * steps * g_chains
+    g_expected = guided_expected(results, dn_blocks, bp_blocks, steps * g_chains)
     say(f"guided sampling: {g_chains} chains x {steps} steps, launches {g_counts}, "
         f"expected {g_expected}")
     assert g_counts == g_expected, (g_counts, g_expected)
@@ -2358,7 +2761,7 @@ def main() -> None:
     say(f"launches made by the checks (not counted below): {kernels.launch_counts}")
 
     # 10. the training path: the train CLI's run() from flagship_v2
-    t_counts, _ = fine_tune(corpus, results, device, TRAIN_SETTINGS)
+    t_counts, t_s_step = fine_tune(corpus, results, device, TRAIN_SETTINGS)
 
     # 11. the six kernels at the fine-tuning shape, against plain versions
     check_train_kernels(params, corpus["train"], results, device, TRAIN_SETTINGS,
@@ -2438,8 +2841,13 @@ def main() -> None:
     # the reference-checkpoint round trip
     r_counts, rr_counts = train_from_store(results, model, params, store_jobs, device)
 
+    # 21. the model variants (MoE, the continuous categorical space, ungated
+    # blocks) at flagship width from a seed, beside the dense model's times
+    dense = {"sample_s": summary["chain_s"] / (steps * chains), "train_s": t_s_step}
+    variant_counts = check_variants(cli, corpus, results, device, dense, params)
+
     main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts,
-                  b_counts, x_counts, a_counts, v_counts, r_counts, rr_counts)
+                  b_counts, x_counts, a_counts, v_counts, r_counts, rr_counts, *variant_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(c[name] for c in main_paths),

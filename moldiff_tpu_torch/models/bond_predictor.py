@@ -13,6 +13,9 @@ loss :meth:`get_loss`, a weighted cross-entropy on the clean bond labels
 given noised positions and atom types. Its random numbers (the antithetic
 time draw and the two forward noisings) come in as :class:`BondLossNoise`,
 so one loss can be checked against the JAX package's given the same noise.
+An encoder with ``moe`` adds ``loss_moe`` (aux_weight x the load-balance
+loss) to the loss (:210-218); an ungated one runs JAX's plain blocks
+(models/denoiser.py).
 """
 from __future__ import annotations
 
@@ -94,10 +97,11 @@ class BondPredictor:
 
     def forward(self, params: dict, h_node: torch.Tensor, pos_node: torch.Tensor,
                 t: Optional[torch.Tensor], node_mask: torch.Tensor,
-                blocks: Optional[list] = None) -> torch.Tensor:
+                blocks: Optional[list] = None, return_moe_aux: bool = False):
         """Bond-type logits per half-edge [B, E, Ke] (bond_predictor.py:89-170).
         h_node [B,N,Kn] atom types, pos_node [B,N,3], t [B] int (None when
-        the predictor has no time), node_mask [B,N]."""
+        the predictor has no time), node_mask [B,N]. ``return_moe_aux``:
+        (logits, the MoE load-balance scalar or None)."""
         b, n, kn = h_node.shape
         pair_mask = graph_ops.pair_mask_from_node_mask(node_mask)
         # edge features embed [types of i || types of j] as two O(N) products
@@ -115,15 +119,19 @@ class BondPredictor:
             h_node_emb = linear(params["node_embedder"], h_node)
             h_edge_emb = edge_raw
             t_norm = torch.zeros((b, 1, 1), dtype=torch.float32, device=h_node.device)
-        h_node_out, _, h_edge_out = node_edge_net(
-            params["encoder"], self.encoder_static, h_node_emb, pos_node, h_edge_emb,
-            node_time=t_norm, edge_time=t_norm, pair_mask=pair_mask, blocks=blocks)
+        out = node_edge_net(params["encoder"], self.encoder_static, h_node_emb, pos_node,
+                            h_edge_emb, node_time=t_norm, edge_time=t_norm, pair_mask=pair_mask,
+                            blocks=blocks, node_mask=node_mask)
+        h_node_out, _, h_edge_out = out[:3]
         dev = str(h_node.device)
         iu = graph_ops._index_tensor("iu", n, dev)
         ju = graph_ops._index_tensor("ju", n, dev)
         h_half_sym = graph_ops.dense_to_halfedge(graph_ops.symmetrize_dense(h_edge_out))
         h_node_pair = h_node_out[:, iu] + h_node_out[:, ju]
-        return mlp(params["edge_decoder"], torch.cat([h_half_sym, h_node_pair], dim=-1))
+        pred = mlp(params["edge_decoder"], torch.cat([h_half_sym, h_node_pair], dim=-1))
+        if return_moe_aux:
+            return pred, (out[3] if len(out) > 3 else None)
+        return pred
 
     # -- training loss ---------------------------------------------------------
 
@@ -146,8 +154,9 @@ class BondPredictor:
         172-219): positions and atom types noised at the drawn time, bond
         labels clean; normalised by the summed weights of the real targets,
         as torch's CrossEntropyLoss(weight=w). ``acc_bond`` is the accuracy
-        over real bonded half-edges. node_type [B,N] int, node_pos [B,N,3],
-        halfedge_type [B,E] int, node_mask [B,N] -> (loss, dict of terms)."""
+        over real bonded half-edges; with ``moe`` the loss adds ``loss_moe``.
+        node_type [B,N] int, node_pos [B,N,3], halfedge_type [B,E] int,
+        node_mask [B,N] -> (loss, dict of terms)."""
         halfedge_mask = graph_ops.halfedge_mask_from_node_mask(node_mask)
         if self.num_timesteps > 0:
             t = noise.t
@@ -156,7 +165,7 @@ class BondPredictor:
         else:
             t, pos = None, node_pos
             h_node = torch.nn.functional.one_hot(node_type.long(), self.num_node_types).float()
-        pred = self.forward(params, h_node, pos, t, node_mask)
+        pred, moe_aux = self.forward(params, h_node, pos, t, node_mask, return_moe_aux=True)
         log_prob = torch.log_softmax(pred, dim=-1)
         labels = halfedge_type.long()
         nll = -torch.gather(log_prob, -1, labels[..., None])[..., 0]
@@ -164,4 +173,8 @@ class BondPredictor:
         loss = torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1e-8)
         acc = masked_mean((torch.argmax(pred, dim=-1) == labels).float(),
                           halfedge_mask * (labels > 0))
-        return loss, {"loss": loss, "loss_edge": loss, "acc_bond": acc}
+        aux = {"loss": loss, "loss_edge": loss, "acc_bond": acc}
+        if moe_aux is not None:
+            aux["loss_moe"] = self.encoder_static["moe"]["aux_weight"] * moe_aux
+            loss = aux["loss"] = loss + aux["loss_moe"]
+        return loss, aux

@@ -25,8 +25,20 @@ denoiser.py:235-244 and :521-535 read them:
   predictor (``update_pos: false``) never takes it.
 
 The wrappers launch the CUDA kernels for CUDA tensors and use their plain
-versions for CPU tensors. The gated blocks (``use_gate: true``, every
-committed model) are the ones with kernels; an ungated model is refused.
+versions for CPU tensors.
+
+The model variants take JAX's routes (denoiser.py:91-145, :234-246, :344,
+:521-526, :564):
+
+- ``moe``: the NodeBlock's per-atom MLP is a routed expert bank
+  (models/moe.py) and the NodeBlock runs JAX's plain math (no kernel; JAX
+  passes ``use_pallas and moe_cfg is None``); the EdgeBlock and PosUpdate
+  kernels run as above; :func:`node_edge_net` also returns the blocks'
+  mean load-balance loss;
+- ``use_gate: false``: every block is JAX's plain math, run here in
+  PyTorch in the compute dtype, since the kernels compute gated blocks only
+  (JAX takes them only where ``"gate" in p``);
+- ``fuse_block`` is switched off, silently, under either variant.
 """
 from __future__ import annotations
 
@@ -36,8 +48,9 @@ import torch
 
 from ..ops import kernels
 from ..utils.tree import tree_map
+from .moe import init_moe_mlp, moe_mlp, normalize_moe_cfg
 from .nn import (GaussianSmearing, init_layernorm, init_linear, init_mlp, layernorm, linear,
-                 linear_parts, safe_distance)
+                 linear_parts, mlp, mlp_parts, safe_distance)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,16 +61,14 @@ def denoiser_static_config(num_blocks: int, cutoff: float, use_gate: bool,
                            dtype: str = "float32", edge_full: bool = False,
                            fuse_block: bool = False, moe=None, **_unused) -> dict:
     """Static architecture config (denoiser.py:378-431). ``edge_full`` and
-    ``fuse_block`` choose the route as in the JAX package; its other kernel
+    ``fuse_block`` choose the route as in the JAX package; ``moe`` is the
+    expert bank's settings (models/moe.py, normalised); its other kernel
     and memory knobs (use_pallas, pallas_bwd, fuse_edge, remat) are
     accepted and ignored: the port always takes the kernel path."""
-    if not use_gate:
-        raise NotImplementedError("the port runs gated denoisers (use_gate: true) only")
-    if moe:
-        raise NotImplementedError("MoE denoisers are not ported yet")
     return {
         "num_blocks": num_blocks,
         "cutoff": float(cutoff),
+        "use_gate": bool(use_gate),
         "update_edge": update_edge,
         "update_pos": update_pos,
         "num_gaussians": num_gaussians,
@@ -65,6 +76,7 @@ def denoiser_static_config(num_blocks: int, cutoff: float, use_gate: bool,
         "dtype": dtype,
         "edge_full": bool(edge_full),
         "fuse_block": bool(fuse_block),
+        "moe": normalize_moe_cfg(moe),
         "smearing": GaussianSmearing(start=start, stop=cutoff,
                                      num_gaussians=num_gaussians, type_="exp"),
     }
@@ -75,38 +87,46 @@ def compute_dtype(static: dict) -> torch.dtype:
 
 
 # -- initialisation (the JAX package's trees; models/nn.py's rule) ---------------
-# Every block is gated: denoiser_static_config refuses use_gate: false.
 
-def init_node_block(gen, node_dim, edge_dim, hidden_dim, device):
-    """denoiser.py:51-69."""
-    return {
-        "node_net": init_mlp(gen, node_dim, hidden_dim, hidden_dim, device=device),
+def init_node_block(gen, node_dim, edge_dim, hidden_dim, device, use_gate=True, moe=None):
+    """denoiser.py:51-72: ``node_net`` is an expert bank under ``moe``."""
+    if moe:
+        node_net = init_moe_mlp(gen, node_dim, hidden_dim, hidden_dim, moe["num_experts"],
+                                device=device)
+    else:
+        node_net = init_mlp(gen, node_dim, hidden_dim, hidden_dim, device=device)
+    p = {
+        "node_net": node_net,
         "edge_net": init_mlp(gen, edge_dim, hidden_dim, hidden_dim, device=device),
         "msg_net": init_linear(gen, hidden_dim, hidden_dim, device=device),
         "centroid_lin": init_linear(gen, node_dim, hidden_dim, device=device),
         "ln": init_layernorm(hidden_dim, device),
         "out": init_linear(gen, hidden_dim, node_dim, device=device),
-        "gate": init_mlp(gen, edge_dim + node_dim + 1, hidden_dim, hidden_dim, device=device),
     }
+    if use_gate:
+        p["gate"] = init_mlp(gen, edge_dim + node_dim + 1, hidden_dim, hidden_dim, device=device)
+    return p
 
 
-def init_bond_ffn(gen, bond_dim, node_dim, inter_dim, device, out_dim=None):
+def init_bond_ffn(gen, bond_dim, node_dim, inter_dim, device, use_gate=True, out_dim=None):
     """denoiser.py:150-160."""
     out_dim = bond_dim if out_dim is None else out_dim
-    return {
+    p = {
         "bond_linear": init_linear(gen, bond_dim, inter_dim, bias=False, device=device),
         "node_linear": init_linear(gen, node_dim, inter_dim, bias=False, device=device),
         "inter": init_mlp(gen, inter_dim, out_dim, inter_dim, device=device),
-        "gate": init_mlp(gen, bond_dim + node_dim + 1, out_dim, 32, device=device),
     }
+    if use_gate:
+        p["gate"] = init_mlp(gen, bond_dim + node_dim + 1, out_dim, 32, device=device)
+    return p
 
 
-def init_edge_block(gen, edge_dim, node_dim, device):
+def init_edge_block(gen, edge_dim, node_dim, device, use_gate=True):
     """denoiser.py:198-210."""
     inter_dim = edge_dim * 2
     return {
-        "bond_ffn_left": init_bond_ffn(gen, edge_dim, node_dim, inter_dim, device),
-        "bond_ffn_right": init_bond_ffn(gen, edge_dim, node_dim, inter_dim, device),
+        "bond_ffn_left": init_bond_ffn(gen, edge_dim, node_dim, inter_dim, device, use_gate),
+        "bond_ffn_right": init_bond_ffn(gen, edge_dim, node_dim, inter_dim, device, use_gate),
         "node_ffn_left": init_linear(gen, node_dim, edge_dim, device=device),
         "node_ffn_right": init_linear(gen, node_dim, edge_dim, device=device),
         "self_ffn": init_linear(gen, edge_dim, edge_dim, device=device),
@@ -115,12 +135,12 @@ def init_edge_block(gen, edge_dim, node_dim, device):
     }
 
 
-def init_pos_update(gen, node_dim, edge_dim, hidden_dim, device):
-    """denoiser.py:326-332."""
+def init_pos_update(gen, node_dim, edge_dim, hidden_dim, device, use_gate=True):
+    """denoiser.py:326-335."""
     return {
         "left_lin_edge": init_mlp(gen, node_dim, edge_dim, hidden_dim, device=device),
         "right_lin_edge": init_mlp(gen, node_dim, edge_dim, hidden_dim, device=device),
-        "edge_lin": init_bond_ffn(gen, edge_dim, edge_dim, node_dim, device, out_dim=1),
+        "edge_lin": init_bond_ffn(gen, edge_dim, edge_dim, node_dim, device, use_gate, out_dim=1),
     }
 
 
@@ -130,51 +150,106 @@ def init_node_edge_net(gen: torch.Generator, node_dim: int, edge_dim: int,
     ``num_blocks`` axis (denoiser.py:434-462): ``edge_emb`` reads
     [edge features || smeared distances] (the distances alone without
     ``update_edge``), ``edge_block`` exists with ``update_edge`` and
-    ``pos_block`` with ``update_pos``."""
+    ``pos_block`` with ``update_pos``; ``gate`` leaves with ``use_gate``."""
     static = denoiser_static_config(**denoiser_cfg)
     update_edge, update_pos = static["update_edge"], static["update_pos"]
-    num_gaussians = static["num_gaussians"]
+    use_gate, num_gaussians = static["use_gate"], static["num_gaussians"]
     input_edge_dim = edge_dim + num_gaussians if update_edge else num_gaussians
     blocks = []
     for _ in range(static["num_blocks"]):
-        blk = {"node_block": init_node_block(gen, node_dim, edge_dim, node_dim, device),
+        blk = {"node_block": init_node_block(gen, node_dim, edge_dim, node_dim, device, use_gate,
+                                             static["moe"]),
                "edge_emb": init_linear(gen, input_edge_dim, edge_dim, device=device)}
         if update_edge:
-            blk["edge_block"] = init_edge_block(gen, edge_dim, node_dim, device)
+            blk["edge_block"] = init_edge_block(gen, edge_dim, node_dim, device, use_gate)
         if update_pos:
-            blk["pos_block"] = init_pos_update(gen, node_dim, edge_dim, edge_dim, device)
+            blk["pos_block"] = init_pos_update(gen, node_dim, edge_dim, edge_dim, device,
+                                               use_gate)
         blocks.append(blk)
     return {"blocks": tree_map(lambda *leaves: torch.stack(leaves), *blocks)}, static
 
 
-def node_block(p, x, edge_attr, node_time, pair_mask):
-    """NodeBlock (denoiser.py:65-145, use_pallas + pallas_bwd path): kernel
-    message sum (differentiable through the backward kernel), then centroid
-    linear, LN, relu, out."""
-    aggr = kernels.node_block_aggregate_ad(
-        {k: p[k] for k in ("node_net", "edge_net", "msg_net", "gate")},
-        x, edge_attr, node_time, pair_mask)
+def _sum_pairs(msg: torch.Tensor, pair_mask: torch.Tensor, dim: int) -> torch.Tensor:
+    """Masked messages summed over a pair axis in float32, in msg's dtype."""
+    msg = msg * pair_mask.to(msg.dtype)[..., None]
+    return torch.sum(msg, dim=dim, dtype=torch.float32).to(msg.dtype)
+
+
+def node_block(p, x, edge_attr, node_time, pair_mask, node_mask=None, moe_cfg=None):
+    """NodeBlock (denoiser.py:65-145) -> its output, and the expert bank's
+    load-balance loss under ``moe_cfg`` (then ``node_mask`` is needed).
+    Gated and dense: the kernel message sum (differentiable through the
+    backward kernel). Otherwise JAX's plain path (:114-142): the routed bank
+    or the node MLP, the edge MLP, the message linear, the gate MLP over
+    [edge ‖ node of the sender ‖ time] where gated, summed over senders in
+    float32. Then centroid linear, LN, relu, out."""
+    moe_aux = None
+    if moe_cfg is not None:
+        h_node, moe_aux = moe_mlp(p["node_net"], x, node_mask, moe_cfg)
+    if "gate" in p and moe_aux is None:
+        aggr = kernels.node_block_aggregate_ad(
+            {k: p[k] for k in ("node_net", "edge_net", "msg_net", "gate")},
+            x, edge_attr, node_time, pair_mask)
+    else:
+        if moe_aux is None:
+            h_node = mlp(p["node_net"], x)
+        msg = linear(p["msg_net"], mlp(p["edge_net"], edge_attr) * h_node[:, None, :, :])
+        if "gate" in p:
+            gate = mlp_parts(p["gate"], (edge_attr, x[:, None, :, :],
+                                         node_time.to(x.dtype)[..., None]),
+                             (edge_attr.shape[-1], x.shape[-1], 1))
+            msg = msg * torch.sigmoid(gate)
+        aggr = _sum_pairs(msg, pair_mask, 2)
     out = linear(p["centroid_lin"], x) + aggr
     out = layernorm(p["ln"], out)
-    return linear(p["out"], torch.relu(out))
+    out = linear(p["out"], torch.relu(out))
+    return out if moe_cfg is None else (out, moe_aux)
+
+
+def _bond_ffn_ungated(p, bond_feat, node_feat):
+    """An ungated BondFFN (denoiser.py:163-195): the bond and node linears'
+    product through the inter MLP."""
+    inter = linear(p["bond_linear"], bond_feat) * linear(p["node_linear"], node_feat)
+    return mlp(p["inter"], inter)
 
 
 def edge_block(p, h_bond, h_node, bond_time, pair_mask, edge_full: bool = False):
-    """EdgeBlock (denoiser.py:219-253). With ``edge_full`` the whole block
-    is one kernel, forward and backward (rows 6, 7); otherwise the partial
-    path: the kernel pair aggregate (differentiable through its backward
-    kernel), then the node/self FFNs, LN, relu, out."""
-    if edge_full:
-        return kernels.edge_block_full_ad(p, h_bond, h_node, bond_time, pair_mask)
-    t_pn, u_pn = kernels.edge_pair_aggregate_ad(
-        {"left": p["bond_ffn_left"], "right": p["bond_ffn_right"]},
-        h_bond, h_node, bond_time, pair_mask)
+    """EdgeBlock (denoiser.py:219-290). Gated: with ``edge_full`` the whole
+    block is one kernel, forward and backward (rows 6, 7); otherwise the
+    partial path: the kernel pair aggregate (differentiable through its
+    backward kernel). Ungated: JAX's plain chains and sums. Then the
+    node/self FFNs, LN, relu, out."""
+    h_left, h_right = h_node[:, :, None, :], h_node[:, None, :, :]
+    if "gate" in p["bond_ffn_left"]:
+        if edge_full:
+            return kernels.edge_block_full_ad(p, h_bond, h_node, bond_time, pair_mask)
+        t_pn, u_pn = kernels.edge_pair_aggregate_ad(
+            {"left": p["bond_ffn_left"], "right": p["bond_ffn_right"]},
+            h_bond, h_node, bond_time, pair_mask)
+    else:
+        t_pn = _sum_pairs(_bond_ffn_ungated(p["bond_ffn_left"], h_bond, h_left), pair_mask, 1)
+        u_pn = _sum_pairs(_bond_ffn_ungated(p["bond_ffn_right"], h_bond, h_right), pair_mask, 2)
     h = (t_pn[:, :, None, :] + u_pn[:, None, :, :]
-         + linear(p["node_ffn_left"], h_node[:, :, None, :])
-         + linear(p["node_ffn_right"], h_node[:, None, :, :])
+         + linear(p["node_ffn_left"], h_left)
+         + linear(p["node_ffn_right"], h_right)
          + linear(p["self_ffn"], h_bond))
     h = layernorm(p["ln"], h)
     return linear(p["out"], torch.relu(h))
+
+
+def pos_update(p, h_node, h_edge, rel_vec, distance, edge_time, pair_mask):
+    """PosUpdate (denoiser.py:338-372) -> the float32 position delta.
+    Gated: the kernel alone (pallas_bwd path), differentiable through its
+    backward kernel. Ungated: JAX's plain math, the force in float32."""
+    if "gate" in p["edge_lin"]:
+        return kernels.pos_update_ad(p, h_node, h_edge, rel_vec, distance, edge_time, pair_mask)
+    left = mlp(p["left_lin_edge"], h_node)[:, :, None, :]
+    right = mlp(p["right_lin_edge"], h_node)[:, None, :, :]
+    weight = _bond_ffn_ungated(p["edge_lin"], h_edge, left * right)
+    mask = pair_mask[..., None]
+    d_safe = torch.where(mask > 0, distance[..., None], torch.ones_like(mask))
+    force = weight.to(torch.float32) * rel_vec / d_safe / (d_safe + 1.0)
+    return torch.sum(force * mask.to(torch.float32), dim=2)
 
 
 def dist_features(pos_node, static, dtype):
@@ -186,27 +261,30 @@ def dist_features(pos_node, static, dtype):
 
 
 def block_body(blk, static, h_node, h_edge, h_dist, rel_vec, distance, node_time, edge_time,
-               pair_mask):
+               pair_mask, node_mask=None):
     """Edge embed -> NodeBlock -> EdgeBlock -> PosUpdate on given distance
     features, without the whole-block kernel -> (h_node, h_edge, the
-    position delta or None)."""
+    position delta or None, the block's load-balance loss or None)."""
     if static["update_edge"]:
         h_edge_i = linear_parts(blk["edge_emb"], (h_edge, h_dist),
                                 (h_edge.shape[-1], h_dist.shape[-1]))
     else:
         h_edge_i = linear(blk["edge_emb"], h_dist)
-    h_node_delta = node_block(blk["node_block"], h_node, h_edge_i, node_time, pair_mask)
+    moe_cfg = static.get("moe")
+    h_node_delta = node_block(blk["node_block"], h_node, h_edge_i, node_time, pair_mask,
+                              node_mask=node_mask, moe_cfg=moe_cfg)
+    moe_aux = None
+    if moe_cfg is not None:
+        h_node_delta, moe_aux = h_node_delta
     if static["update_edge"]:
         h_edge_i = h_edge_i + edge_block(blk["edge_block"], h_edge_i, h_node, edge_time,
                                          pair_mask, edge_full=static["edge_full"])
     h_node = h_node + h_node_delta
     pos_delta = None
     if static["update_pos"]:
-        # PosUpdate (denoiser.py:338-350, pallas_bwd path) is the kernel alone,
-        # differentiable through its backward kernel
-        pos_delta = kernels.pos_update_ad(blk["pos_block"], h_node, h_edge_i, rel_vec, distance,
-                                          edge_time, pair_mask)
-    return h_node, h_edge_i, pos_delta
+        pos_delta = pos_update(blk["pos_block"], h_node, h_edge_i, rel_vec, distance,
+                               edge_time, pair_mask)
+    return h_node, h_edge_i, pos_delta, moe_aux
 
 
 _PARTIAL = {"update_edge": True, "update_pos": True, "edge_full": False}
@@ -217,30 +295,33 @@ def fused_block_recompute(blk, h_node, h_edge, h_dist, rel_vec, distance, node_t
     node time as both times: the gradient of the whole block
     (pallas_kernels.py:_fb_bwd differentiates _xla_fused_block)."""
     return block_body(blk, _PARTIAL, h_node, h_edge, h_dist, rel_vec, distance, node_time,
-                      node_time, pair_mask)
+                      node_time, pair_mask)[:3]
 
 
 def apply_block(blk, static, h_node, pos_node, h_edge, node_time, edge_time, pair_mask,
-                dist0=None):
+                dist0=None, node_mask=None):
     """One block: edge embed -> NodeBlock -> EdgeBlock -> PosUpdate, all
-    residual (denoiser.py:481-597). Inputs are in the compute dtype. With
-    ``fuse_block`` a block that updates edges and positions is the
-    whole-block kernel (denoiser.py:521-535)."""
+    residual (denoiser.py:481-597) -> (h_node, pos_node, h_edge, the
+    block's load-balance loss or None). Inputs are in the compute dtype.
+    With ``fuse_block`` a gated dense block that updates edges and
+    positions is the whole-block kernel (denoiser.py:521-535)."""
     update_edge, update_pos = static["update_edge"], static["update_pos"]
     if update_pos or dist0 is None:
         h_dist, rel_vec, distance = dist_features(pos_node, static, h_edge.dtype)
     else:
         h_dist, rel_vec, distance = dist0
-    if static["fuse_block"] and update_edge and update_pos:
+    if (static["fuse_block"] and update_edge and update_pos and static["use_gate"]
+            and static["moe"] is None):
         h_node, h_edge_i, pos_delta = kernels.fused_block_ad(
             blk, fused_block_recompute, h_node, h_edge, h_dist, rel_vec, distance, node_time,
             pair_mask)
-        return h_node, pos_node + pos_delta, h_edge_i
-    h_node, h_edge_i, pos_delta = block_body(blk, static, h_node, h_edge, h_dist, rel_vec,
-                                             distance, node_time, edge_time, pair_mask)
+        return h_node, pos_node + pos_delta, h_edge_i, None
+    h_node, h_edge_i, pos_delta, moe_aux = block_body(
+        blk, static, h_node, h_edge, h_dist, rel_vec, distance, node_time, edge_time,
+        pair_mask, node_mask)
     if pos_delta is not None:
         pos_node = pos_node + pos_delta
-    return h_node, pos_node, h_edge_i
+    return h_node, pos_node, h_edge_i, moe_aux
 
 
 def prepare_blocks(params: dict, static: dict) -> list:
@@ -254,8 +335,10 @@ def prepare_blocks(params: dict, static: dict) -> list:
 
 
 def node_edge_net(params, static, h_node, pos_node, h_edge, node_time, edge_time,
-                  pair_mask, blocks: Optional[list] = None):
-    """Forward pass -> (h_node, pos_node, h_edge) (denoiser.py:600-666).
+                  pair_mask, blocks: Optional[list] = None, node_mask=None):
+    """Forward pass -> (h_node, pos_node, h_edge), and with ``moe`` also the
+    load-balance loss, the mean over blocks (denoiser.py:600-666);
+    ``node_mask`` [B, N] is needed under ``moe``.
 
     ``blocks``: the output of :func:`prepare_blocks` for ``params``; made
     here when not given. A Python loop over blocks replaces ``lax.scan``.
@@ -267,7 +350,13 @@ def node_edge_net(params, static, h_node, pos_node, h_edge, node_time, edge_time
     h_node = h_node.to(dt)
     h_edge = h_edge.to(dt)
     dist0 = None if static["update_pos"] else dist_features(pos_node, static, dt)
+    auxes = []
     for blk in blocks:
-        h_node, pos_node, h_edge = apply_block(blk, static, h_node, pos_node, h_edge,
-                                               node_time, edge_time, pair_mask, dist0=dist0)
-    return h_node.to(in_dtype), pos_node, h_edge.to(in_dtype)
+        h_node, pos_node, h_edge, moe_aux = apply_block(
+            blk, static, h_node, pos_node, h_edge, node_time, edge_time, pair_mask,
+            dist0=dist0, node_mask=node_mask)
+        auxes.append(moe_aux)
+    out = (h_node.to(in_dtype), pos_node, h_edge.to(in_dtype))
+    if static["moe"] is not None:
+        return out + (torch.stack(auxes).mean(),)
+    return out

@@ -17,9 +17,19 @@ predictor on the original timestep), ``ddpm`` or ``ddim`` positions,
 predictor's position guidance in all eight modes (:960-1044) and its
 class-space edge guidance (:650-675); the training loss ``get_loss``
 (:253-373), its noise (the time draw and the three forward noisings) passed
-in as :class:`LossNoise`. Not yet: the continuous categorical mode, the MoE
-loss. ``sample_chunked`` (:755) is not ported: it exists for TPU execution
-deadlines.
+in as :class:`LossNoise`, with the MoE load-balance term ``loss_moe``
+(:358-368). ``sample_chunked`` (:755) is not ported: it exists for TPU
+execution deadlines.
+
+The continuous categorical space (``diff.categorical_space: continuous``,
+:101-137): atom and bond types diffuse as Gaussians on one-hots divided by
+``diff.scaling[1:]``; the loss is the MSE to them x 30 (:347-356) and the
+reverse step (:878-968, :meth:`reverse_step` on such a model) draws all
+three chains from their Gaussian posteriors, position guidance included
+(bond inputs: the argmax and log-softmax of the new bond features). As in
+JAX it reads neither ``commit`` nor ``pos_sampler`` (nor ``eta`` and
+``guidance_interval``: guidance runs every step). One departure: JAX
+ignores ``edge_guidance > 0`` in this space; the port raises ValueError.
 
 Sampling runs under ``torch.no_grad()``; the guidance delta re-enables
 autograd for the predictor's forward and its gradient with respect to the
@@ -90,21 +100,23 @@ def sample_time_antithetic(half: torch.Tensor, num_graphs: int,
 
 
 class SampleState(NamedTuple):
+    """A reverse chain's state; the continuous space's has no
+    log-posteriors and no commit state (None)."""
     pos: torch.Tensor
     h_node: torch.Tensor
     h_halfedge: torch.Tensor
-    log_node: torch.Tensor
-    log_halfedge: torch.Tensor
-    com_node: torch.Tensor       # [B, N] committed class, -1 = not yet
+    log_node: Optional[torch.Tensor]
+    log_halfedge: Optional[torch.Tensor]
+    com_node: Optional[torch.Tensor]   # [B, N] committed class, -1 = not yet
     com_edge: Optional[torch.Tensor] = None   # [B, E] likewise; None = none yet
     preds: Optional[MolDiffPreds] = None
 
 
 class Trajectory(NamedTuple):
     """A chain's states from the prior draw on, S + 1 of them. The classes
-    are kept as indices (the states are one-hots, so this is exact):
-    float32 one-hot half-edges of a B = 128, N = 40, T = 1000 chain would
-    take 2.4 GB."""
+    are kept as indices (the discrete space's states are one-hots, so this
+    is exact; the continuous space's keep their argmax): float32 one-hot
+    half-edges of a B = 128, N = 40, T = 1000 chain would take 2.4 GB."""
     node: torch.Tensor       # [S+1, B, N] uint8 atom classes
     pos: torch.Tensor        # [S+1, B, N, 3]
     halfedge: torch.Tensor   # [S+1, B, E] uint8 bond classes
@@ -136,8 +148,12 @@ class MolDiff:
         diff = config["diff"]
         self.num_timesteps = diff["num_timesteps"]
         self.time_dim = diff["time_dim"]
-        if diff.get("categorical_space", "discrete") != "discrete":
-            raise NotImplementedError("the continuous categorical mode is not ported yet")
+        self.categorical_space = diff.get("categorical_space", "discrete")
+        if self.categorical_space not in ("discrete", "continuous"):
+            raise ValueError(self.categorical_space)
+        # one-hot scaling of the continuous space (moldiff.py:103-106)
+        self.scaling = [float(x) for x in diff.get("scaling", [1.0, 1.0, 1.0])]
+        assert self.scaling[0] == 1, "scaling for pos must be 1"
         no_init = lambda d: {k: v for k, v in d.items() if k != "init_prob"}
         T = self.num_timesteps
         # the float64 schedules, kept for respacing (moldiff.py:121-123)
@@ -146,8 +162,8 @@ class MolDiff:
             "node": get_beta_schedule(num_timesteps=T, **no_init(diff["diff_atom"])),
             "edge": get_beta_schedule(num_timesteps=T, **no_init(diff["diff_bond"])),
         }
-        self._init_prob = {"node": diff["diff_atom"]["init_prob"],
-                           "edge": diff["diff_bond"]["init_prob"]}
+        self._init_prob = {"node": diff["diff_atom"].get("init_prob"),
+                           "edge": diff["diff_bond"].get("init_prob")}
         self._respace_cache = {}
         self.pos_transition, self.node_transition, self.edge_transition = \
             self._transitions(self._raw_betas)
@@ -161,7 +177,14 @@ class MolDiff:
 
     def _transitions(self, betas: dict) -> tuple:
         """(Gaussian, node categorical, edge categorical) transitions of
-        the float64 ``betas``, on the model's device."""
+        the float64 ``betas``, on the model's device; all three Gaussian in
+        the continuous space (moldiff.py:131-137, :411-420)."""
+        if self.categorical_space == "continuous":
+            return (GaussianTransition(betas["pos"], device=self.device),
+                    GaussianTransition(betas["node"], device=self.device,
+                                       num_classes=self.num_node_types, scaling=self.scaling[1]),
+                    GaussianTransition(betas["edge"], device=self.device,
+                                       num_classes=self.num_edge_types, scaling=self.scaling[2]))
         return (GaussianTransition(betas["pos"], device=self.device),
                 CategoricalTransition(betas["node"], self.num_node_types,
                                       init_prob=self._init_prob["node"], device=self.device),
@@ -210,10 +233,11 @@ class MolDiff:
         return prepare_blocks(params["denoiser"], self.denoiser_static)
 
     def forward(self, params: dict, h_node_pert, pos_pert, h_halfedge_pert, t, node_mask,
-                blocks: Optional[list] = None) -> MolDiffPreds:
+                blocks: Optional[list] = None, return_moe_aux: bool = False):
         """Predict the clean (t = 0) quantities (moldiff.py:178-249).
         h_node_pert [B,N,Kn], pos_pert [B,N,3], h_halfedge_pert [B,E,Ke],
-        t [B] int, node_mask [B,N]."""
+        t [B] int, node_mask [B,N]. ``return_moe_aux``: (preds, the MoE
+        load-balance scalar or None)."""
         b, n = h_node_pert.shape[:2]
         pair_mask = graph_ops.pair_mask_from_node_mask(node_mask)
         t_float = t.to(torch.float32)
@@ -224,44 +248,61 @@ class MolDiff:
         h_edge = torch.cat([linear(params["edge_embedder"], h_edge_dense),
                             time_feat[:, None, None, :].expand(b, n, n, self.time_dim)], dim=-1)
         t_norm = (t_float / self.num_timesteps)[:, None, None]
-        h_node, pos_out, h_edge = node_edge_net(
-            params["denoiser"], self.denoiser_static, h_node, pos_pert, h_edge,
-            node_time=t_norm, edge_time=t_norm, pair_mask=pair_mask, blocks=blocks)
+        out = node_edge_net(params["denoiser"], self.denoiser_static, h_node, pos_pert, h_edge,
+                            node_time=t_norm, edge_time=t_norm, pair_mask=pair_mask,
+                            blocks=blocks, node_mask=node_mask)
+        h_node, pos_out, h_edge = out[:3]
         pred_node = mlp(params["node_decoder"], h_node)
         h_half_sym = graph_ops.dense_to_halfedge(graph_ops.symmetrize_dense(h_edge))
         pred_halfedge = mlp(params["edge_decoder"], h_half_sym)
-        return MolDiffPreds(pred_node, pos_out, pred_halfedge)
+        preds = MolDiffPreds(pred_node, pos_out, pred_halfedge)
+        if return_moe_aux:
+            return preds, (out[3] if len(out) > 3 else None)
+        return preds
 
     # -- training loss ---------------------------------------------------------
+
+    def _class_draw(self):
+        """The draw of the class chains' noise: uniform for the categorical
+        transitions, standard normal in the continuous space."""
+        return torch.randn if self.categorical_space == "continuous" else torch.rand
 
     def draw_loss_noise(self, b: int, n: int, generator: torch.Generator) -> LossNoise:
         """Fresh noise for one :meth:`get_loss` on a [B, N] batch."""
         dev = self.device
         half = torch.randint(0, self.num_timesteps, (b // 2 + 1,), generator=generator,
                              device=dev)
+        draw = self._class_draw()
         return LossNoise(
             t=sample_time_antithetic(half, b, self.num_timesteps),
             pos=torch.randn((b, n, 3), generator=generator, device=dev),
-            node=torch.rand((b, n, self.num_node_types), generator=generator, device=dev),
-            edge=torch.rand((b, graph_ops.num_halfedges(n), self.num_edge_types),
-                            generator=generator, device=dev),
+            node=draw((b, n, self.num_node_types), generator=generator, device=dev),
+            edge=draw((b, graph_ops.num_halfedges(n), self.num_edge_types),
+                      generator=generator, device=dev),
         )
 
     def get_loss(self, params: dict, node_type, node_pos, halfedge_type, node_mask,
                  noise: LossNoise):
         """Diffusion training loss (moldiff.py:253-373): masked-mean position
-        MSE + 100 x KL(node) + 100 x edge_loss_scale x KL(edge) [+ bond-length
-        MSE] [+ v0 cross-entropy]. node_type [B,N] int, node_pos [B,N,3],
+        MSE + 100 x KL(node) + 100 x edge_loss_scale x KL(edge) (in the
+        continuous space 30 x the MSE to the scaled one-hots of each) [+
+        bond-length MSE] [+ v0 cross-entropy] [+ aux_weight x the MoE
+        load-balance loss, ``loss_moe``]. node_type [B,N] int, node_pos [B,N,3],
         halfedge_type [B,E] int, node_mask [B,N] -> (loss, dict of terms)."""
         n = node_type.shape[1]
         halfedge_mask = graph_ops.halfedge_mask_from_node_mask(node_mask)
         t = noise.t
         pos_pert = self.pos_transition.add_noise(node_pos, t, noise.pos)
-        h_node_pert, log_node_t, log_node_0 = self.node_transition.add_noise(
-            node_type, t, noise.node)
-        h_halfedge_pert, log_halfedge_t, log_halfedge_0 = self.edge_transition.add_noise(
-            halfedge_type, t, noise.edge)
-        preds = self.forward(params, h_node_pert, pos_pert, h_halfedge_pert, t, node_mask)
+        node_tr, edge_tr = self.node_transition, self.edge_transition
+        if self.categorical_space == "continuous":
+            h_node_pert, h_node_0 = node_tr.add_noise(node_type, t, noise.node)
+            h_halfedge_pert, h_halfedge_0 = edge_tr.add_noise(halfedge_type, t, noise.edge)
+        else:
+            h_node_pert, log_node_t, log_node_0 = node_tr.add_noise(node_type, t, noise.node)
+            h_halfedge_pert, log_halfedge_t, log_halfedge_0 = edge_tr.add_noise(
+                halfedge_type, t, noise.edge)
+        preds, moe_aux = self.forward(params, h_node_pert, pos_pert, h_halfedge_pert, t,
+                                      node_mask, return_moe_aux=True)
 
         loss_pos = masked_mean((preds.pred_pos - node_pos) ** 2, node_mask[..., None])
         losses = {}
@@ -273,30 +314,39 @@ class MolDiff:
             pred_len = safe_distance(preds.pred_pos[:, iu] - preds.pred_pos[:, ju])
             losses["loss_len"] = masked_mean((pred_len - true_len) ** 2, bond_mask)
 
-        node_tr, edge_tr = self.node_transition, self.edge_transition
-        log_node_recon = torch.log_softmax(preds.pred_node, dim=-1)
-        kl_node = node_tr.compute_v_Lt(node_tr.q_v_posterior(log_node_0, log_node_t, t),
-                                       node_tr.q_v_posterior(log_node_recon, log_node_t, t),
-                                       log_node_0, t)
-        loss_node = masked_mean(kl_node, node_mask) * 100.0
-        log_edge_recon = torch.log_softmax(preds.pred_halfedge, dim=-1)
-        kl_edge = edge_tr.compute_v_Lt(
-            edge_tr.q_v_posterior(log_halfedge_0, log_halfedge_t, t),
-            edge_tr.q_v_posterior(log_edge_recon, log_halfedge_t, t), log_halfedge_0, t)
-        loss_edge = masked_mean(kl_edge, halfedge_mask) * 100.0 * self.edge_loss_scale
-        if self.v0_ce_scale > 0 or self.v0_ce_edge_scale > 0:
-            loss_v0ce = 0.0
-            if self.v0_ce_scale > 0:
-                ce_node = -torch.gather(log_node_recon, -1, node_type[..., None].long())[..., 0]
-                loss_v0ce = loss_v0ce + self.v0_ce_scale * masked_mean(ce_node, node_mask)
-            if self.v0_ce_edge_scale > 0:
-                ce_edge = -torch.gather(log_edge_recon, -1,
-                                        halfedge_type[..., None].long())[..., 0]
-                loss_v0ce = loss_v0ce + self.v0_ce_edge_scale * masked_mean(ce_edge,
-                                                                            halfedge_mask)
-            losses["loss_v0ce"] = loss_v0ce
+        if self.categorical_space == "continuous":
+            # MSE to the scaled one-hots x 30 (moldiff.py:347-356)
+            loss_node = masked_mean((preds.pred_node - h_node_0) ** 2, node_mask[..., None]) * 30.0
+            loss_edge = masked_mean((preds.pred_halfedge - h_halfedge_0) ** 2,
+                                    halfedge_mask[..., None]) * 30.0
+        else:
+            log_node_recon = torch.log_softmax(preds.pred_node, dim=-1)
+            kl_node = node_tr.compute_v_Lt(node_tr.q_v_posterior(log_node_0, log_node_t, t),
+                                           node_tr.q_v_posterior(log_node_recon, log_node_t, t),
+                                           log_node_0, t)
+            loss_node = masked_mean(kl_node, node_mask) * 100.0
+            log_edge_recon = torch.log_softmax(preds.pred_halfedge, dim=-1)
+            kl_edge = edge_tr.compute_v_Lt(
+                edge_tr.q_v_posterior(log_halfedge_0, log_halfedge_t, t),
+                edge_tr.q_v_posterior(log_edge_recon, log_halfedge_t, t), log_halfedge_0, t)
+            loss_edge = masked_mean(kl_edge, halfedge_mask) * 100.0 * self.edge_loss_scale
+            if self.v0_ce_scale > 0 or self.v0_ce_edge_scale > 0:
+                loss_v0ce = 0.0
+                if self.v0_ce_scale > 0:
+                    ce_node = -torch.gather(log_node_recon, -1,
+                                            node_type[..., None].long())[..., 0]
+                    loss_v0ce = loss_v0ce + self.v0_ce_scale * masked_mean(ce_node, node_mask)
+                if self.v0_ce_edge_scale > 0:
+                    ce_edge = -torch.gather(log_edge_recon, -1,
+                                            halfedge_type[..., None].long())[..., 0]
+                    loss_v0ce = loss_v0ce + self.v0_ce_edge_scale * masked_mean(ce_edge,
+                                                                                halfedge_mask)
+                losses["loss_v0ce"] = loss_v0ce
+        if moe_aux is not None:
+            # the Switch load-balance loss, weighted by denoiser.moe.aux_weight
+            losses["loss_moe"] = self.denoiser_static["moe"]["aux_weight"] * moe_aux
         loss_total = (loss_pos + loss_node + loss_edge + losses.get("loss_len", 0.0)
-                      + losses.get("loss_v0ce", 0.0))
+                      + losses.get("loss_v0ce", 0.0) + losses.get("loss_moe", 0.0))
         losses.update(loss=loss_total, loss_pos=loss_pos, loss_node=loss_node,
                       loss_edge=loss_edge)
         return loss_total, losses
@@ -306,16 +356,23 @@ class MolDiff:
     def draw_noise(self, b: int, n: int, generator: torch.Generator) -> StepNoise:
         e = graph_ops.num_halfedges(n)
         dev = self.device
+        draw = self._class_draw()
         return StepNoise(
             pos=torch.randn((b, n, 3), generator=generator, device=dev),
-            node=torch.rand((b, n, self.num_node_types), generator=generator, device=dev),
-            edge=torch.rand((b, e, self.num_edge_types), generator=generator, device=dev),
+            node=draw((b, n, self.num_node_types), generator=generator, device=dev),
+            edge=draw((b, e, self.num_edge_types), generator=generator, device=dev),
         )
 
     def init_state(self, node_mask: torch.Tensor, noise: StepNoise) -> SampleState:
-        """The prior draw x_T, v_T, e_T (moldiff.py:513-517)."""
+        """The prior draw x_T, v_T, e_T (moldiff.py:513-517; in the
+        continuous space all three standard normal, :896-899, and no
+        log-posteriors or commit state)."""
         b, n = node_mask.shape
         e = graph_ops.num_halfedges(n)
+        if self.categorical_space == "continuous":
+            return SampleState(self.pos_transition.sample_init(noise.pos),
+                               self.node_transition.sample_init(noise.node),
+                               self.edge_transition.sample_init(noise.edge), None, None, None)
         _, h_node, log_node = self.node_transition.sample_init((b, n), noise.node)
         pos = self.pos_transition.sample_init(noise.pos)
         _, h_half, log_half = self.edge_transition.sample_init((b, e), noise.edge)
@@ -347,7 +404,8 @@ class MolDiff:
         :func:`bond_guidance_delta`, applied when ``step % guidance_interval
         == 0``) and ``edge_guidance`` (weight of the predictor's log-probs
         mixed into the edge v0 prediction, at timesteps below
-        ``edge_guidance_tmax`` when given)."""
+        ``edge_guidance_tmax`` when given).
+        In the continuous space the step is :meth:`_continuous_step`."""
         if commit not in COMMIT_MODES:
             raise ValueError(f"commit must be one of {COMMIT_MODES}, got {commit!r}")
         if pos_sampler not in POS_SAMPLERS:
@@ -355,6 +413,10 @@ class MolDiff:
         edge_guidance = float(edge_guidance)
         if (edge_guidance > 0 or guidance is not None) and bond_predictor is None:
             raise ValueError("guidance and edge_guidance require a bond_predictor")
+        if self.categorical_space == "continuous":
+            self._check_continuous(edge_guidance)
+            return self._continuous_step(params, state, step, node_mask, noise, blocks,
+                                         bond_predictor, guidance, transitions, t_model)
         commit_nodes = commit in ("nodes", "both")
         commit_edges = commit in ("edges", "both")
         pos_tr, node_tr, edge_tr = transitions or (
@@ -422,6 +484,45 @@ class MolDiff:
                            edge_tr.onehot_encode(half_type_prev), log_node_new, log_half_new,
                            com_node, com_edge, preds)
 
+    def _check_continuous(self, edge_guidance: float) -> None:
+        """The port's one departure in the continuous space: JAX dispatches
+        to its sampler before it reads ``edge_guidance`` and so ignores it
+        (moldiff.py:502-506); the port refuses it."""
+        if float(edge_guidance) > 0:
+            raise ValueError("edge_guidance acts on the categorical bond posterior; the "
+                             "continuous categorical space has none")
+
+    def _continuous_step(self, params: dict, state: SampleState, step: int, node_mask,
+                         noise: StepNoise, blocks: Optional[list] = None, bond_predictor=None,
+                         guidance: Optional[Tuple[str, float]] = None,
+                         transitions: Optional[tuple] = None,
+                         t_model: Optional[int] = None) -> SampleState:
+        """One reverse step of the continuous space (the scan body of
+        moldiff.py:906-942): positions, atom and bond features each drawn
+        from its Gaussian posterior given the x0 prediction, ``noise`` all
+        standard normal; with ``guidance`` the position drift of
+        :func:`bond_guidance_delta` at every step, its bond inputs the argmax
+        and log-softmax of the new bond features."""
+        pos_tr, node_tr, edge_tr = transitions or (
+            self.pos_transition, self.node_transition, self.edge_transition)
+        b = node_mask.shape[0]
+        dev = node_mask.device
+        t = torch.full((b,), step, dtype=torch.long, device=dev)
+        t_model = t if t_model is None else torch.full((b,), int(t_model), dtype=torch.long,
+                                                       device=dev)
+        preds = self.forward(params, state.h_node, state.pos, state.h_halfedge, t_model, node_mask,
+                             blocks=blocks)
+        pos_prev = pos_tr.get_prev_from_recon(state.pos, preds.pred_pos, t, noise.pos)
+        h_node_prev = node_tr.get_prev_from_recon(state.h_node, preds.pred_node, t, noise.node)
+        h_half_prev = edge_tr.get_prev_from_recon(state.h_halfedge, preds.pred_halfedge, t,
+                                                  noise.edge)
+        if guidance is not None and not float(guidance[1]) <= 0:
+            pos_prev = pos_prev + bond_guidance_delta(
+                bond_predictor, guidance[0], float(guidance[1]), state.h_node, state.pos,
+                t_model, node_mask, torch.argmax(h_half_prev, dim=-1),
+                torch.log_softmax(h_half_prev, dim=-1))
+        return SampleState(pos_prev, h_node_prev, h_half_prev, None, None, None, None, preds)
+
     @torch.no_grad()
     def sample(self, params: dict, node_mask: torch.Tensor, generator: torch.Generator,
                commit: str = "none", bond_predictor=None,
@@ -437,6 +538,8 @@ class MolDiff:
         (spacing warped by ``respace_gamma``); None or at least T, the full
         chain. ``bond_predictor``: (BondPredictor, params); see
         :meth:`reverse_step` for the rest."""
+        if self.categorical_space == "continuous":
+            self._check_continuous(edge_guidance)
         b, n = node_mask.shape
         blocks = self.prepare(params)
         if bond_predictor is not None:
@@ -469,7 +572,8 @@ class MolDiff:
 
 def _traj_entry(state: SampleState) -> tuple:
     """(atom classes, positions, bond classes) of a state for a
-    :class:`Trajectory`."""
+    :class:`Trajectory`: the argmax of its features (in the continuous
+    space the classes decoding would read, not the features)."""
     return (state.h_node.argmax(-1).to(torch.uint8), state.pos,
             state.h_halfedge.argmax(-1).to(torch.uint8))
 

@@ -78,6 +78,16 @@ def linear_parts(p: dict, parts, sizes) -> torch.Tensor:
     return y
 
 
+def mlp_parts(p: dict, parts, sizes) -> torch.Tensor:
+    """``mlp`` whose first Linear runs by :func:`linear_parts` over the
+    implicit concat of ``parts`` (nn.py:70-82)."""
+    first = p["layers"][0]
+    x = linear_parts(first["lin"], parts, sizes)
+    if "ln" in first:
+        x = torch.relu(layernorm(first["ln"], x))
+    return mlp({"layers": p["layers"][1:]}, x)
+
+
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with float32 statistics, result in ``x``'s dtype."""
     xf = x.to(torch.float32)

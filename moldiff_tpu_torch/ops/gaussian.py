@@ -4,6 +4,10 @@ Schedule constants are computed on the host in float64 and kept as float32
 tensors. The noise of every draw is an argument: torch and jax.random give
 different numbers for one seed, so a caller that wants one step to match
 the JAX package passes the same noise to both.
+
+With ``num_classes`` set the transition is the continuous categorical
+space's (gaussian.py:23-70): ``add_noise`` takes class indices, one-hot
+encodes them and divides by ``scaling`` before perturbing.
 """
 from __future__ import annotations
 
@@ -14,7 +18,10 @@ import torch
 class GaussianTransition:
     """q(x_t | x_0) = N(sqrt(a_bar_t) x_0, (1 - a_bar_t) I) and its posterior."""
 
-    def __init__(self, betas: np.ndarray, device: "str | torch.device" = "cpu"):
+    def __init__(self, betas: np.ndarray, device: "str | torch.device" = "cpu",
+                 num_classes: "int | None" = None, scaling: float = 1.0):
+        self.num_classes = num_classes
+        self.scaling = float(scaling)
         betas = np.asarray(betas, dtype=np.float64)
         alphas = 1.0 - betas
         alphas_bar = np.cumprod(alphas, axis=0)
@@ -33,10 +40,16 @@ class GaussianTransition:
     def _bcast(coef_t: torch.Tensor, ndim: int) -> torch.Tensor:
         return coef_t.reshape(coef_t.shape + (1,) * (ndim - 1))
 
-    def add_noise(self, x: torch.Tensor, t: torch.Tensor,
-                  noise: torch.Tensor) -> torch.Tensor:
+    def add_noise(self, x: torch.Tensor, t: torch.Tensor, noise: torch.Tensor):
         """x_t = sqrt(a_bar_t) x + sqrt(1 - a_bar_t) noise, a draw from
-        q(x_t | x_0) given standard-normal noise (gaussian.py:55-72)."""
+        q(x_t | x_0) given standard-normal noise (gaussian.py:55-72). With
+        ``num_classes`` set, x holds class indices [B, ...] and noise is
+        [B, ..., num_classes]; returns (x_t, x0), x0 the one-hots divided by
+        ``scaling``."""
+        if self.num_classes is not None:
+            x0 = torch.nn.functional.one_hot(x.long(), self.num_classes).float() / self.scaling
+            a_bar = self._bcast(self.alphas_bar[t], x0.dim())
+            return torch.sqrt(a_bar) * x0 + torch.sqrt(1.0 - a_bar) * noise, x0
         a_bar = self._bcast(self.alphas_bar[t], x.dim())
         return torch.sqrt(a_bar) * x + torch.sqrt(1.0 - a_bar) * noise
 

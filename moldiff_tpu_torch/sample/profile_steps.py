@@ -31,6 +31,15 @@ JSON line (the trace goes to ``<out>/trace_B<batch>_N<bucket>.json``):
                        (ops/kernels.py), by kernel
   other_kernel_ms      per step: device time of every other kernel
   top_other            the other kernels with the most device time per step
+  flops_per_step       utils/flops.py's analytic count of the step's matrix
+                       products: one denoiser forward for a sampling step;
+                       with guidance also the bond predictor's forward and
+                       its gradient (3 x its forward); 3 x the model's
+                       forward for a training step (forward and backward, no
+                       recomputation), as bench.py:102-125 and :294-304
+  tflops_per_sec       flops_per_step over step_ms
+  pct_peak             its share of the card's dense bf16 peak
+                       (utils/flops.device_peak_flops)
 
 If the trace holds no device events, the device figures are null and the
 line says so. Runs on the card only.
@@ -124,6 +133,26 @@ def _node_mask(batch: int, bucket: int, rng: np.random.Generator, dev) -> torch.
     return torch.from_numpy(node_mask_from_counts(sizes, bucket)).to(dev)
 
 
+def forward_flops(model, batch: int, bucket: int) -> float:
+    """utils/flops.py's count of one forward of ``model``'s NodeEdgeNet
+    (MolDiff's denoiser or the bond predictor's encoder)."""
+    from ..utils.flops import denoiser_forward_flops
+
+    static = model.encoder_static if hasattr(model, "encoder_static") else model.denoiser_static
+    return denoiser_forward_flops(batch, bucket, model.node_dim, model.edge_dim,
+                                  static["num_blocks"], static["num_gaussians"],
+                                  static["update_edge"], static["update_pos"],
+                                  static["use_gate"])
+
+
+def rate(flops: float, step_ms: float, dev) -> Dict[str, float]:
+    """flops_per_step, tflops_per_sec and pct_peak of the card ``dev``."""
+    from ..utils.flops import device_peak_flops, mfu
+
+    peak = device_peak_flops(torch.cuda.get_device_name(dev))
+    return {"flops_per_step": flops, **mfu(flops, step_ms / 1e3, peak)}
+
+
 def _timed_and_traced(run, steps: int, dev, out_dir: str, name: str) -> Dict[str, object]:
     """WARMUP steps, ``steps`` timed by CUDA events, ``steps`` traced."""
     from torch.profiler import ProfilerActivity
@@ -188,10 +217,11 @@ def profile_train(trainer, params, data: dict, steps: int, out_dir: str,
     bond = hasattr(model, "encoder_static")
     static = model.encoder_static if bond else model.denoiser_static
     tag = "bond_" if bond else ""
-    return {"train": True, "bond_predictor": bond, "batch": batch, "bucket": bucket,
+    line = {"train": True, "bond_predictor": bond, "batch": batch, "bucket": bucket,
             "route": {k: static[k] for k in ("fuse_block", "edge_full")},
             **_timed_and_traced(run, steps, dev, out_dir,
                                 f"trace_train_{tag}B{batch}_N{bucket}.json")}
+    return {**line, **rate(3 * forward_flops(model, batch, bucket), line["step_ms"], dev)}
 
 
 def profile(model, params, batch: int, bucket: int, steps: int, out_dir: str,
@@ -220,9 +250,13 @@ def profile(model, params, batch: int, bucket: int, steps: int, out_dir: str,
                 step -= 1
 
     tag = "guided_" if guided else ""
-    return {"guided": bool(guided), "batch": batch, "bucket": bucket,
+    line = {"guided": bool(guided), "batch": batch, "bucket": bucket,
             "route": {k: model.denoiser_static[k] for k in ("fuse_block", "edge_full")},
             **_timed_and_traced(run, steps, dev, out_dir, f"trace_{tag}B{batch}_N{bucket}.json")}
+    flops = forward_flops(model, batch, bucket)
+    if bond_predictor is not None:
+        flops += 3 * forward_flops(bond_predictor[0], batch, bucket)
+    return {**line, **rate(flops, line["step_ms"], dev)}
 
 
 def main(argv: Optional[List[str]] = None) -> List[dict]:

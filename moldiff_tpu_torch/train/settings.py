@@ -11,10 +11,22 @@ the card has no PyYAML. A CPU test holds each equal to its YAML file.
   TRAIN_BONDPRED_DEMO              configs/train/train_bondpred_demo.yml (the demo bond
                                    predictor from scratch)
 
+and the model variants, none of which a committed config uses, each a
+committed config with one override (held to the file and the override by
+the same CPU test):
+
+  MOE_V2             TRAIN_V2_CONT, model.denoiser.moe {num_experts: 4, top_k: 2}
+                     (JAX's defaults for the rest: capacity 1.25, aux weight 0.01)
+  MOE_BONDPRED_V2    TRAIN_BONDPRED_V2, model.encoder.moe as MOE_V2's
+  CONT_V2            TRAIN_V2_CONT, model.diff {categorical_space: continuous,
+                     scaling: [1.0, 4.0, 8.0]} (tests/test_continuous_mode.py's)
+  UNGATED_V2         TRAIN_V2_CONT, model.denoiser.use_gate false
+
 ``chip_smoke.py`` and ``profile_steps --train`` run these. Each dict is
 built anew here, so that no two share a nested dict; copy one before
 changing it.
 """
+import copy
 
 
 def _advance(**extra) -> dict:
@@ -108,3 +120,19 @@ TRAIN_BONDPRED_DEMO = {
     "train": _train(2023, 20000, 2000, 5000, [32, 48], 3.0e-4),
     **_data("./data/synthetic", use_mask_edge=False),
 }
+
+
+def _override(settings: dict, section: str, **values) -> dict:
+    """A copy of ``settings`` with ``values`` set on its model's
+    ``section`` ("denoiser", "encoder" or "diff")."""
+    out = copy.deepcopy(settings)
+    out["model"][section].update(values)
+    return out
+
+
+MOE = {"num_experts": 4, "top_k": 2}
+MOE_V2 = _override(TRAIN_V2_CONT, "denoiser", moe=MOE)
+MOE_BONDPRED_V2 = _override(TRAIN_BONDPRED_V2, "encoder", moe=MOE)
+CONT_V2 = _override(TRAIN_V2_CONT, "diff", categorical_space="continuous",
+                        scaling=[1.0, 4.0, 8.0])
+UNGATED_V2 = _override(TRAIN_V2_CONT, "denoiser", use_gate=False)

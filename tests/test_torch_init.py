@@ -3,7 +3,8 @@ CPU: MolDiff.init_params and BondPredictor.init_params give the JAX
 package's tree (keys, shapes, float32) for the same config, with
 update_pos on and off and with bond_len_loss; each leaf follows torch
 nn.Linear's rule, U(-1/sqrt(fan_in), 1/sqrt(fan_in)), LayerNorm leaves
-are 1 and 0; a seed gives one tree; an ungated denoiser is refused; and a
+are 1 and 0; a seed gives one tree; an ungated denoiser has JAX's
+ungated tree; and a
 state the port initialised and saved loads in the JAX package, whose
 forward on it equals the port's at float32. jax.random and torch's
 generators differ, so the numbers themselves are not compared."""
@@ -123,10 +124,14 @@ def test_init_seeded():
 
 
 def test_ungated_denoiser_is_refused():
+    """No longer refused: an ungated denoiser (``use_gate: false``) builds
+    the JAX package's tree, which has no gate leaf."""
     cfg = _denoiser_cfg()
     cfg["denoiser"]["use_gate"] = False
-    with pytest.raises(NotImplementedError, match="use_gate"):
-        MolDiff(cfg, KN, KE, device="cpu")
+    want = JMolDiff(cfg, KN, KE).init_params(jax.random.key(0))
+    got = MolDiff(cfg, KN, KE, device="cpu").init_params(torch.Generator().manual_seed(0))
+    assert _paths(got) == _paths(want)
+    assert not any("gate" in path for path, _ in _paths(got))
 
 
 def test_port_initialised_state_loads_in_jax(tmp_path):

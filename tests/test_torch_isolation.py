@@ -9,8 +9,12 @@ initialised from scratch takes a training step, and the demo denoiser one
 with grad_accum 2; the evaluation CLI scores a tiny sample directory and a
 dataset split and the analysis CLI compares them; a record store is built
 from an SDF directory by the native parser and a training step reads it;
-a reference state dict converts back to the demo checkpoint's params; all
-in a fresh interpreter with those modules blocked."""
+a reference state dict converts back to the demo checkpoint's params; the
+model variants run: one training step of a MoE denoiser (the demo widths
+with train/settings.py's expert bank), one reverse step of the continuous
+categorical space, guided, and one forward of an ungated denoiser, with
+utils/flops.py's count beside it; all in a fresh interpreter with those
+modules blocked."""
 import json
 import os
 import subprocess
@@ -199,6 +203,32 @@ try:
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(ck["params"])))
 finally:
     shutil.rmtree(work)
+# the model variants: a MoE training step, a guided continuous reverse
+# step, an ungated forward and its FLOP count
+from moldiff_tpu_torch.train.settings import MOE
+from moldiff_tpu_torch.utils.flops import counted_flops, denoiser_forward_flops
+variants = {}
+for name, section, over in (("moe", "denoiser", {"moe": MOE}),
+                            ("continuous", "diff", {"categorical_space": "continuous",
+                                                    "scaling": [1.0, 4.0, 8.0]}),
+                            ("ungated", "denoiser", {"use_gate": False})):
+    cfg = copy.deepcopy(ck["config"]["model"])
+    cfg[section].update(over)
+    variants[name] = MolDiff(cfg, feat.num_node_types, feat.num_edge_types, device="cpu")
+trainer = Trainer(variants["moe"], train_cfg)
+tstate, aux = trainer.train_step(trainer.init_state(g), batch, trainer.draw_step_noise(batch, g))
+assert tstate.step == 1 and float(aux["loss_moe"]) > 0, aux
+cont = variants["continuous"]
+cstate = cont.init_state(node_mask, cont.draw_noise(b, n, g))
+cstep = cont.reverse_step(ck["params"], cstate, 150, node_mask, cont.draw_noise(b, n, g),
+                          bond_predictor=(bp, bp_params, None), guidance=("uncertainty", 1e-4))
+assert cstep.log_node is None and bool(torch.isfinite(cstep.h_halfedge).all())
+ungated = variants["ungated"]
+uparams = ungated.init_params(g)
+with torch.no_grad():
+    counted = counted_flops(ungated.forward, uparams, state.h_node, state.pos, state.h_halfedge,
+                            t, node_mask)
+assert counted > denoiser_forward_flops(b, n, 128, 32, 4, use_gate=False) > 0
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print(json.dumps({"modules": names, "settings": chip_smoke.SAMPLE_SETTINGS,
@@ -227,7 +257,8 @@ def test_port_runs_without_jax_yaml_pandas():
                  "moldiff_tpu_torch.utils.misc", "moldiff_tpu_torch.utils.tb_writer",
                  "moldiff_tpu_torch.utils.profiling", "moldiff_tpu_torch.utils.convert",
                  "moldiff_tpu_torch.utils.strip_checkpoint",
-                 "moldiff_tpu_torch.train.supervisor"):
+                 "moldiff_tpu_torch.train.supervisor", "moldiff_tpu_torch.models.moe",
+                 "moldiff_tpu_torch.utils.flops"):
         assert name in out["modules"]
     # chip_smoke's sample settings are the committed YAML config's
     with open(os.path.join(REPO, "configs/sample/sample_flagship_v2.yml")) as f:

@@ -4,7 +4,8 @@ pinned) and its reader, StepTimer's summary, and the train CLIs' run
 records: a CPU run of ``moldiff_tpu_torch.train`` from a store directory
 writes log.txt, the config, metrics.jsonl and an event file with the
 (tag, step) pairs that scripts/train_drug3d.py writes for the same
-settings; the recipe branch still runs; any other root raises."""
+settings, for a tiny dense config and a tiny MoE one (``loss_moe``); the
+recipe branch still runs; any other root raises."""
 import copy
 import json
 import logging
@@ -150,11 +151,11 @@ def _events(log_dir):
     return tb_writer.read_events(os.path.join(log_dir, name))
 
 
-def test_train_cli_records_equal_jax_scripts(store_dir, tmp_path, monkeypatch):
-    """python -m moldiff_tpu_torch.train --config tiny.yml (2 steps from the
-    store directory, val_freq 2) and scripts/train_drug3d.py on the same
-    config: the same files in the log dir, and the same (tag, step) pairs in
-    metrics.jsonl and in the event file. Values differ (the RNGs do)."""
+def _train_cli_records(cfg_dict: dict, tmp_path, monkeypatch) -> tuple:
+    """python -m moldiff_tpu_torch.train --config tiny.yml (2 steps) and
+    scripts/train_drug3d.py on the same config -> (the port's log dir, its
+    metrics rows and (tag, step) pairs, JAX's pairs), after checking both
+    wrote the same files."""
     from moldiff_tpu_torch.train import cli as train_cli
     from scripts import train_drug3d
 
@@ -163,7 +164,7 @@ def test_train_cli_records_equal_jax_scripts(store_dir, tmp_path, monkeypatch):
     monkeypatch.setattr(logging.getLogger("train"), "handlers", [])
     cfg = str(tmp_path / "tiny.yml")
     with open(cfg, "w") as f:
-        yaml.safe_dump(_tiny_cfg(store_dir), f)
+        yaml.safe_dump(cfg_dict, f)
     args = ["--config", cfg, "--max_iters", "2"]
     jax = train_drug3d.main(args + ["--logdir", str(tmp_path / "jax")])
     port = train_cli.main(args + ["--logdir", str(tmp_path / "port"), "--device", "cpu"])
@@ -171,13 +172,40 @@ def test_train_cli_records_equal_jax_scripts(store_dir, tmp_path, monkeypatch):
         sorted(n for n in os.listdir(jax) if not n.startswith("events")) == \
         ["checkpoints", "log.txt", "metrics.jsonl", "tiny.yml"]
     rows, pairs = _pairs(port)
-    assert pairs == _pairs(jax)[1]
+    return port, rows, pairs, _pairs(jax)[1]
+
+
+def test_train_cli_records_equal_jax_scripts(store_dir, tmp_path, monkeypatch):
+    """python -m moldiff_tpu_torch.train --config tiny.yml (2 steps from the
+    store directory, val_freq 2) and scripts/train_drug3d.py on the same
+    config: the same files in the log dir, and the same (tag, step) pairs in
+    metrics.jsonl and in the event file. Values differ (the RNGs do)."""
+    port, rows, pairs, jax_pairs = _train_cli_records(_tiny_cfg(store_dir), tmp_path,
+                                                      monkeypatch)
+    assert pairs == jax_pairs
     assert ("train/loss_len", 1) in pairs and ("val/loss", 2) in pairs
     ev = _events(port)
     assert [(e["tag"], e["step"], e["value"]) for e in ev[1:]] == \
         [(r["tag"], r["step"], float(np.float32(r["value"]))) for r in rows]
     log = open(os.path.join(port, "log.txt")).read()
     assert "record store" in log and "[it 1] loss" in log and "[val 2]" in log
+
+
+def test_train_cli_records_moe_equal_jax_scripts(store_dir, tmp_path, monkeypatch):
+    """The same 2-step run of the tiny config with train/settings.py's
+    expert bank (model.denoiser.moe): train/loss_moe under JAX's (tag,
+    step) pairs, in metrics.jsonl and in the event file, and in the log
+    line."""
+    cfg = _tiny_cfg(store_dir)
+    cfg["model"]["denoiser"]["moe"] = dict(settings.MOE)
+    port, rows, pairs, jax_pairs = _train_cli_records(cfg, tmp_path, monkeypatch)
+    assert pairs == jax_pairs and ("train/loss_moe", 1) in pairs
+    moe = [r["value"] for r in rows if r["tag"] == "train/loss_moe"]
+    assert len(moe) == 1 and 0 < moe[0] < 1
+    ev = _events(port)
+    assert [(e["tag"], e["step"], e["value"]) for e in ev[1:]] == \
+        [(r["tag"], r["step"], float(np.float32(r["value"]))) for r in rows]
+    assert "loss_moe" in open(os.path.join(port, "log.txt")).read()
 
 
 def test_run_summary_says_the_source(store_dir, tmp_path):

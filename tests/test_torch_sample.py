@@ -69,8 +69,8 @@ def test_cli_run_guided_on_cpu(tmp_path):
 
 def test_cli_refuses_unported_settings(tmp_path):
     """What the CLI still refuses: a position sampler the JAX package lacks,
-    and a checkpoint of the continuous categorical mode, which is not
-    ported."""
+    and edge guidance on a checkpoint of the continuous categorical mode
+    (JAX ignores it there; the port raises)."""
     import pickle
 
     from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
@@ -87,8 +87,9 @@ def test_cli_refuses_unported_settings(tmp_path):
     with open(path, "wb") as f:
         pickle.dump(blob, f)
     config = {"model": {"checkpoint": str(path)},
-              "sample": {"seed": 1, "batch_size": 4, "num_mols": 1}}
-    with pytest.raises(NotImplementedError, match="continuous"):
+              "bond_predictor": "ckpts/demo_bondpred_4k.ckpt",
+              "sample": {"seed": 1, "batch_size": 4, "num_mols": 1, "edge_guidance": 1.0}}
+    with pytest.raises(ValueError, match="edge_guidance"):
         cli.run(config, device="cpu", outdir=str(tmp_path))
 
 

@@ -259,6 +259,23 @@ def test_settings_equal_their_yaml(name, path):
         assert getattr(settings, name) == yaml.safe_load(f)
 
 
+@pytest.mark.parametrize("name,path,section,values", [
+    ("MOE_V2", "train_v2_cont", "denoiser", {"moe": {"num_experts": 4, "top_k": 2}}),
+    ("MOE_BONDPRED_V2", "train_bondpred_v2", "encoder",
+     {"moe": {"num_experts": 4, "top_k": 2}}),
+    ("CONT_V2", "train_v2_cont", "diff", {"categorical_space": "continuous",
+                                          "scaling": [1.0, 4.0, 8.0]}),
+    ("UNGATED_V2", "train_v2_cont", "denoiser", {"use_gate": False}),
+])
+def test_variant_settings_are_their_yaml_plus_one_override(name, path, section, values):
+    """The model variants chip_smoke.py's phase 21 runs: a committed
+    config with one override of one section, the rest untouched."""
+    with open(f"configs/train/{path}.yml") as f:
+        want = yaml.safe_load(f)
+    want["model"][section].update(values)
+    assert getattr(settings, name) == want
+
+
 def test_train_gates_are_the_committed_configs():
     """chip_smoke.py's --train-gate names resolve to the settings dicts of
     the configs they train (held to their YAML files above), and its JAX
