@@ -178,7 +178,27 @@ Phases, each asserting and none catching a failure:
      inputs-only), edge_guidance refused before any launch, phases 4 and 9
      on flagship_v2's weights and the 4-step forward held to the witness;
      UNGATED_V2: one forward and two training steps at B = 128, N = 40,
-     timed, no launch of any kernel.
+     timed, no launch of any kernel;
+ 22. the data axis (about 2 min), both ranks on the one card over gloo
+     (NCCL refuses two ranks on one device): (a) the train CLI's run()
+     with train/settings.py's TRAIN_V2_CONT_DP2 from flagship_v2, 4 steps
+     at global batch 128 by 2 ranks, then the same 4 steps at world size 1
+     (the same loader batches and noise): each step's loss within
+     DP_LOSS_RTOL, every rank's params bit-equal after each step, each
+     rank's launches per step phase 10's; the data axis's gradient (B =
+     32, N = 40) against the world-1 gradient under phase 9's rules; (b)
+     one step through an NCCL group of one rank, bit-equal to the plain
+     world-1 step; (c) TRAIN_V2_CONT_FSDP2 through run(), 2 steps, a
+     sharded checkpoint after each: its losses within DP_LOSS_RTOL of (a)'s
+     and its params within DP_PARAM_MAX_FRAC of (a)'s after 2 steps; the
+     directory read at W = 1 and resharded at W = 2, bit-equal; the state
+     read back, saved again and read back takes a step bit-equal to it;
+     (d) the sample CLI with --num_processes 2 on the one card (16
+     molecules, batch 8, 100 respaced steps), --merge, the counts equal
+     to the gathered global counts, the eval CLI on the merged directory.
+     It prints the step seconds at world sizes 1 and 2, the collectives'
+     ms a step, the checkpoint's bytes and seconds and the card's name
+     and power limit.
 --gate NAME runs one sampling gate instead of the phases (after 1 and 2):
 the settings of a committed YAML with named overrides (GATES; a CPU test
 holds each equal to its YAML plus its overrides): s100, ddim_s100,
@@ -894,7 +914,7 @@ def check_forward(model, params, device) -> None:
     blocks = model.prepare(params)
     args = (params,) + forward_inputs(model, device)
     got = model.forward(*args, blocks=blocks)
-    with plain_forward_kernels():
+    with plain_versions():
         want = model.forward(*args, blocks=blocks)
     torch.cuda.synchronize()
     for name, a, w in zip(got._fields, got, want):
@@ -1982,11 +2002,12 @@ class RoutePins:
 
 
 @contextlib.contextmanager
-def plain_forward_kernels():
-    """Every forward kernel's wrapper replaced by its plain version."""
+def plain_versions(functions: dict = FORWARD_FUNCTIONS):
+    """Each kernel wrapper of ``functions`` (kernel name -> wrapper; by
+    default every forward kernel's) replaced by its plain version."""
     from moldiff_tpu_torch.ops import kernels as K
 
-    saved = {fn: getattr(K, fn) for fn in FORWARD_FUNCTIONS.values()}
+    saved = {fn: getattr(K, fn) for fn in functions.values()}
     for fn in saved:
         setattr(K, fn, getattr(K, fn + "_plain"))
     try:
@@ -2078,7 +2099,7 @@ def moe_routing_flips(model, model32, params, device) -> dict:
     for name, m, plain in (("kernels_bf16", model, False), ("plain_bf16", model, True),
                            ("plain_f32", model32, True)):
         with RoutePins(blocks) as pins, torch.no_grad(), (
-                plain_forward_kernels() if plain else contextlib.nullcontext()):
+                plain_versions() if plain else contextlib.nullcontext()):
             m.forward(*args)
         choices[name] = pins.recorded
     flips = {}
@@ -2307,6 +2328,385 @@ def check_variants(cli, corpus: dict, results: dict, device, dense: dict,
     torch.cuda.empty_cache()
     say(f"phase 21 (model variants): {time.time() - t_phase:.1f} s")
     return paths
+
+
+# phase 22: the data axis. TRAIN_V2_CONT_DP2 (two data-parallel ranks) and
+# TRAIN_V2_CONT_FSDP2 (FSDP, sharded checkpoints) from flagship_v2 on phase
+# 10's corpus, both ranks on the one card over gloo (NCCL refuses two ranks
+# on one device); NCCL at world size 1; the sample CLI over 2 processes.
+# The per-step losses of W = 2 against W = 1 (the same loader batches and
+# noise; only the order of the sums differs, and the params after step 1
+# by the bf16 gradient's last bits): relative, at most DP_LOSS_RTOL; the
+# FSDP run's params after 2 steps against the data-parallel run's: each
+# leaf within DP_PARAM_MAX_FRAC of its scale.
+DP_STEPS = 4
+DP_LOSS_RTOL = 1e-3
+DP_PARAM_MAX_FRAC = 1e-3
+# the gradient check's batch (phase 9's rules: the float32 plain gradient
+# at B = 128 would not fit beside the rest), split over the two ranks
+DP_GRAD_BATCH = 32
+SHARDED_SAMPLE = with_sample(SAMPLE_SETTINGS, num_mols=16, batch_size=8, num_steps=100)
+
+
+def _to(tree, device):
+    """Every tensor of a (nested) batch or noise structure on ``device``."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [_to(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def _host_tree(tree):
+    from moldiff_tpu_torch.utils.tree import tree_map
+
+    return None if tree is None else tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def _whole_state(trainer, state) -> dict:
+    full = trainer.gathered(state)
+    return {"params": _host_tree(full.params), "mu": _host_tree(full.opt_state.mu),
+            "nu": _host_tree(full.opt_state.nu), "ema": _host_tree(full.ema_params),
+            "count": full.opt_state.count, "lr": full.opt_state.lr, "step": full.step}
+
+
+def _rank_device(name: str):
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return device
+
+
+def _gloo_rank(rank: int, world: int, init: str, settings: dict, checkpoint: str, batch: dict,
+               noise, ckpt_dir: str, device: str) -> "dict | None":
+    """Phase 22 (a) and (c) at 2 ranks on the card over gloo: the data
+    axis's gradient of ``batch``, from flagship_v2; then the FSDP CLI's
+    sharded directory read at W = 2 and gathered, saved again, read back,
+    and one step from each of the two states."""
+    import torch
+
+    from moldiff_tpu_torch.parallel.mesh import Mesh, initialize_distributed, shutdown_distributed
+    from moldiff_tpu_torch.train.trainer import Trainer
+    from moldiff_tpu_torch.utils.tree import tree_leaves
+
+    device = _rank_device(device)
+    initialize_distributed(init, world, rank, backend="gloo")
+    try:
+        mesh = Mesh(data=world, backend="gloo").at(rank, device)
+        model = train_model(settings, device)
+        trainer = Trainer(model, settings["train"], mesh=mesh)
+        state = trainer.load_checkpoint(checkpoint, device)
+        b, nz = _to(batch, device), _to(noise, device)
+        grads, norm, aux = trainer.gradient(state, b, nz)
+        out = {"grads": [g.cpu() for g in grads], "norm": float(norm), "loss": float(aux["loss"])}
+        fs = Trainer(model, settings["train"], mesh=mesh, fsdp=True)
+        state = fs.load_checkpoint(ckpt_dir, device)
+        out["whole"] = _whole_state(fs, state)
+        out["shard_numel"] = sum(x.numel() for x in tree_leaves(state.params))
+        again = ckpt_dir + "_again"
+        fs.save_checkpoint_sharded(again, state, {"model": settings["model"]})
+        back = Trainer(model, settings["train"], mesh=mesh, fsdp=True)
+        resumed = back.load_checkpoint(again, device)
+        s1, a1 = fs.train_step(state, b, nz)
+        s2, a2 = back.train_step(resumed, b, nz)
+        p1, p2 = (tree_leaves(t.gathered(s).params) for t, s in ((fs, s1), (back, s2)))
+        out["resumed_equal"] = (float(a1["loss"]) == float(a2["loss"])
+                                and all(torch.equal(x, y) for x, y in zip(p1, p2)))
+        return out if rank == 0 else None
+    finally:
+        shutdown_distributed()
+
+
+def _one_rank_step(rank: int, world: int, init: str, settings: dict, checkpoint: str,
+                   batch: dict, noise, device: str, backend: str) -> dict:
+    """Phase 22 (b): one data-parallel step from flagship_v2 through a
+    process group of one rank (NCCL on the card)."""
+    import torch.distributed as dist
+
+    from moldiff_tpu_torch.parallel.mesh import Mesh, shutdown_distributed
+    from moldiff_tpu_torch.train.trainer import Trainer
+
+    device = _rank_device(device)
+    # initialize_distributed makes no group for one process, as JAX's
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    try:
+        trainer = Trainer(train_model(settings, device), settings["train"],
+                          mesh=Mesh(data=world, backend=backend).at(rank, device))
+        assert trainer.mesh is not None
+        state = trainer.load_checkpoint(checkpoint, device)
+        state, aux = trainer.train_step(state, _to(batch, device), _to(noise, device))
+        return {"params": _host_tree(state.params), "aux": {k: float(v) for k, v in aux.items()}}
+    finally:
+        shutdown_distributed()
+
+
+def _run_dp(settings: dict, corpus: dict, device, name: str, **kw) -> tuple:
+    """The train CLI's run() with ``settings`` from flagship_v2 (--reset_ema,
+    --reset_optim) for DP_STEPS (or kw's max) steps -> (summary, start)."""
+    from moldiff_tpu_torch.train import cli as train_cli
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
+
+    start = int(load_checkpoint_numpy(CHECKPOINT)["step"])
+    steps = kw.pop("steps", DP_STEPS)
+    out = train_cli.run(settings, CHECKPOINT, device=device, reset_ema=True, reset_optim=True,
+                        logdir=os.path.join("outputs_torch", "chip_smoke"), name=name,
+                        max_iters=start + steps, subsets=corpus, log=lambda m: say(f"  {m}"),
+                        **kw)
+    return out, start
+
+
+def _leaf_frac(got: list, want: list) -> float:
+    return max(float(abs(a - b).max()) / max(float(abs(b).max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def _start_sharded_sampling(work: str, device) -> tuple:
+    """Phase 22 (d): the sample CLI as 2 processes sharing the one card (a
+    FileStore rendezvous), started in the background."""
+    rendezvous = os.path.abspath(os.path.join(work, "rendezvous"))
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)   # a stale FileStore would join an old run
+    cfg = os.path.join(work, "sample_flagship_v2_s100.yml")
+    with open(cfg, "w") as f:
+        json.dump(SHARDED_SAMPLE, f)   # JSON is YAML
+    procs = []
+    for pid in range(2):
+        log = open(os.path.join(work, f"sample_{pid}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "moldiff_tpu_torch.sample", "--config", cfg,
+             "--device", device.type, "--outdir", work, "--run_name", "sharded",
+             "--num_processes", "2",
+             "--process_id", str(pid), "--coordinator", "file://" + rendezvous],
+            stdout=log, stderr=subprocess.STDOUT), log))
+    return procs, os.path.join(work, "sharded")
+
+
+def _stop(procs: list) -> None:
+    """Kill the sampling processes still running; close their logs."""
+    for p, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def _finish_sharded_sampling(procs: list, run_dir: str, t0: float) -> dict:
+    import pickle
+
+    from moldiff_tpu_torch.eval import evaluate
+
+    try:
+        for p, _ in procs:
+            p.wait(timeout=300)
+    finally:
+        _stop(procs)
+    for pid, (p, log) in enumerate(procs):
+        if p.returncode != 0:
+            with open(log.name) as f:
+                say(f.read()[-3000:])
+        assert p.returncode == 0, (pid, p.returncode)
+    wall = time.time() - t0
+    shards = []
+    for pid in range(2):
+        with open(os.path.join(run_dir, f"shard_{pid}", "summary.json")) as f:
+            shards.append(json.load(f))
+    counts = shards[0]["global_counts"]
+    assert counts == shards[1]["global_counts"] == [[s["num_finished"], s["num_failed"]]
+                                                    for s in shards], counts
+    merged = subprocess.run([sys.executable, "-m", "moldiff_tpu_torch.sample", "--merge", run_dir],
+                            capture_output=True, text=True, timeout=120)
+    assert merged.returncode == 0, merged.stderr[-2000:]
+    n_fin = sum(c[0] for c in counts)
+    assert n_fin == SHARDED_SAMPLE["sample"]["num_mols"], counts
+    with open(os.path.join(run_dir, "SMILES.txt")) as f:
+        assert len(f.read().split()) == n_fin
+    assert len(os.listdir(os.path.join(run_dir, "SDF"))) == n_fin
+    with open(os.path.join(run_dir, "samples_all.pkl"), "rb") as f:
+        pool = pickle.load(f)
+    assert len(pool["finished"]) == n_fin and len(pool["failed"]) == sum(c[1] for c in counts)
+    report = evaluate.main(["--root", run_dir])
+    assert report["num_mols"] == n_fin, report
+    say(f"sharded sampling: 2 processes on the one card, {SHARDED_SAMPLE['sample']['num_mols']} "
+        f"molecules at batch {SHARDED_SAMPLE['sample']['batch_size']}, "
+        f"{SHARDED_SAMPLE['sample']['num_steps']} respaced steps: global counts {counts}, "
+        f"{wall:.1f} s from start to merged; the eval CLI read {report['num_mols']} molecules")
+    return {"counts": counts, "wall_s": wall}
+
+
+def check_data_axis(corpus: dict, results: dict, device) -> list:
+    """Phase 22: (a) TRAIN_V2_CONT_DP2 through the train CLI's run(), 2 ranks
+    on the one card over gloo, DP_STEPS steps at global batch 128, then the
+    same steps at world size 1: per-step losses within DP_LOSS_RTOL, every
+    rank's params bit-equal after each step, each rank's launches per step
+    phase 10's; the data axis's gradient (B = DP_GRAD_BATCH, N = 40) against
+    the world-1 gradient under phase 9's whole-gradient rules; (b) one step
+    through an NCCL group of one rank, bit-equal to the plain world-1 step;
+    (c) TRAIN_V2_CONT_FSDP2 through run() for 2 steps, a sharded checkpoint
+    after each: read at W = 1 and (resharded) at W = 2, bit-equal; its
+    params within DP_PARAM_MAX_FRAC of (a)'s after 2 steps; the state read
+    back, saved again and read back takes a step bit-equal to it; (d) the
+    sample CLI over 2 processes, merged and scored. -> the launch counts of
+    (a)'s runs (both ranks, and world 1)."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.parallel import launch
+    from moldiff_tpu_torch.train import checkpoint_sharded
+    from moldiff_tpu_torch.train.optim import global_norm
+    from moldiff_tpu_torch.train.settings import TRAIN_V2_CONT_DP2, TRAIN_V2_CONT_FSDP2
+    from moldiff_tpu_torch.train.trainer import Trainer
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
+    from moldiff_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.time()
+    per_step = train_launches(TRAIN_SETTINGS, results)
+    dp2 = copy_settings(TRAIN_V2_CONT_DP2, ckpt_freq=1)
+    # (a) two ranks, then world 1, the same loader batches and noise
+    t0 = time.time()
+    out2, start = _run_dp(dp2, corpus, device, "dp2", backend="gloo", check_replicas=True)
+    wall2 = time.time() - t0
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    out1, _ = _run_dp(TRAIN_SETTINGS, corpus, device, "dp1")
+    wall1 = time.time() - t0
+    counts1 = dict(kernels.launch_counts)
+    assert counts1 == {k: v * DP_STEPS for k, v in per_step.items()}, counts1
+    rank_counts = []
+    for r, rank in enumerate(out2["ranks"]):
+        assert len(rank["steps"]) == DP_STEPS
+        for st in rank["steps"]:
+            assert st["launches"] == per_step, (r, st["it"], st["launches"], per_step)
+            assert st["replicas_equal"], (r, st["it"])
+        rank_counts.append({k: v * DP_STEPS for k, v in per_step.items()})
+    for s2, s1 in zip(out2["steps"], out1["steps"]):
+        check_step_terms(s2, TRAIN_SETTINGS)
+        say(f"  step {s2['it']} N={s2['n']}: loss W=2 {s2['loss']:.6f} W=1 {s1['loss']:.6f} "
+            f"(rel {abs(s2['loss'] - s1['loss']) / abs(s1['loss']):.2e}); grad_norm W=2 "
+            f"{s2['grad_norm']:.6f} W=1 {s1['grad_norm']:.6f}; s/step W=2 {s2['s']:.4f} W=1 "
+            f"{s1['s']:.4f}; collectives {1e3 * s2['comm_s']:.2f} ms")
+        assert abs(s2["loss"] - s1["loss"]) <= DP_LOSS_RTOL * abs(s1["loss"]), (s2, s1)
+    s_w2 = statistics.mean(s["s"] for s in out2["steps"][1:])
+    s_w1 = statistics.mean(s["s"] for s in out1["steps"][1:])
+    comm_ms = 1e3 * statistics.mean(s["comm_s"] for s in out2["steps"][1:])
+    say(f"data axis (a): W=2 (gloo, one card) {s_w2:.4f} s/step, W=1 {s_w1:.4f} s/step (steps "
+        f"2-{DP_STEPS}), collectives {comm_ms:.2f} ms/step; run() walls {wall2:.1f} s / "
+        f"{wall1:.1f} s")
+
+    # (c) FSDP and sharded checkpoints through the CLI: 2 steps
+    fsdp = copy_settings(TRAIN_V2_CONT_FSDP2, ckpt_freq=1)
+    t0 = time.time()
+    outf, _ = _run_dp(fsdp, corpus, device, "fsdp2", backend="gloo", steps=2)
+    wallf = time.time() - t0
+    for st, s2 in zip(outf["steps"], out2["steps"]):
+        assert st["launches"] == per_step, (st["it"], st["launches"])
+        assert abs(st["loss"] - s2["loss"]) <= DP_LOSS_RTOL * abs(s2["loss"]), (st, s2)
+    ckpt = outf["checkpoints"][-1]
+    assert checkpoint_sharded.is_sharded_checkpoint(ckpt), ckpt
+    n_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    f_step = outf["steps"][-1]
+    say(f"data axis (c): FSDP W=2 {f_step['s']:.4f} s at step 2 (the first "
+        f"{outf['steps'][0]['s']:.4f} s), collectives {1e3 * f_step['comm_s']:.2f} ms of it, "
+        f"losses {[round(s['loss'], 6) for s in outf['steps']]}; sharded checkpoint {ckpt}: "
+        f"{n_bytes} bytes in {len(os.listdir(ckpt))} files, written in "
+        f"{outf['checkpoint_s'][-1]:.3f} s (the first: {outf['checkpoint_s'][0]:.3f} s); "
+        f"run() wall {wallf:.1f} s")
+    # (d) sharded sampling in the background meanwhile (nothing below is timed)
+    work = os.path.join("outputs_torch", "chip_smoke", "phase22")
+    os.makedirs(work, exist_ok=True)
+    t_sample = time.time()
+    procs, run_dir = _start_sharded_sampling(work, device)
+    try:
+        # the params after 2 steps: FSDP's directory, read whole at W = 1, against
+        # (a)'s pickle checkpoint of the same step
+        full = checkpoint_sharded.load_checkpoint_sharded(ckpt)["state"]
+        dp_after2 = load_checkpoint_numpy(out2["checkpoints"][1])
+        assert int(dp_after2["step"]) == int(full["step"]) == start + 2
+        frac = _leaf_frac(tree_leaves(full["params"]), tree_leaves(dp_after2["params"]))
+        say(f"  FSDP params after 2 steps against the data-parallel run's: largest leaf "
+            f"difference {frac:.3g} of its scale")
+        assert frac <= DP_PARAM_MAX_FRAC, frac
+
+        # the gradient (a) and the directory resharded (c), 2 ranks over gloo
+        batch = train_batch(corpus["train"], DP_GRAD_BATCH, 40, device)
+        ref = Trainer(train_model(TRAIN_SETTINGS, device), TRAIN_SETTINGS["train"])
+        noise = ref.draw_step_noise(batch, torch.Generator(device=device).manual_seed(22))
+        ranks = launch.spawn(_gloo_rank, 2,
+                             args=(TRAIN_SETTINGS, CHECKPOINT, _to(batch, "cpu"),
+                                   _to(noise, "cpu"), ckpt, str(device)), timeout_s=300)
+        got = ranks[0]
+        state = ref.load_checkpoint(CHECKPOINT, device)
+        g1, n1, a1 = ref.gradient(state, batch, noise)
+        model32 = train_model(TRAIN_SETTINGS, device, dtype="float32")
+        with plain_versions(KERNEL_FUNCTIONS):
+            ref32 = Trainer(model32, TRAIN_SETTINGS["train"])
+            gt, _, _ = ref32.gradient(ref32.load_checkpoint(CHECKPOINT, device), batch, noise)
+        g2 = [g.to(device) for g in got["grads"]]
+        err = lambda gs: statistics.mean(float((a - t).abs().max())
+                                         / max(float(t.abs().max()), 1e-30)
+                                         for a, t in zip(gs, gt))
+        mean2, mean1 = err(g2), err(g1)
+        n1, n2 = float(n1), float(global_norm(g2))
+        say(f"  gradient B={DP_GRAD_BATCH} N=40: loss W=2 {got['loss']:.6f} W=1 "
+            f"{float(a1['loss']):.6f}; "
+            f"grad norm W=2 {n2:.6f} (reported {got['norm']:.6f}) W=1 {n1:.6f}; mean leaf error "
+            f"against float32 plain: W=2 {mean2:.4g}, W=1 {mean1:.4g}")
+        assert abs(got["loss"] - float(a1["loss"])) <= TRAIN_LOSS_RTOL * abs(float(a1["loss"]))
+        assert abs(n2 - n1) <= TRAIN_NORM_RTOL * n1, (n2, n1)
+        # (the floor: float32 summation order alone, where the world-1 gradient
+        # is the truth itself, as in a float32 run)
+        assert mean2 <= TRAIN_MEAN_ERR_RATIO * mean1 + 1e-5, (mean2, mean1)
+        whole = got["whole"]
+        for name, want in (("params", full["params"]), ("mu", full["opt_state"]["mu"]),
+                           ("nu", full["opt_state"]["nu"]), ("ema", full["ema_params"])):
+            for x, y in zip(tree_leaves(whole[name]), tree_leaves(want)):
+                assert x.shape == y.shape and (x == y).all(), name
+        assert whole["step"] == int(full["step"])
+        assert whole["count"] == int(full["opt_state"]["count"])
+        assert whole["lr"] == float(full["opt_state"]["lr"])
+        assert got["resumed_equal"]
+        say(f"  the directory read at W=1 and resharded at W=2 (each rank {got['shard_numel']} of "
+            f"{sum(x.size for x in tree_leaves(full['params']))} params) bit-equal; a step from "
+            f"the state saved again and read back bit-equal to the step from the state itself")
+
+        # (b) NCCL at world size 1
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        nccl = launch.spawn(_one_rank_step, 1,
+                            args=(TRAIN_SETTINGS, CHECKPOINT, _to(batch, "cpu"), _to(noise, "cpu"),
+                                  str(device), backend), timeout_s=300)[0]
+        plain_state, plain_aux = ref.train_step(ref.load_checkpoint(CHECKPOINT, device), batch,
+                                                noise)
+        for x, y in zip(tree_leaves(nccl["params"]), tree_leaves(plain_state.params)):
+            assert (x == y.cpu().numpy()).all()
+        assert nccl["aux"] == {k: float(v) for k, v in plain_aux.items()}
+        say(f"data axis (b): one step through a {backend} group of one rank bit-equal to the "
+            "world-1 step")
+
+        sampled = _finish_sharded_sampling(procs, run_dir, t_sample)
+    finally:
+        _stop(procs)
+    say(f"phase 22 (data axis): {time.time() - t_phase:.1f} s")
+    say(json.dumps({"data_axis": {"s_per_step_w1": s_w1, "s_per_step_w2": s_w2,
+                                  "collective_ms_per_step": comm_ms,
+                                  "fsdp_s_step2": f_step["s"],
+                                  "fsdp_collective_ms_step2": 1e3 * f_step["comm_s"],
+                                  "ckpt_bytes": n_bytes, "ckpt_s": outf["checkpoint_s"][-1],
+                                  "sharded_sample_wall_s": sampled["wall_s"],
+                                  "card": nvidia_smi()}}))
+    return rank_counts + [counts1]
+
+
+def copy_settings(settings: dict, **train) -> dict:
+    """A copy of ``settings`` with ``train`` set on its train section."""
+    import copy
+
+    out = copy.deepcopy(settings)
+    out["train"].update(train)
+    return out
 
 
 def bond_gate_eval(out: dict, settings: dict, corpus: dict, device) -> bool:
@@ -2846,8 +3246,14 @@ def main() -> None:
     dense = {"sample_s": summary["chain_s"] / (steps * chains), "train_s": t_s_step}
     variant_counts = check_variants(cli, corpus, results, device, dense, params)
 
+    # 22. the data axis: data-parallel and FSDP training (2 ranks on the one
+    # card over gloo), NCCL at world size 1, sharded checkpoints, sampling
+    # sharded over 2 processes
+    data_counts = check_data_axis(corpus, results, device)
+
     main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts,
-                  b_counts, x_counts, a_counts, v_counts, r_counts, rr_counts, *variant_counts)
+                  b_counts, x_counts, a_counts, v_counts, r_counts, rr_counts, *variant_counts,
+                  *data_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(c[name] for c in main_paths),

@@ -148,15 +148,28 @@ class BondPredictor:
             pos=torch.randn((b, n, 3), generator=generator, device=dev),
             node=torch.rand((b, n, self.num_node_types), generator=generator, device=dev))
 
+    def loss_counts(self, node_type, halfedge_type, node_mask) -> dict:
+        """The denominators of :meth:`get_loss` on this batch (the summed
+        class weights of the real targets, the real bonded half-edges),
+        which a data-parallel step sums over the ranks before the forward
+        pass."""
+        halfedge_mask = graph_ops.halfedge_mask_from_node_mask(node_mask)
+        labels = halfedge_type.long()
+        return {"weight": torch.sum(self.edge_weight[labels] * halfedge_mask),
+                "bond": torch.sum(halfedge_mask * (labels > 0))}
+
     def get_loss(self, params: dict, node_type, node_pos, halfedge_type, node_mask,
-                 noise: BondLossNoise):
+                 noise: BondLossNoise, counts: Optional[dict] = None):
         """Weighted cross-entropy on the half-edge logits (bond_predictor.py:
         172-219): positions and atom types noised at the drawn time, bond
         labels clean; normalised by the summed weights of the real targets,
         as torch's CrossEntropyLoss(weight=w). ``acc_bond`` is the accuracy
         over real bonded half-edges; with ``moe`` the loss adds ``loss_moe``.
         node_type [B,N] int, node_pos [B,N,3], halfedge_type [B,E] int,
-        node_mask [B,N] -> (loss, dict of terms)."""
+        node_mask [B,N] -> (loss, dict of terms).
+        ``counts``: :meth:`loss_counts` summed over the ranks that split the
+        batch."""
+        c = counts or {}
         halfedge_mask = graph_ops.halfedge_mask_from_node_mask(node_mask)
         if self.num_timesteps > 0:
             t = noise.t
@@ -170,9 +183,10 @@ class BondPredictor:
         labels = halfedge_type.long()
         nll = -torch.gather(log_prob, -1, labels[..., None])[..., 0]
         w = self.edge_weight[labels] * halfedge_mask
-        loss = torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1e-8)
+        weight = torch.sum(w) if c.get("weight") is None else c["weight"]
+        loss = torch.sum(nll * w) / torch.clamp(weight, min=1e-8)
         acc = masked_mean((torch.argmax(pred, dim=-1) == labels).float(),
-                          halfedge_mask * (labels > 0))
+                          halfedge_mask * (labels > 0), c.get("bond"))
         aux = {"loss": loss, "loss_edge": loss, "acc_bond": acc}
         if moe_aux is not None:
             aux["loss_moe"] = self.encoder_static["moe"]["aux_weight"] * moe_aux

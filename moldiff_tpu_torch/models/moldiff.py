@@ -85,10 +85,15 @@ class LossNoise(NamedTuple):
     edge: torch.Tensor   # [B, E, Ke] uniform [0, 1)
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of x over the elements where mask == 1 (moldiff.py:40-43)."""
+def masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean of x over the elements where mask == 1 (moldiff.py:40-43).
+    ``count``: the mask's sum (broadcast to x) over the whole batch, when
+    this call sees only one rank's rows of it: the mean is then this rank's
+    share of the batch's mean, and the shares sum to it over the ranks."""
     mask = torch.broadcast_to(mask, x.shape).to(x.dtype)
-    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask) if count is None else count
+    return torch.sum(x * mask) / torch.clamp(count, min=1.0)
 
 
 def sample_time_antithetic(half: torch.Tensor, num_graphs: int,
@@ -281,15 +286,31 @@ class MolDiff:
                       generator=generator, device=dev),
         )
 
+    def loss_counts(self, node_type, halfedge_type, node_mask) -> dict:
+        """The denominators of :meth:`get_loss`'s masked means on this
+        batch: they depend on the masks alone, so a data-parallel step sums
+        them over the ranks before the forward pass."""
+        n_kn = self.num_node_types if self.categorical_space == "continuous" else 1
+        n_ke = self.num_edge_types if self.categorical_space == "continuous" else 1
+        halfedge_mask = graph_ops.halfedge_mask_from_node_mask(node_mask)
+        nodes, halfedges = torch.sum(node_mask), torch.sum(halfedge_mask)
+        out = {"pos": 3.0 * nodes, "node": n_kn * nodes, "edge": n_ke * halfedges}
+        if self.bond_len_loss:
+            out["len"] = torch.sum(halfedge_mask * (halfedge_type > 0))
+        return out
+
     def get_loss(self, params: dict, node_type, node_pos, halfedge_type, node_mask,
-                 noise: LossNoise):
+                 noise: LossNoise, counts: Optional[dict] = None):
         """Diffusion training loss (moldiff.py:253-373): masked-mean position
         MSE + 100 x KL(node) + 100 x edge_loss_scale x KL(edge) (in the
         continuous space 30 x the MSE to the scaled one-hots of each) [+
         bond-length MSE] [+ v0 cross-entropy] [+ aux_weight x the MoE
         load-balance loss, ``loss_moe``]. node_type [B,N] int, node_pos [B,N,3],
-        halfedge_type [B,E] int, node_mask [B,N] -> (loss, dict of terms)."""
+        halfedge_type [B,E] int, node_mask [B,N] -> (loss, dict of terms).
+        ``counts``: :meth:`loss_counts` summed over the ranks that split the
+        batch (each term is then this rank's share of the batch's)."""
         n = node_type.shape[1]
+        c = counts or {}
         halfedge_mask = graph_ops.halfedge_mask_from_node_mask(node_mask)
         t = noise.t
         pos_pert = self.pos_transition.add_noise(node_pos, t, noise.pos)
@@ -304,7 +325,8 @@ class MolDiff:
         preds, moe_aux = self.forward(params, h_node_pert, pos_pert, h_halfedge_pert, t,
                                       node_mask, return_moe_aux=True)
 
-        loss_pos = masked_mean((preds.pred_pos - node_pos) ** 2, node_mask[..., None])
+        loss_pos = masked_mean((preds.pred_pos - node_pos) ** 2, node_mask[..., None],
+                               c.get("pos"))
         losses = {}
         if self.bond_len_loss:
             iu, ju = (torch.as_tensor(a, dtype=torch.long, device=node_pos.device)
@@ -312,35 +334,38 @@ class MolDiff:
             bond_mask = halfedge_mask * (halfedge_type > 0)
             true_len = safe_distance(node_pos[:, iu] - node_pos[:, ju])
             pred_len = safe_distance(preds.pred_pos[:, iu] - preds.pred_pos[:, ju])
-            losses["loss_len"] = masked_mean((pred_len - true_len) ** 2, bond_mask)
+            losses["loss_len"] = masked_mean((pred_len - true_len) ** 2, bond_mask, c.get("len"))
 
         if self.categorical_space == "continuous":
             # MSE to the scaled one-hots x 30 (moldiff.py:347-356)
-            loss_node = masked_mean((preds.pred_node - h_node_0) ** 2, node_mask[..., None]) * 30.0
+            loss_node = masked_mean((preds.pred_node - h_node_0) ** 2, node_mask[..., None],
+                                    c.get("node")) * 30.0
             loss_edge = masked_mean((preds.pred_halfedge - h_halfedge_0) ** 2,
-                                    halfedge_mask[..., None]) * 30.0
+                                    halfedge_mask[..., None], c.get("edge")) * 30.0
         else:
             log_node_recon = torch.log_softmax(preds.pred_node, dim=-1)
             kl_node = node_tr.compute_v_Lt(node_tr.q_v_posterior(log_node_0, log_node_t, t),
                                            node_tr.q_v_posterior(log_node_recon, log_node_t, t),
                                            log_node_0, t)
-            loss_node = masked_mean(kl_node, node_mask) * 100.0
+            loss_node = masked_mean(kl_node, node_mask, c.get("node")) * 100.0
             log_edge_recon = torch.log_softmax(preds.pred_halfedge, dim=-1)
             kl_edge = edge_tr.compute_v_Lt(
                 edge_tr.q_v_posterior(log_halfedge_0, log_halfedge_t, t),
                 edge_tr.q_v_posterior(log_edge_recon, log_halfedge_t, t), log_halfedge_0, t)
-            loss_edge = masked_mean(kl_edge, halfedge_mask) * 100.0 * self.edge_loss_scale
+            loss_edge = (masked_mean(kl_edge, halfedge_mask, c.get("edge")) * 100.0
+                         * self.edge_loss_scale)
             if self.v0_ce_scale > 0 or self.v0_ce_edge_scale > 0:
                 loss_v0ce = 0.0
                 if self.v0_ce_scale > 0:
                     ce_node = -torch.gather(log_node_recon, -1,
                                             node_type[..., None].long())[..., 0]
-                    loss_v0ce = loss_v0ce + self.v0_ce_scale * masked_mean(ce_node, node_mask)
+                    loss_v0ce = loss_v0ce + self.v0_ce_scale * masked_mean(ce_node, node_mask,
+                                                                          c.get("node"))
                 if self.v0_ce_edge_scale > 0:
                     ce_edge = -torch.gather(log_edge_recon, -1,
                                             halfedge_type[..., None].long())[..., 0]
-                    loss_v0ce = loss_v0ce + self.v0_ce_edge_scale * masked_mean(ce_edge,
-                                                                                halfedge_mask)
+                    loss_v0ce = loss_v0ce + self.v0_ce_edge_scale * masked_mean(
+                        ce_edge, halfedge_mask, c.get("edge"))
                 losses["loss_v0ce"] = loss_v0ce
         if moe_aux is not None:
             # the Switch load-balance loss, weighted by denoiser.moe.aux_weight

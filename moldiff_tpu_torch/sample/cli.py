@@ -22,6 +22,20 @@ throughput, the chain's settings, accept stages, failure reasons, aromatic
 and triple-bond fractions) into ``<outdir>/<config name>_<time>/``.
 :func:`run` is the same path for a caller that already holds the settings
 as a dict.
+
+Sampling over processes (scripts/sample_drug3d.py:104-142, 293-328): with
+``--num_processes P --process_id p --coordinator HOST:PORT`` (or a
+``file://`` rendezvous path) and a shared ``--run_name``, process p samples
+its slice of the pool (parallel/multihost.py shard_range) into
+``<run>/shard_<p>``, seeded by (seed, p), on ``cuda:<p mod cards>``, and
+logs the pool counts gathered from every process (a gloo group: only host
+integers cross); ``--merge RUN_DIR`` merges the shard directories and
+exits. With more than one card visible and no ``--num_processes``,
+:func:`run` starts one such process per card itself and merges at the end.
+This is the port's form of JAX's in-process sampling mesh, which splits
+each chain's batch over the devices: the pool is split instead, so the
+molecules differ from a one-card run with the same seed. With one card
+visible nothing changes.
 """
 from __future__ import annotations
 
@@ -43,6 +57,8 @@ from ..chem.sdf import write_sdf
 from ..data.featurize import featurizer_from_config
 from ..models.bond_predictor import BondPredictor
 from ..models.moldiff import MolDiff, resolve_device
+from ..parallel import launch, multihost
+from ..parallel.mesh import initialize_distributed, rank_device, shutdown_distributed
 from ..utils.checkpoint import load_checkpoint
 from ..utils.config import Config
 from .pipeline import MolSampler
@@ -141,22 +157,84 @@ def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
     return sampler, ckpt["params"]
 
 
+def _sample_rank(rank: int, world: int, init_method: str, config: dict, device: str,
+                 outdir: str, num_mols: Optional[int], batch_size: Optional[int],
+                 run_name: str) -> dict:
+    """One process of :func:`run`'s local pool sharding (launch.spawn)."""
+    return run(config, device=device, outdir=outdir, num_mols=num_mols, batch_size=batch_size,
+               run_name=run_name, log=lambda m: None, num_processes=world, process_id=rank,
+               coordinator=init_method)
+
+
 def run(config: dict, device=None, outdir: str = "outputs_torch",
         num_mols: Optional[int] = None, batch_size: Optional[int] = None,
-        run_name: str = "sample", log=print) -> dict:
+        run_name: str = "sample", log=print, num_processes: Optional[int] = None,
+        process_id: Optional[int] = None, coordinator: Optional[str] = None) -> dict:
     """Sample per ``config`` ({'model': {'checkpoint', optionally
     'denoiser': settings set on the checkpoint's model.denoiser}, 'sample':
-    {...}}), write the outputs and return the summary."""
+    {...}}), write the outputs and return the summary. ``num_processes``
+    P > 1: this is process ``process_id`` of P (``coordinator``: the
+    rendezvous), sampling its shard of the pool into
+    ``<outdir>/<run_name>/shard_<process_id>``; None, with more than one
+    card visible: one process per card, merged at the end (the summary
+    then holds the merged counts and each process's summary)."""
     device = resolve_device(device)
+    if num_processes is None:
+        cards = torch.cuda.device_count() if device.type == "cuda" else 1
+        if cards > 1:
+            return _run_local_shards(config, cards, outdir, num_mols, batch_size, run_name, log)
+        num_processes = 1
+    if num_processes > 1:
+        device = rank_device(device, process_id)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        # only host integers (the pool counts) cross: a gloo group
+        initialize_distributed(coordinator, num_processes, process_id, backend="gloo")
+        # no teardown after an error: a peer may be gone, and the process's
+        # exit ends the group
+        out = _run(config, device, outdir, num_mols, batch_size, run_name, log, num_processes,
+                   process_id)
+        shutdown_distributed()
+        return out
+    return _run(config, device, outdir, num_mols, batch_size, run_name, log, 1, 0)
+
+
+def _run_local_shards(config: dict, cards: int, outdir: str, num_mols: Optional[int],
+                      batch_size: Optional[int], run_name: str, log) -> dict:
+    shards = launch.spawn(_sample_rank, cards,
+                          args=(config, "cuda", outdir, num_mols, batch_size, run_name))
+    out_dir = os.path.join(outdir, run_name)
+    merged = multihost.merge_shards(out_dir)
+    n_fin, n_fail = len(merged["finished"]), len(merged["failed"])
+    log(f"merged {cards} shards: {n_fin} finished, {n_fail} failed -> {out_dir}")
+    return {"num_finished": n_fin, "num_failed": n_fail,
+            "success_rate": n_fin / max(n_fin + n_fail, 1), "out_dir": out_dir,
+            "shards": shards}
+
+
+def _run(config: dict, device: torch.device, outdir: str, num_mols: Optional[int],
+         batch_size: Optional[int], run_name: str, log, num_processes: int,
+         process_id: int) -> dict:
     scfg = dict(config["sample"])
     torch.manual_seed(int(scfg["seed"]))
     sampler, params = build_sampler(config["model"]["checkpoint"], scfg, device, batch_size,
                                     bond_predictor=config.get("bond_predictor"),
                                     denoiser=config["model"].get("denoiser"))
     num_mols = num_mols or int(scfg["num_mols"])
+    seed = int(scfg["seed"])
+    torch_seed, np_seed = seed, seed
+    out_dir = os.path.join(outdir, run_name)
+    if num_processes > 1:
+        # a disjoint slice of the pool, independent reproducible streams
+        start, stop = multihost.shard_range(num_mols, process_id, num_processes)
+        num_mols = stop - start
+        torch_seed, np_seed = multihost.shard_seeds(seed, process_id)
+        out_dir = multihost.shard_dir(out_dir, process_id)
+        log(f"process {process_id}/{num_processes}: sampling shard [{start}, {stop}) -> "
+            f"{num_mols} molecules")
     generator = torch.Generator(device=device)
-    generator.manual_seed(int(scfg["seed"]))
-    rng = np.random.default_rng(int(scfg["seed"]))
+    generator.manual_seed(torch_seed)
+    rng = np.random.default_rng(np_seed)
     # each finished molecule keeps its trajectory with this probability
     traj_prob = float(scfg.get("save_traj_prob") or 0.0)
 
@@ -209,7 +287,13 @@ def run(config: dict, device=None, outdir: str = "outputs_torch",
         "aromatic_mol_fraction": _fraction_with_bond(pool["finished"], AROMATIC),
         "triple_bond_mol_fraction": _fraction_with_bond(pool["finished"], 3),
     }
-    out_dir = os.path.join(outdir, run_name)
+    if num_processes > 1:
+        counts = multihost.allgather_counts(n_fin, n_fail)
+        tot_fin, tot_fail = (int(x) for x in counts.sum(axis=0))
+        summary["global_counts"] = counts.tolist()
+        log(f"global pool: finished {tot_fin} | failed {tot_fail} | success "
+            f"{tot_fin / max(tot_fin + tot_fail, 1):.3f}")
+    summary["out_dir"] = out_dir
     sdf_dir = os.path.join(out_dir, "SDF")
     os.makedirs(sdf_dir, exist_ok=True)
     with open(os.path.join(out_dir, "SMILES.txt"), "w") as f:
@@ -241,7 +325,7 @@ def main(argv=None) -> dict:
     from ..utils.config import load_config
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--config", required=True, help="sample config (YAML)")
+    ap.add_argument("--config", default=None, help="sample config (YAML)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--outdir", default="outputs_torch")
     ap.add_argument("--num_mols", type=int, default=None)
@@ -260,8 +344,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--edge_guidance_tmax", type=int, default=None,
                     help="edge guidance only at original timesteps below this")
     ap.add_argument("--run_name", default=None,
-                    help="output directory name (default: config name + time)")
+                    help="output directory name (default: config name + time; required to "
+                         "line up the shard directories of a multi-process run)")
+    # pool sharding over processes (parallel/multihost.py)
+    ap.add_argument("--num_processes", type=int, default=None,
+                    help="processes sharing the pool (default: 1, or one per visible card)")
+    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0, or a file:// rendezvous path")
+    ap.add_argument("--merge", metavar="RUN_DIR", default=None,
+                    help="merge the shard_* dirs of a multi-process run and exit (no sampling)")
     args = ap.parse_args(argv)
+    if args.merge:
+        merged = multihost.merge_shards(args.merge)
+        print(f"merged {args.merge}: {len(merged['finished'])} finished, "
+              f"{len(merged['failed'])} failed")
+        return {"num_finished": len(merged["finished"]), "num_failed": len(merged["failed"]),
+                "out_dir": args.merge}
+    if not args.config:
+        ap.error("--config is required unless --merge is given")
     config = load_config(args.config)
     sample = config["sample"]
     if args.use_ema:
@@ -273,4 +374,6 @@ def main(argv=None) -> dict:
     tag = os.path.splitext(os.path.basename(args.config))[0]
     return run(config, device=args.device, outdir=args.outdir, num_mols=args.num_mols,
                batch_size=args.batch_size,
-               run_name=args.run_name or f"{tag}_{time.strftime('%Y%m%d_%H%M%S')}")
+               run_name=args.run_name or f"{tag}_{time.strftime('%Y%m%d_%H%M%S')}",
+               num_processes=args.num_processes, process_id=args.process_id,
+               coordinator=args.coordinator)

@@ -10,7 +10,8 @@ The loop is the denoiser's (cli.fit): from fresh params drawn from
 with ``train.keep_ckpts`` and ``train.ckpt_async``; the data source and
 the run's directory (log.txt, metrics.jsonl with the JAX CLI's
 ``train/loss`` and ``train/acc_bond`` at iteration 1 and every 100th and
-``val/loss``, the event file) as cli.fit says. The featurizer is the
+``val/loss``, the event file) and the ``parallel:`` section (one worker
+per rank, FSDP, sharded checkpoints) as cli.fit and cli.run_ranks say. The featurizer is the
 config's (``transform.use_mask_edge: false``: bond types and "none", no
 mask class), so the predictor has num_bond_types + 1 edge classes, as
 sampling builds it. :func:`run` takes the config as a dict (the card
@@ -26,9 +27,8 @@ import torch
 
 from ..data.featurize import featurizer_from_config
 from ..models.bond_predictor import BondPredictor
-from ..models.moldiff import resolve_device
 from ..utils.config import Config
-from .cli import DEFAULT_CORPUS_MOLS, fit
+from .cli import DEFAULT_CORPUS_MOLS, fit, run_ranks
 
 
 def bond_scalars(aux: dict, lr: float, steps_per_sec: float) -> dict:
@@ -39,17 +39,25 @@ def bond_scalars(aux: dict, lr: float, steps_per_sec: float) -> dict:
 def run(config: dict, resume: Optional[str] = None, device: "str | torch.device | None" = None,
         logdir: str = "./logs_torch", name: str = "train_bond", max_iters: Optional[int] = None,
         corpus_mols: int = DEFAULT_CORPUS_MOLS, subsets: Optional[Dict[str, list]] = None,
-        log: Optional[Callable[[str], None]] = None, config_path: Optional[str] = None) -> dict:
+        log: Optional[Callable[[str], None]] = None, config_path: Optional[str] = None,
+        backend: Optional[str] = None, check_replicas: bool = False) -> dict:
     """Train the bond predictor with ``config``, from ``resume`` or from
-    scratch -> cli.fit's summary."""
+    scratch -> cli.fit's summary; the config's ``parallel:`` section as the
+    denoiser's CLI reads it (cli.run_ranks)."""
+    return run_ranks(_run_local, dict(config), device, backend, log, resume=resume,
+                     logdir=logdir, name=name, max_iters=max_iters, corpus_mols=corpus_mols,
+                     subsets=subsets, config_path=config_path, check_replicas=check_replicas)
+
+
+def _run_local(config: dict, device: torch.device, mesh, log, **kwargs) -> dict:
     config = Config(config)
-    device = resolve_device(device)
     featurizer = featurizer_from_config(config)
     model = BondPredictor(config.model, featurizer.num_node_types, featurizer.num_edge_types,
                           device=device)
-    return fit(config, model, featurizer, device, resume, logdir, name, max_iters, corpus_mols,
-               subsets, log, config_path=config_path, logger_name="train_bond",
-               scalars=bond_scalars)
+    return fit(config, model, featurizer, device, kwargs.pop("resume"), kwargs.pop("logdir"),
+               kwargs.pop("name"), kwargs.pop("max_iters"), kwargs.pop("corpus_mols"),
+               kwargs.pop("subsets"), log, logger_name="train_bond", scalars=bond_scalars,
+               mesh=mesh, **kwargs)
 
 
 def main(argv=None) -> str:

@@ -32,6 +32,19 @@ CLI's scalars at its iterations: the ``train/*`` loss terms, grad norm,
 learning rate and steps per second at iteration 1 and every 100th, and
 ``val/loss`` at each validation.
 
+The config's ``parallel:`` section is read (the JAX CLI's mesh,
+parallel/mesh.py): with ``num_devices`` null (every visible card) or above
+1 and more than one rank, :func:`run` starts one worker process per rank
+(rank r on ``cuda:r``; on the CPU, ``--device cpu`` with ``num_devices: K``
+starts K gloo processes), each checks that it is on its card, and they
+train as one data-parallel run (``parallel.fsdp``: fully sharded). Every
+rank runs the same loader and keeps its rows of each batch; rank 0 alone
+writes log.txt, metrics.jsonl, the event file and the checkpoints. A
+failed rank fails the run. With one card visible nothing changes: no
+process group, no worker. ``train.ckpt_sharded`` writes each checkpoint
+as a sharded directory (train/checkpoint_sharded.py), which prune and
+``--resume`` read as they read a file.
+
 The training data (:func:`load_subsets`): when the config's
 ``dataset.root`` is a directory, its record store (data/dataset.py
 get_dataset, processed from its SDF directory on first use, as the JAX CLI
@@ -51,12 +64,16 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import CORPORA, get_dataset, make_corpus
 from ..data.featurize import featurizer_from_config
 from ..data.loader import BucketedLoader
 from ..models.moldiff import MolDiff, resolve_device
 from ..ops import kernels
+from ..parallel import launch
+from ..parallel.mesh import (Mesh, broadcast_leaves, initialize_distributed,
+                             make_mesh_from_config, rank_device, shutdown_distributed)
 from ..utils.config import Config
 from ..utils.misc import MetricsWriter, get_logger, get_new_log_dir, seed_all
 from ..utils.profiling import StepTimer, device_memory_stats, trace
@@ -105,33 +122,52 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
         reset_ema: bool = False, reset_optim: bool = False,
         override_lr: Optional[float] = None, profile_at: int = 0,
         config_path: Optional[str] = None, logger_name: str = "train",
-        scalars: Callable[[dict, float, float], dict] = train_scalars) -> dict:
+        scalars: Callable[[dict, float, float], dict] = train_scalars,
+        mesh: Optional[Mesh] = None, check_replicas: bool = False) -> dict:
     """The training loop of both CLIs for ``model`` (MolDiff or
     BondPredictor) -> summary: the log dir, the data source ("store",
     "recipe", or "given" for ``subsets``), one record per train step
     (iteration, bucket, loss terms, grad norm, lr, seconds, kernel
-    launches), the validation losses, the checkpoints written, the step
-    timer's summary, the metrics and event files, and the final state and
+    launches; on the data axis also the seconds in collectives, and with
+    ``check_replicas`` whether every rank's params were bit-equal after
+    it), the validation losses, the checkpoints written and the seconds
+    each took (an async one: its snapshot), the step timer's
+    summary, the metrics and event files, and the final state and
     trainer. Log lines go to ``log.txt`` and stderr, and to ``log`` when
-    given; ``scalars`` maps a step's terms to the scalars written."""
+    given; ``scalars`` maps a step's terms to the scalars written. On a
+    data axis (``mesh``, this process one of its ranks) rank 0 alone logs
+    and writes files."""
     train_cfg = config.train
-    if train_cfg.get("ckpt_sharded", False):
-        raise NotImplementedError("sharded checkpoints (train.ckpt_sharded) are not ported yet")
+    ckpt_sharded = bool(train_cfg.get("ckpt_sharded", False))
+    rank = mesh.rank if mesh is not None else 0
+    lead = rank == 0
     seed = int(train_cfg.seed)
     seed_all(seed)
-    log_dir = get_new_log_dir(logdir, prefix=name)
+    log_dir = get_new_log_dir(logdir, prefix=name) if lead else None
+    if mesh is not None and mesh.data > 1:
+        shared = [log_dir]
+        dist.broadcast_object_list(shared, 0)
+        log_dir = shared[0]
     ckpt_dir = os.path.join(log_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
-    if config_path:
-        shutil.copyfile(config_path, os.path.join(log_dir, os.path.basename(config_path)))
-    logger = get_logger(logger_name, log_dir)
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if config_path:
+            shutil.copyfile(config_path, os.path.join(log_dir, os.path.basename(config_path)))
+        logger = get_logger(logger_name, log_dir)
 
     def say(msg: str) -> None:
-        logger.info(msg)
-        if log is not None:
-            log(msg)
+        if lead:
+            logger.info(msg)
+            if log is not None:
+                log(msg)
 
-    trainer = Trainer(model, train_cfg)
+    fsdp = bool((config.get("parallel") or {}).get("fsdp", False))
+    trainer = Trainer(model, train_cfg, mesh=mesh, fsdp=fsdp)
+    if trainer.mesh is not None:
+        if device.type == "cuda" and torch.cuda.current_device() != device.index:
+            raise RuntimeError(f"rank {rank} runs on cuda:{torch.cuda.current_device()}, "
+                               f"not on its card {device}")
+        say(f"data axis: {trainer.world} ranks ({mesh.backend}){' FSDP' if fsdp else ''}")
     # one stream from the seed: the initial params (when not resumed), then
     # every step's noise
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -152,7 +188,10 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
     else:
         state = trainer.init_state(gen)
         say(f"initialised from train.seed {seed} | device {device}")
-    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    n_params = sum(p.numel() for p in tree_leaves(trainer.gathered(state).params))
+    for p in tree_leaves(state.params):
+        if p.device != device:
+            raise RuntimeError(f"rank {rank}: a parameter is on {p.device}, not on {device}")
     say(f"trainable params: {n_params / 1e6:.2f}M")
 
     if subsets is None:
@@ -169,13 +208,15 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
     ckpt_freq = int(train_cfg.get("ckpt_freq", val_freq))
     val_batches = int(train_cfg.get("val_batches", 16))
     keep = int(train_cfg.get("keep_ckpts", 0) or 0)
-    async_ckpt = AsyncCheckpointer() if train_cfg.get("ckpt_async", False) else None
+    async_ckpt = (AsyncCheckpointer() if train_cfg.get("ckpt_async", False) and not ckpt_sharded
+                  else None)
 
-    writer = MetricsWriter(log_dir)
+    writer = MetricsWriter(log_dir) if lead else None
     timer = StepTimer()
     steps: List[dict] = []
     vals: List[dict] = []
     ckpts: List[str] = []
+    ckpt_s: List[float] = []
     first = state.step + 1
     t_log = time.time()
     try:
@@ -198,6 +239,13 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
             steps.append({"it": it, "n": int(batch["node_type"].shape[1]), "s": dt,
                           "launches": {k: kernels.launch_counts[k] - before[k] for k in before},
                           **aux, "lr": lr})
+            if trainer.mesh is not None:
+                steps[-1]["comm_s"] = trainer.comm_s
+                if check_replicas and not trainer.fsdp:
+                    flag = torch.tensor([0.0 if broadcast_leaves(state.params)[1] else 1.0],
+                                        device=mesh.comm_device())
+                    dist.all_reduce(flag)
+                    steps[-1]["replicas_equal"] = float(flag[0]) == 0.0
             if it % 100 == 0 or it == first:
                 elapsed = time.time() - t_log
                 sps = (100 if it > first else 1) / elapsed
@@ -208,7 +256,7 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
                     f"| grad {aux['grad_norm']:.2f} | lr {lr:.2e} | {sps:.2f} it/s")
                 # the JAX CLI's scalars, at its iterations (a resume's first
                 # iteration is logged, not written)
-                if it % 100 == 0 or it == 1:
+                if lead and (it % 100 == 0 or it == 1):
                     for tag, value in scalars(aux, lr, sps).items():
                         writer.add_scalar(tag, value, it)
 
@@ -228,26 +276,74 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
                 vals.append({"it": it, "loss": val_loss, "batches": len(losses),
                              "lr": get_lr(state.opt_state)})
                 say(f"[val {it}] loss {val_loss:.4f}")
-                writer.add_scalar("val/loss", val_loss, it)
+                if lead:
+                    writer.add_scalar("val/loss", val_loss, it)
 
             if it % ckpt_freq == 0 or it == max_iters:
                 path = os.path.join(ckpt_dir, f"{it}.ckpt")
-                if async_ckpt is not None:
-                    async_ckpt.save(path, state, config, scheduler=trainer.scheduler)
+                t_ck = time.perf_counter()
+                if ckpt_sharded:
+                    trainer.save_checkpoint_sharded(path, state, config)
+                elif async_ckpt is not None:
+                    whole = trainer.gathered(state)
+                    if lead:
+                        async_ckpt.save(path, whole, config, scheduler=trainer.scheduler)
                 else:
                     trainer.save_checkpoint(path, state, config)
                 ckpts.append(path)
-                say(f"saved {path}")
-                prune_checkpoints(ckpt_dir, keep)
+                ckpt_s.append(time.perf_counter() - t_ck)
+                say(f"saved {path} in {ckpt_s[-1]:.3f} s")
+                if lead:
+                    prune_checkpoints(ckpt_dir, keep)
         if async_ckpt is not None:
             async_ckpt.wait()
             prune_checkpoints(ckpt_dir, keep)
     finally:
-        writer.close()
+        if writer is not None:
+            writer.close()
     say(f"done | step timer {timer.summary()} | device memory {device_memory_stats()}")
     return {"log_dir": log_dir, "data": data, "steps": steps, "val": vals, "checkpoints": ckpts,
-            "timer": timer.summary(), "metrics": os.path.join(log_dir, "metrics.jsonl"),
-            "events": writer.event_path, "state": state, "trainer": trainer}
+            "checkpoint_s": ckpt_s, "timer": timer.summary(),
+            "metrics": os.path.join(log_dir, "metrics.jsonl"),
+            "events": writer.event_path if writer is not None else None, "state": state,
+            "trainer": trainer}
+
+
+def _rank_worker(rank: int, world: int, init_method: str, mesh: Mesh, build: Callable,
+                 config: dict, kwargs: dict) -> dict:
+    """One rank of a data-parallel run (launch.spawn's worker): joins the
+    process group, builds the model on its card and fits -> the picklable
+    part of the summary (rank 0's log lines under ``log_lines``)."""
+    device = rank_device(mesh.device, rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    initialize_distributed(init_method, world, rank, backend=mesh.backend)
+    lines: List[str] = []
+    # no teardown after an error: a peer may be gone, and the process's exit
+    # ends the group
+    out = build(config, device=device, mesh=mesh.at(rank, device), log=lines.append, **kwargs)
+    shutdown_distributed()
+    out = {k: v for k, v in out.items() if k not in ("state", "trainer")}
+    out["log_lines"] = lines
+    return out
+
+
+def run_ranks(build: Callable, config: dict, device: "str | torch.device | None",
+              backend: Optional[str], log: Optional[Callable[[str], None]], **kwargs) -> dict:
+    """``build(config, device=..., mesh=..., log=..., **kwargs)`` (a CLI's
+    in-process run) on the mesh of the config's ``parallel:`` section: in
+    this process for one rank, else in one worker per rank -> rank 0's
+    summary, and ``ranks``, every rank's (without state and trainer)."""
+    device = resolve_device(device)
+    mesh = make_mesh_from_config(config.get("parallel"), device, backend)
+    if mesh.data <= 1:
+        return build(config, device=device, mesh=None, log=log, **kwargs)
+    ranks = launch.spawn(_rank_worker, mesh.data, args=(mesh, build, config, kwargs))
+    if log is not None:
+        for line in ranks[0]["log_lines"]:
+            log(line)
+    return dict(ranks[0], ranks=ranks, state=None, trainer=None)
 
 
 def run(config: dict, resume: Optional[str] = None, device: "str | torch.device | None" = None,
@@ -255,19 +351,32 @@ def run(config: dict, resume: Optional[str] = None, device: "str | torch.device 
         reset_ema: bool = False, reset_optim: bool = False, override_lr: Optional[float] = None,
         profile_at: int = 0, corpus_mols: int = DEFAULT_CORPUS_MOLS,
         subsets: Optional[Dict[str, list]] = None,
-        log: Optional[Callable[[str], None]] = None, config_path: Optional[str] = None) -> dict:
+        log: Optional[Callable[[str], None]] = None, config_path: Optional[str] = None,
+        backend: Optional[str] = None, check_replicas: bool = False) -> dict:
     """Train MolDiff with ``config``, from ``resume`` or from scratch ->
-    :func:`fit`'s summary. ``subsets``: {"train", "val"} record lists to
+    :func:`fit`'s summary (rank 0's of a data-parallel run, with every
+    rank's under ``ranks``). ``subsets``: {"train", "val"} record lists to
     use instead of the config's dataset; ``config_path``: the file the
-    config came from, copied into the log dir."""
+    config came from, copied into the log dir; ``backend``: the process
+    group's (default NCCL on cards, gloo on the CPU; gloo may put several
+    ranks on one card)."""
+    return run_ranks(_run_local, dict(config), device, backend, log, resume=resume,
+                     logdir=logdir, name=name, max_iters=max_iters, reset_ema=reset_ema,
+                     reset_optim=reset_optim, override_lr=override_lr, profile_at=profile_at,
+                     corpus_mols=corpus_mols, subsets=subsets, config_path=config_path,
+                     check_replicas=check_replicas)
+
+
+def _run_local(config: dict, device: torch.device, mesh: Optional[Mesh],
+               log: Optional[Callable[[str], None]], **kwargs) -> dict:
     config = Config(config)
-    device = resolve_device(device)
     featurizer = featurizer_from_config(config)
     model = MolDiff(config.model, featurizer.num_node_types, featurizer.num_edge_types,
                     device=device)
-    return fit(config, model, featurizer, device, resume, logdir, name, max_iters, corpus_mols,
-               subsets, log, reset_ema=reset_ema, reset_optim=reset_optim,
-               override_lr=override_lr, profile_at=profile_at, config_path=config_path)
+    resume = kwargs.pop("resume")
+    return fit(config, model, featurizer, device, resume, kwargs.pop("logdir"),
+               kwargs.pop("name"), kwargs.pop("max_iters"), kwargs.pop("corpus_mols"),
+               kwargs.pop("subsets"), log, mesh=mesh, **kwargs)
 
 
 def main(argv=None) -> str:

@@ -64,14 +64,18 @@ class Optimizer:
         return OptState(0, tree_map(zeros, params), tree_map(zeros, params), self.lr)
 
     @torch.no_grad()
-    def update(self, grads: Any, state: OptState, params: Any):
+    def update(self, grads: Any, state: OptState, params: Any,
+               g_norm: "torch.Tensor | None" = None):
         """One step -> (new params, new state); ``grads`` has the params'
         structure. Each line is one multi-tensor op over every leaf, in
         optax's order of roundings; the clip stays on the card (no host
-        sync): its factor is 1 where optax keeps the gradient."""
+        sync): its factor is 1 where optax keeps the gradient. ``g_norm``:
+        the gradient's global norm when ``grads`` holds only this rank's
+        shards of it (FSDP)."""
         g, p = tree_leaves(grads), tree_leaves(params)
         if self.max_grad_norm > 0:
-            g_norm = global_norm(g)
+            if g_norm is None:
+                g_norm = global_norm(g)
             factor = torch.where(g_norm < self.max_grad_norm, torch.ones_like(g_norm),
                                  self.max_grad_norm / g_norm)
             g = torch._foreach_mul(g, factor)

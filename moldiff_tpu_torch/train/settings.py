@@ -22,6 +22,13 @@ the same CPU test):
                      scaling: [1.0, 4.0, 8.0]} (tests/test_continuous_mode.py's)
   UNGATED_V2         TRAIN_V2_CONT, model.denoiser.use_gate false
 
+and the data axis (phase 22 of chip_smoke.py), TRAIN_V2_CONT with its
+``parallel`` section (and ``train.ckpt_sharded``) overridden:
+
+  TRAIN_V2_CONT_DP2     parallel {num_devices: 2}: two data-parallel ranks
+  TRAIN_V2_CONT_FSDP2   parallel {num_devices: 2, fsdp: true},
+                        train.ckpt_sharded true
+
 ``chip_smoke.py`` and ``profile_steps --train`` run these. Each dict is
 built anew here, so that no two share a nested dict; copy one before
 changing it.
@@ -136,3 +143,17 @@ MOE_BONDPRED_V2 = _override(TRAIN_BONDPRED_V2, "encoder", moe=MOE)
 CONT_V2 = _override(TRAIN_V2_CONT, "diff", categorical_space="continuous",
                         scaling=[1.0, 4.0, 8.0])
 UNGATED_V2 = _override(TRAIN_V2_CONT, "denoiser", use_gate=False)
+
+
+def _sections(settings: dict, **sections) -> dict:
+    """A copy of ``settings`` with ``sections`` (top-level name -> values)
+    updated."""
+    out = copy.deepcopy(settings)
+    for name, values in sections.items():
+        out[name].update(values)
+    return out
+
+
+TRAIN_V2_CONT_DP2 = _sections(TRAIN_V2_CONT, parallel={"num_devices": 2})
+TRAIN_V2_CONT_FSDP2 = _sections(TRAIN_V2_CONT, parallel={"num_devices": 2, "fsdp": True},
+                                train={"ckpt_sharded": True})

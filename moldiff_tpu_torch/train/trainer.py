@@ -16,6 +16,22 @@ its leading axis; each has its own noise (drawn one microbatch after
 another, as JAX's ``split(key, K)`` gives one key to each); the float32
 gradients are summed, divided by K, and the loss terms averaged.
 
+On the data axis (``mesh`` with data W > 1, one process per rank, see
+parallel/mesh.py) the batch given to every rank is the global one: each
+rank pads it to a multiple of W x K, keeps its rows of each microbatch
+(microbatch i is rows [i B/K, (i+1) B/K), JAX's PartitionSpec(None,
+DATA_AXIS)) and slices its rows of the noise, which every rank draws for
+the whole padded batch from the same generator. The masked means' counts
+are summed over the ranks before the forward pass (one all-reduce), so
+each rank's loss is its share of the global batch's; one all-reduce of a
+flat buffer sums the gradients and the loss terms. Adam and the EMA then
+run identically on every rank. With ``fsdp`` the params, adam moments and
+EMA are held sharded at rest (parallel/mesh.py fsdp_placement: one slice
+of each leaf per rank, or the whole leaf); a step gathers the params once,
+reduce-scatters the gradients, takes the norm from all-reduced sums of
+squares and updates the shards. A step at world W computes the world-1
+step on the padded batch up to the order of its sums.
+
 Checkpoints keep the JAX package's pickle layout (trainer.py:372-395):
 ``config``, float32 numpy ``params`` and ``ema_params``, ``step``,
 ``scheduler`` (its state_dict), ``key`` None and ``opt_state`` None, so
@@ -30,14 +46,19 @@ import glob
 import os
 import pickle
 import shutil
+import time
 from typing import Any, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.batching import pad_batch_to_multiple
 from ..data.loader import BATCH_KEYS
+from ..parallel.mesh import (Mesh, all_reduce_sum, broadcast_leaves, flatten, fsdp_placement,
+                             rank_rows, unflatten)
 from ..utils.checkpoint import load_checkpoint_numpy, params_to_torch
+from . import checkpoint_sharded
 from .optim import (OptState, Optimizer, get_lr, get_scheduler, global_norm, set_lr,
                     tree_leaves, tree_map, tree_unflatten)
 
@@ -70,15 +91,46 @@ def _copy(tree: Any) -> Any:
     return tree_map(lambda x: x.detach().clone(), tree)
 
 
+def _rows(noise: Any, rows: slice) -> Any:
+    """``rows`` of every tensor of a (nested) noise tuple; None stays None."""
+    if isinstance(noise, tuple):
+        return type(noise)(*(_rows(x, rows) for x in noise))
+    return None if noise is None else noise[rows]
+
+
+def _is_moe(model) -> bool:
+    static = getattr(model, "denoiser_static", None) or getattr(model, "encoder_static", {})
+    return bool(static.get("moe"))
+
+
 class Trainer:
     """Owns the optimizer and scheduler; ``model`` exposes
-    ``init_params(generator)``, ``draw_loss_noise(b, n, generator)`` and
-    ``get_loss(params, node_type, pos, halfedge_type, node_mask, noise)``
-    (MolDiff and BondPredictor do)."""
+    ``init_params(generator)``, ``draw_loss_noise(b, n, generator)``,
+    ``loss_counts(node_type, halfedge_type, node_mask)`` and
+    ``get_loss(params, node_type, pos, halfedge_type, node_mask, noise,
+    counts)`` (MolDiff and BondPredictor do). ``mesh``: this process's
+    rank of the data axis (parallel/mesh.py), ``fsdp`` its sharding."""
 
-    def __init__(self, model, train_config: dict):
+    def __init__(self, model, train_config: dict, mesh: Optional[Mesh] = None,
+                 fsdp: bool = False):
         self.model = model
         self.config = train_config
+        # the data axis: None without ranks to split over and no process
+        # group (a mesh of one rank inside a process group runs the data
+        # path, its collectives over the one rank); fsdp only when it has
+        # ranks to shard over, as in JAX (trainer.py:132-143)
+        active = mesh is not None and (mesh.data > 1 or dist.is_initialized())
+        self.mesh = mesh if active else None
+        self.world = self.mesh.data if self.mesh is not None else 1
+        self.fsdp = bool(fsdp) and self.world > 1
+        if self.world > 1 and _is_moe(model):
+            # JAX's capacity, capacity positions and aux loss read the
+            # global tokens (moe.py:83-84, 118, 138): none is a sum of
+            # per-rank terms
+            raise NotImplementedError("MoE under a data axis > 1 is not ported yet "
+                                      "(ROADMAP.md: with the expert axis)")
+        self.places: Optional[list] = None   # FSDP: one Placement per param leaf
+        self.comm_s = 0.0                    # seconds in collectives, last step
         self.grad_accum = int(train_config.get("grad_accum", 1) or 1)
         opt_cfg = dict(train_config["optimizer"])
         opt_cfg.setdefault("max_grad_norm", train_config.get("max_grad_norm", 0.0))
@@ -95,75 +147,199 @@ class Trainer:
             jitter = torch.randn((b, n, 3), generator=generator, device=self.model.device)
         return TrainNoise(jitter, self.model.draw_loss_noise(b, n, generator))
 
+    def _padded(self, b: int) -> int:
+        """The global batch padded to a multiple of data x grad_accum
+        (trainer.py:284-293)."""
+        mult = self.world * self.grad_accum
+        return -(-b // mult) * mult
+
     def draw_noise(self, batch: dict, generator: torch.Generator) -> TrainNoise:
         """Fresh noise for :meth:`eval_step` on ``batch``, padded to a
-        multiple of ``grad_accum``: one TrainNoise for the whole batch."""
+        multiple of data x ``grad_accum``: one TrainNoise for the whole
+        (global) batch."""
         b, n = batch["node_type"].shape
-        return self._draw(-(-b // self.grad_accum) * self.grad_accum, n, generator)
+        return self._draw(self._padded(b), n, generator)
 
     def draw_step_noise(self, batch: dict, generator: torch.Generator) -> List[TrainNoise]:
         """Fresh noise for :meth:`train_step` on ``batch``: one TrainNoise
-        per microbatch of the batch padded to a multiple of ``grad_accum``,
-        drawn one microbatch after another."""
+        per microbatch of the (global) batch padded to a multiple of data x
+        ``grad_accum``, drawn one microbatch after another."""
         b, n = batch["node_type"].shape
         k = self.grad_accum
-        return [self._draw(-(-b // k), n, generator) for _ in range(k)]
+        return [self._draw(self._padded(b) // k, n, generator) for _ in range(k)]
 
-    def loss_fn(self, params, batch: dict, noise: TrainNoise):
+    def loss_fn(self, params, batch: dict, noise: TrainNoise, counts: Optional[dict] = None):
         """(loss, dict of loss terms) with the position jitter applied
-        (trainer.py:55-76)."""
+        (trainer.py:55-76); ``counts``: the masked means' global counts."""
         pos = batch["pos"]
         if self.pos_noise_std > 0:
             pos = pos + self.pos_noise_std * noise.jitter
+        kw = {} if counts is None else {"counts": counts}
         return self.model.get_loss(params, batch["node_type"], pos, batch["halfedge_type"],
-                                   batch["node_mask"], noise.loss)
+                                   batch["node_mask"], noise.loss, **kw)
 
-    def _grads(self, params, batch: dict, noise: TrainNoise):
+    def _grads(self, params, batch: dict, noise: TrainNoise, counts: Optional[dict] = None):
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss, aux = self.loss_fn(tree_unflatten(params, leaves), batch, noise)
+            loss, aux = self.loss_fn(tree_unflatten(params, leaves), batch, noise, counts)
             grads = torch.autograd.grad(loss, leaves)
         return list(grads), {k: v.detach() for k, v in aux.items()}
 
-    def train_step(self, state: TrainState, batch: dict,
-                   noise: Union[TrainNoise, Sequence[TrainNoise]]):
-        """One optimizer step -> (new state, aux); aux holds the loss terms
-        and ``grad_norm``, the global norm before clipping (trainer.py:229).
-        ``noise`` holds one TrainNoise per microbatch
-        (:meth:`draw_step_noise`); with grad_accum 1 it may be the one
-        TrainNoise itself."""
-        k = self.grad_accum
-        noise = [noise] if isinstance(noise, TrainNoise) else list(noise)
-        assert len(noise) == k, (len(noise), k)
-        if k == 1:
-            grads, aux = self._grads(state.params, batch, noise[0])
-        else:
-            batch = pad_batch_to_multiple(batch, k)
-            m = batch["node_type"].shape[0] // k
-            grads, auxs = None, []
-            for i, mb_noise in enumerate(noise):
-                micro = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
-                g, a = self._grads(state.params, micro, mb_noise)
-                grads = g if grads is None else torch._foreach_add(grads, g)
-                auxs.append(a)
-            grads = torch._foreach_div(grads, float(k))
-            aux = {key: torch.stack([a[key] for a in auxs]).mean() for key in auxs[0]}
-        aux["grad_norm"] = global_norm(grads)
-        grads = tree_unflatten(state.params, grads)
-        new_params, opt_state = self.optimizer.update(grads, state.opt_state, state.params)
+    # -- the data axis ---------------------------------------------------------
+
+    def _collective(self, fn, *args):
+        """Run one collective, its seconds (after the work queued before
+        it) added to ``comm_s``."""
+        sync = self.mesh.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize(self.mesh.device)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if sync:
+            torch.cuda.synchronize(self.mesh.device)
+        self.comm_s += time.perf_counter() - t0
+        return out
+
+    def _local(self, batch: dict, noise: List[TrainNoise]) -> list:
+        """This rank's (microbatch, noise) pairs of the global batch, and
+        each microbatch's counts summed over the ranks (one all-reduce)."""
+        k = len(noise)
+        batch = pad_batch_to_multiple(batch, self.world * k)
+        m = batch["node_type"].shape[0] // k
+        rows = rank_rows(m, self.mesh)
+        micros = [({key: v[i * m:(i + 1) * m][rows] for key, v in batch.items()},
+                   _rows(noise[i], rows)) for i in range(k)]
+        counts = [self.model.loss_counts(mb["node_type"], mb["halfedge_type"], mb["node_mask"])
+                  for mb, _ in micros]
+        flat = self._collective(all_reduce_sum, [v for c in counts for v in c.values()])
+        it = iter(flat)
+        return [(mb, nz, {name: next(it) for name in c}) for (mb, nz), c in zip(micros, counts)]
+
+    def _sharded(self) -> List[int]:
+        return [j for j, p in enumerate(self.places) if p.dim is not None]
+
+    def gather(self, tree: Any) -> Any:
+        """FSDP: the whole leaves of a tree of shards (params, moments or
+        EMA), by one all-gather of the sharded leaves; replicated leaves
+        are kept. Without FSDP the tree itself."""
+        if not self.fsdp or tree is None:
+            return tree
+        leaves = tree_leaves(tree)
+        idx = self._sharded()
+        mine = flatten([leaves[j] for j in idx])
+        parts = [torch.empty_like(mine) for _ in range(self.world)]
+        self._collective(dist.all_gather, parts, mine)
+        out = list(leaves)
+        for j, *per_rank in zip(idx, *(unflatten(p, [leaves[j] for j in idx]) for p in parts)):
+            out[j] = torch.cat(per_rank, dim=self.places[j].dim)
+        return tree_unflatten(tree, out)
+
+    def shard(self, tree: Any) -> Any:
+        """FSDP: this rank's shards of a tree of whole leaves."""
+        if not self.fsdp or tree is None:
+            return tree
+        return tree_unflatten(tree, [p.take(x, self.mesh.rank)
+                                     for p, x in zip(self.places, tree_leaves(tree))])
+
+    def _reduce(self, grads: List[torch.Tensor], aux: dict) -> tuple:
+        """(gradients summed over the ranks: this rank's shards under FSDP,
+        the global norm before clipping, the summed loss terms)."""
+        names, grads = list(aux), list(grads)
+        if not self.fsdp:
+            out = self._collective(all_reduce_sum, grads + [aux[k] for k in names])
+            grads = out[:len(grads)]
+            return grads, global_norm(grads), dict(zip(names, out[len(grads):]))
+        idx = set(self._sharded())
+        rep = [j for j in range(len(grads)) if j not in idx]
+        sh = sorted(idx)
+        inputs = [flatten([self.places[j].take(grads[j], r) for j in sh])
+                  for r in range(self.world)]
+        mine = torch.empty_like(inputs[0])
+        self._collective(dist.reduce_scatter, mine, inputs)
+        out = self._collective(all_reduce_sum, [grads[j] for j in rep] + [aux[k] for k in names])
+        local = list(grads)
+        shapes = [torch.empty(self.places[j].shard_shape, device="meta") for j in sh]
+        for j, g in zip(sh, unflatten(mine, shapes)):
+            local[j] = g
+        for j, g in zip(rep, out[:len(rep)]):
+            local[j] = g
+        sq = torch.sum(mine * mine).reshape(1)
+        self._collective(dist.all_reduce, sq)
+        rep_sq = sum((torch.sum(g * g) for g in out[:len(rep)]), torch.zeros((), device=sq.device))
+        norm = torch.sqrt(sq[0] + rep_sq)
+        return local, norm, dict(zip(names, out[len(rep):]))
+
+    def _with_ema(self, state: "TrainState", new_params, opt_state) -> "TrainState":
         ema = state.ema_params
         if self.ema_decay > 0:
             d = self.ema_decay
             ema = tree_unflatten(ema, torch._foreach_add(
                 torch._foreach_mul(tree_leaves(ema), d),
                 torch._foreach_mul(tree_leaves(new_params), 1.0 - d)))
-        return TrainState(new_params, opt_state, state.step + 1, ema), aux
+        return TrainState(new_params, opt_state, state.step + 1, ema)
+
+    def gradient(self, state: TrainState, batch: dict,
+                 noise: Union[TrainNoise, Sequence[TrainNoise]]) -> tuple:
+        """(gradient leaves, their global norm, the loss terms) of one step
+        on ``batch`` (the global batch on every rank): with grad_accum K the
+        mean of the microbatches' gradients and terms; on the data axis
+        summed over the ranks, this rank's shards of it under FSDP.
+        ``noise`` holds one TrainNoise per microbatch
+        (:meth:`draw_step_noise`); with grad_accum 1 it may be the one
+        TrainNoise itself."""
+        k = self.grad_accum
+        noise = [noise] if isinstance(noise, TrainNoise) else list(noise)
+        assert len(noise) == k, (len(noise), k)
+        if self.mesh is not None:
+            self.comm_s = 0.0
+            params = self.gather(state.params)
+            micros = self._local(batch, noise)
+        elif k == 1:
+            params, micros = state.params, [(batch, noise[0], None)]
+        else:
+            params = state.params
+            batch = pad_batch_to_multiple(batch, k)
+            m = batch["node_type"].shape[0] // k
+            micros = [({key: v[i * m:(i + 1) * m] for key, v in batch.items()}, nz, None)
+                      for i, nz in enumerate(noise)]
+        grads, auxs = None, []
+        for mb, nz, counts in micros:
+            g, a = self._grads(params, mb, nz, counts)
+            grads = g if grads is None else torch._foreach_add(grads, g)
+            auxs.append(a)
+        if k > 1:
+            grads = torch._foreach_div(grads, float(k))
+            aux = {key: torch.stack([a[key] for a in auxs]).mean() for key in auxs[0]}
+        else:
+            aux = auxs[0]
+        if self.mesh is not None:
+            return self._reduce(grads, aux)
+        return grads, global_norm(grads), aux
+
+    def train_step(self, state: TrainState, batch: dict,
+                   noise: Union[TrainNoise, Sequence[TrainNoise]]):
+        """One optimizer step -> (new state, aux); aux holds the loss terms
+        and ``grad_norm``, the global norm before clipping (trainer.py:229).
+        ``noise`` as :meth:`gradient` takes it."""
+        grads, norm, aux = self.gradient(state, batch, noise)
+        aux["grad_norm"] = norm
+        new_params, opt_state = self.optimizer.update(
+            tree_unflatten(state.params, grads), state.opt_state, state.params,
+            g_norm=norm if self.fsdp else None)
+        return self._with_ema(state, new_params, opt_state), aux
 
     @torch.no_grad()
     def eval_step(self, params, batch: dict, noise: TrainNoise) -> dict:
-        """The loss terms on the whole batch (padded to a multiple of
-        grad_accum, as the JAX step pads it)."""
-        return self.loss_fn(params, pad_batch_to_multiple(batch, self.grad_accum), noise)[1]
+        """The loss terms on the whole (global) batch, padded to a multiple
+        of data x grad_accum as the JAX step pads it; on the data axis each
+        rank computes its rows' share and the shares are summed, so every
+        rank returns the global terms (``params``: this rank's shards under
+        FSDP)."""
+        if self.mesh is None:
+            return self.loss_fn(params, pad_batch_to_multiple(batch, self.grad_accum), noise)[1]
+        mb, nz, counts = self._local(batch, [noise])[0]
+        aux = self.loss_fn(self.gather(params), mb, nz, counts)[1]
+        return dict(zip(aux, self._collective(all_reduce_sum, list(aux.values()))))
 
     def scheduler_step(self, state: TrainState, val_metric: float) -> TrainState:
         """The host-side learning-rate update between steps."""
@@ -179,27 +355,61 @@ class Trainer:
 
     def init_from_params(self, params: Any, step: int = 0, ema_params: Any = None) -> TrainState:
         """A state with a fresh optimizer; EMA seeded from a copy of the
-        params unless given (trainer.py:327-333)."""
+        params unless given (trainer.py:327-333). On the data axis every
+        rank takes rank 0's params and EMA (one broadcast; a rank whose own
+        differed raises on every rank), sharded under FSDP."""
         ema = None
         if self.ema_decay > 0:
             ema = _copy(params) if ema_params is None else ema_params
+        if self.mesh is not None:
+            if ema is None:
+                (params,), equal = broadcast_leaves((params,))
+            else:
+                (params, ema), equal = broadcast_leaves((params, ema))
+            differ = torch.tensor([0.0 if equal else 1.0], device=self.mesh.comm_device())
+            dist.all_reduce(differ)
+            if float(differ[0]):
+                raise RuntimeError(f"the params differed on {int(differ[0])} rank(s) before "
+                                   "the broadcast from rank 0")
+            if self.fsdp:
+                self.places = [fsdp_placement(tuple(x.shape), self.world)
+                               for x in tree_leaves(params)]
+                params, ema = self.shard(params), self.shard(ema)
         return TrainState(params, self.optimizer.init(params), int(step), ema)
+
+    def gathered(self, state: TrainState) -> TrainState:
+        """The state with whole leaves (a collective under FSDP: every rank
+        calls it); the state itself otherwise."""
+        if not self.fsdp:
+            return state
+        opt = state.opt_state
+        return TrainState(self.gather(state.params),
+                          OptState(opt.count, self.gather(opt.mu), self.gather(opt.nu), opt.lr),
+                          state.step, self.gather(state.ema_params))
 
     def load_checkpoint(self, path: str, device: "str | torch.device") -> TrainState:
         """Trainer.load_checkpoint (trainer.py:318-350): a distribution
         checkpoint (``opt_state`` None, no port optimizer under ``extra``)
         starts a fresh optimizer; a checkpoint the port wrote resumes its
         moments and learning rate."""
-        blob = load_checkpoint_numpy(path)
+        if checkpoint_sharded.is_sharded_checkpoint(path):
+            blob = checkpoint_sharded.load_checkpoint_sharded(path)
+            state, saved = blob["state"], None
+            if state.get("opt_state") is not None:
+                saved = {k: state["opt_state"][k] for k in ("count", "mu", "nu", "lr")}
+            blob = dict(blob, params=state["params"], ema_params=state.get("ema_params"),
+                        step=int(state["step"]))
+        else:
+            blob = load_checkpoint_numpy(path)
+            saved = (blob.get("extra") or {}).get("optimizer")
         params = params_to_torch(blob["params"], device)
         ema = blob.get("ema_params")
         ema = params_to_torch(ema, device) if ema is not None else None
         state = self.init_from_params(params, blob.get("step", 0) or 0, ema)
-        saved = (blob.get("extra") or {}).get("optimizer")
         if saved is not None:
             state.opt_state.count = int(saved["count"])
-            state.opt_state.mu = params_to_torch(saved["mu"], device)
-            state.opt_state.nu = params_to_torch(saved["nu"], device)
+            state.opt_state.mu = self.shard(params_to_torch(saved["mu"], device))
+            state.opt_state.nu = self.shard(params_to_torch(saved["nu"], device))
             state.opt_state.lr = float(saved["lr"])
         if blob.get("scheduler") is not None:
             self.scheduler.load_state_dict(blob["scheduler"])
@@ -207,8 +417,43 @@ class Trainer:
 
     def save_checkpoint(self, path: str, state: TrainState, config: Any,
                         extra: Optional[dict] = None) -> None:
-        save_checkpoint(path, state, config, scheduler=self.scheduler, extra=extra)
+        """The pickle checkpoint, written by rank 0 from the whole state
+        (every rank calls it: under FSDP the leaves are gathered)."""
+        state = self.gathered(state)
+        if self.mesh is None or self.mesh.rank == 0:
+            save_checkpoint(path, state, config, scheduler=self.scheduler, extra=extra)
 
+    def save_checkpoint_sharded(self, path: str, state: TrainState, config: Any,
+                                extra: Optional[dict] = None) -> None:
+        """A sharded checkpoint directory (checkpoint_sharded.py): each rank
+        writes its own shards, rank 0 the replicated leaves and meta.pkl
+        (every rank calls it)."""
+        rank = self.mesh.rank if self.mesh is not None else 0
+        checkpoint_sharded.save_checkpoint_sharded(
+            path, self.state_entries(state), rank=rank, world=self.world,
+            config=config, scheduler=self.scheduler, extra=extra)
+
+    def state_entries(self, state: TrainState) -> list:
+        """(key path, this rank's array, Placement) per leaf of ``state``,
+        in the order of JAX's TrainState (params, opt_state, step, EMA;
+        dict keys sorted), so that params leaf i is JAX's leaf i."""
+        places = self.places or [fsdp_placement(tuple(x.shape), 1)
+                                 for x in tree_leaves(state.params)]
+        rep = fsdp_placement((), 1)
+        opt = state.opt_state
+
+        def entries(prefix: tuple, tree: Any) -> list:
+            return [(prefix + path, x, p) for (path, x), p in
+                    zip(checkpoint_sharded.key_paths(tree), places)]
+
+        out = entries(("params",), state.params)
+        out.append((("opt_state", "count"), np.asarray(opt.count, np.int64), rep))
+        out += entries(("opt_state", "mu"), opt.mu) + entries(("opt_state", "nu"), opt.nu)
+        out.append((("opt_state", "lr"), np.asarray(opt.lr, np.float64), rep))
+        out.append((("step",), np.asarray(state.step, np.int32), rep))
+        if state.ema_params is not None:
+            out += entries(("ema_params",), state.ema_params)
+        return out
 
 def checkpoint_blob(state: TrainState, config: Any, scheduler=None,
                     extra: Optional[dict] = None) -> dict:

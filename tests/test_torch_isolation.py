@@ -13,8 +13,10 @@ a reference state dict converts back to the demo checkpoint's params; the
 model variants run: one training step of a MoE denoiser (the demo widths
 with train/settings.py's expert bank), one reverse step of the continuous
 categorical space, guided, and one forward of an ungated denoiser, with
-utils/flops.py's count beside it; all in a fresh interpreter with those
-modules blocked."""
+utils/flops.py's count beside it; and the data axis: the train CLI with
+parallel.num_devices 2 and FSDP starts two gloo processes, which take a
+step and write a sharded checkpoint, read back here; all in a fresh
+interpreter with those modules blocked."""
 import json
 import os
 import subprocess
@@ -229,6 +231,25 @@ with torch.no_grad():
     counted = counted_flops(ungated.forward, uparams, state.h_node, state.pos, state.h_halfedge,
                             t, node_mask)
 assert counted > denoiser_forward_flops(b, n, 128, 32, 4, use_gate=False) > 0
+# the data axis: the train CLI with parallel.num_devices 2 starts two gloo
+# processes (FSDP, a sharded checkpoint), read back here
+from moldiff_tpu_torch.train import checkpoint_sharded
+from moldiff_tpu_torch.train.settings import TRAIN_V2_CONT_FSDP2
+work = tempfile.mkdtemp()
+try:
+    cfg = copy.deepcopy(TRAIN_V2_CONT_FSDP2)
+    cfg["model"] = copy.deepcopy(ck["config"]["model"])
+    cfg["model"]["denoiser"]["dtype"] = "float32"
+    cfg["dataset"]["root"] = "./data/synthetic"
+    cfg["train"].update(batch_size=2, buckets=[16, 24, 32], val_freq=1, val_batches=1)
+    out = train_cli.run(cfg, device="cpu", logdir=os.path.join(work, "logs"), max_iters=1,
+                        corpus_mols=10, log=lambda m: None)
+    assert len(out["ranks"]) == 2 and out["ranks"][0]["steps"][0]["loss"] == \
+        out["ranks"][1]["steps"][0]["loss"], out["ranks"]
+    st = checkpoint_sharded.load_checkpoint_sharded(out["checkpoints"][0])["state"]
+    assert int(st["step"]) == 1 and "denoiser" in st["params"]
+finally:
+    shutil.rmtree(work)
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print(json.dumps({"modules": names, "settings": chip_smoke.SAMPLE_SETTINGS,
@@ -258,7 +279,10 @@ def test_port_runs_without_jax_yaml_pandas():
                  "moldiff_tpu_torch.utils.profiling", "moldiff_tpu_torch.utils.convert",
                  "moldiff_tpu_torch.utils.strip_checkpoint",
                  "moldiff_tpu_torch.train.supervisor", "moldiff_tpu_torch.models.moe",
-                 "moldiff_tpu_torch.utils.flops"):
+                 "moldiff_tpu_torch.utils.flops", "moldiff_tpu_torch.parallel",
+                 "moldiff_tpu_torch.parallel.mesh", "moldiff_tpu_torch.parallel.multihost",
+                 "moldiff_tpu_torch.parallel.launch",
+                 "moldiff_tpu_torch.train.checkpoint_sharded"):
         assert name in out["modules"]
     # chip_smoke's sample settings are the committed YAML config's
     with open(os.path.join(REPO, "configs/sample/sample_flagship_v2.yml")) as f:

@@ -276,6 +276,22 @@ def test_variant_settings_are_their_yaml_plus_one_override(name, path, section, 
     assert getattr(settings, name) == want
 
 
+@pytest.mark.parametrize("name,sections", [
+    ("TRAIN_V2_CONT_DP2", {"parallel": {"num_devices": 2}}),
+    ("TRAIN_V2_CONT_FSDP2", {"parallel": {"num_devices": 2, "fsdp": True},
+                             "train": {"ckpt_sharded": True}}),
+])
+def test_parallel_settings_are_their_yaml_plus_overrides(name, sections):
+    """The data-axis settings chip_smoke.py's phase 22 runs:
+    train_v2_cont.yml with its parallel section (and train.ckpt_sharded)
+    overridden, the rest untouched."""
+    with open("configs/train/train_v2_cont.yml") as f:
+        want = yaml.safe_load(f)
+    for section, values in sections.items():
+        want[section].update(values)
+    assert getattr(settings, name) == want
+
+
 def test_train_gates_are_the_committed_configs():
     """chip_smoke.py's --train-gate names resolve to the settings dicts of
     the configs they train (held to their YAML files above), and its JAX

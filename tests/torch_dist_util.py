@@ -1,0 +1,165 @@
+"""Workers of the multi-process tests of moldiff_tpu_torch's data axis: each
+rank is a process started by moldiff_tpu_torch.parallel.launch.spawn (gloo
+on the CPU, a FileStore rendezvous). This module imports neither JAX nor
+the JAX package: the spawned interpreters import it."""
+import copy
+
+import numpy as np
+import torch
+
+from moldiff_tpu_torch.models.bond_predictor import BondPredictor
+from moldiff_tpu_torch.models.moldiff import MolDiff
+from moldiff_tpu_torch.parallel.mesh import Mesh, initialize_distributed, shutdown_distributed
+from moldiff_tpu_torch.train.trainer import Trainer
+from moldiff_tpu_torch.utils.checkpoint import params_to_torch
+from moldiff_tpu_torch.utils.tree import tree_leaves, tree_map
+
+
+def _np(tree):
+    return None if tree is None else tree_map(lambda x: x.detach().cpu().numpy().copy(), tree)
+
+
+def make_model(kind: str, cfg: dict, kn: int, ke: int):
+    cls = MolDiff if kind == "moldiff" else BondPredictor
+    return cls(copy.deepcopy(cfg), kn, ke, device="cpu")
+
+
+def start_state(trainer: Trainer, state: dict):
+    """A trainer's state from numpy: params, step, adam count, moments, EMA."""
+    st = trainer.init_from_params(params_to_torch(state["params"], "cpu"), state["step"],
+                                  params_to_torch(state["ema"], "cpu")
+                                  if state.get("ema") is not None else None)
+    st.opt_state.count = state["count"]
+    if state.get("mu") is not None:
+        st.opt_state.mu = trainer.shard(params_to_torch(state["mu"], "cpu"))
+    if state.get("nu") is not None:
+        st.opt_state.nu = trainer.shard(params_to_torch(state["nu"], "cpu"))
+    return st
+
+
+def whole(trainer: Trainer, st) -> dict:
+    """The whole (gathered) state as numpy."""
+    full = trainer.gathered(st)
+    return {"params": _np(full.params), "ema": _np(full.ema_params),
+            "mu": _np(full.opt_state.mu), "nu": _np(full.opt_state.nu),
+            "count": full.opt_state.count, "step": full.step}
+
+
+def run_steps(trainer: Trainer, st, steps: list) -> tuple:
+    """(state, [aux as floats per step], [whole state per step])."""
+    auxs, states = [], []
+    for batch, noise in steps:
+        st, aux = trainer.train_step(st, batch, noise)
+        auxs.append({k: float(v) for k, v in aux.items()})
+        states.append(whole(trainer, st))
+    return st, auxs, states
+
+
+def train_worker(rank: int, world: int, init: str, kind: str, model_cfg: dict, kn: int,
+                 ke: int, train_cfg: dict, state: dict, steps: list, eval_batch=None,
+                 fsdp_modes=(False,), ckpt_dir=None):
+    """Each mode of ``fsdp_modes``: the trainer at world ``world`` from
+    ``state`` through ``steps`` ((global batch, noise) pairs) -> per mode
+    the loss terms and whole state after each step, the shard shapes of
+    params, moments and EMA, and (``eval_batch``: (batch, noise)) the eval
+    terms on the final params. With ``ckpt_dir`` (FSDP mode) a sharded
+    checkpoint is written before the last step, reloaded by a new trainer
+    and that step taken again."""
+    torch.set_num_threads(1)
+    initialize_distributed(init, world, rank, backend="gloo")
+    try:
+        mesh = Mesh(data=world, backend="gloo").at(rank, "cpu")
+        out = {}
+        for fsdp in fsdp_modes:
+            trainer = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh,
+                              fsdp=fsdp)
+            st = start_state(trainer, state)
+            rec = {}
+            if ckpt_dir is not None and fsdp:
+                st, rec["aux"], rec["states"] = run_steps(trainer, st, steps[:-1])
+                trainer.save_checkpoint_sharded(ckpt_dir, st, {"model": model_cfg})
+                last = run_steps(trainer, st, steps[-1:])
+                back = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh,
+                               fsdp=fsdp)
+                resumed = back.load_checkpoint(ckpt_dir, "cpu")
+                again = run_steps(back, resumed, steps[-1:])
+                rec["aux"] += last[1]
+                rec["states"] += last[2]
+                rec["resumed"] = {"aux": again[1], "states": again[2], "step": resumed.step,
+                                  "count": resumed.opt_state.count}
+                st = last[0]
+            else:
+                st, rec["aux"], rec["states"] = run_steps(trainer, st, steps)
+            rec["shapes"] = {name: [tuple(x.shape) for x in tree_leaves(tree)]
+                             for name, tree in (("params", st.params),
+                                                ("mu", st.opt_state.mu),
+                                                ("ema", st.ema_params)) if tree is not None}
+            if eval_batch is not None:
+                aux = trainer.eval_step(st.params, *eval_batch)
+                rec["eval"] = {k: float(v) for k, v in aux.items()}
+            out[fsdp] = rec
+        return out
+    finally:
+        shutdown_distributed()
+
+
+def broadcast_worker(rank: int, world: int, init: str, kind: str, model_cfg: dict, kn: int,
+                     ke: int, train_cfg: dict, params: dict, perturb: bool) -> str:
+    """init_from_params with rank 1's params perturbed (``perturb``) or
+    not -> "ok" and rank 0's params' first leaf sum, or the error."""
+    torch.set_num_threads(1)
+    initialize_distributed(init, world, rank, backend="gloo")
+    try:
+        mesh = Mesh(data=world, backend="gloo").at(rank, "cpu")
+        trainer = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh)
+        p = params_to_torch(params, "cpu")
+        if perturb and rank == 1:
+            p = tree_map(lambda x: x + 1e-3, p)
+        try:
+            st = trainer.init_from_params(p)
+        except RuntimeError as e:
+            return f"error: {e}"
+        return f"ok {float(tree_leaves(st.params)[0].sum())!r}"
+    finally:
+        shutdown_distributed()
+
+
+def save_worker(rank: int, world: int, init: str, entries_by_rank: list, path: str,
+                meta: dict) -> None:
+    """checkpoint_sharded.save_checkpoint_sharded of this rank's entries."""
+    from moldiff_tpu_torch.train import checkpoint_sharded
+
+    initialize_distributed(init, world, rank, backend="gloo")
+    try:
+        checkpoint_sharded.save_checkpoint_sharded(path, entries_by_rank[rank], rank=rank,
+                                                   world=world, **meta)
+    finally:
+        shutdown_distributed()
+
+
+def np_batch_to_torch(batch: dict) -> dict:
+    out = {k: torch.tensor(np.asarray(v)) for k, v in batch.items()}
+    out["node_type"] = out["node_type"].long()
+    out["halfedge_type"] = out["halfedge_type"].long()
+    return out
+
+
+def ckpt_worker(rank: int, world: int, init: str, kind: str, model_cfg: dict, kn: int, ke: int,
+                train_cfg: dict, state: dict, path: str, fsdp: bool) -> dict:
+    """A trainer at world ``world`` (FSDP or not) from ``state`` writes a
+    sharded checkpoint to ``path`` -> the whole state and its shard shapes."""
+    torch.set_num_threads(1)
+    initialize_distributed(init, world, rank, backend="gloo")
+    try:
+        mesh = Mesh(data=world, backend="gloo").at(rank, "cpu")
+        trainer = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh, fsdp=fsdp)
+        st = start_state(trainer, state)
+        st.opt_state.lr = 2.5e-5
+        trainer.scheduler.step(1.0, 2.5e-5)
+        trainer.save_checkpoint_sharded(path, st, {"model": model_cfg})
+        out = whole(trainer, st)
+        out["lr"] = st.opt_state.lr
+        out["scheduler"] = trainer.scheduler.state_dict()
+        return out
+    finally:
+        shutdown_distributed()
