@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (moldiff_tpu_torch) on one NVIDIA card.
 
-  python3 chip_smoke.py                 # the smoke run (one card, < 10 min)
+  python3 chip_smoke.py                 # the smoke run (one card, about 11 min)
   python3 chip_smoke.py --num-mols 192 --batch-size 128 --budget-s 700
                                         # a longer sampling phase, for the success rate
   python3 chip_smoke.py --num-mols 8 --guided-num-mols 1000 --guided-batch-size 128 \
@@ -198,7 +198,27 @@ Phases, each asserting and none catching a failure:
      to the gathered global counts, the eval CLI on the merged directory.
      It prints the step seconds at world sizes 1 and 2, the collectives'
      ms a step, the checkpoint's bytes and seconds and the card's name
-     and power limit.
+     and power limit;
+ 23. the pipe and expert axes (about 3 min), both ranks on the one card
+     over gloo: (a) the train CLI's run() with TRAIN_V2_CONT_PP2 from
+     flagship_v2 (its 6 blocks as 2 stages of 3, 2 microbatches of 64),
+     4 steps at batch 128, then the same 4 steps at world size 1: the loss
+     of step 1 within AXIS_LOSS_RTOL_1, of steps 2-4 within AXIS_LOSS_RTOL,
+     each rank's launches a step phase 10's, the params after step 1 each
+     leaf within 2x its one-ulp witness (world 1's step 1 recomputed from
+     its gradient with one bf16 ulp of the leaf's largest element added to
+     every element); (b) one PP2 step with edge_full and one with
+     fuse_block against world 1's; (c) the pipeline of one stage through
+     an NCCL group of one rank; (d) MOE_V2_EP2 (the expert banks over 2
+     ranks) and MOE_V2_DP2 (MoE on 2 data ranks) from flagship_v2
+     upcycled to MOE_V2 (every expert its node MLP, the router from
+     MOE_V2's seed), 4 steps each, replaying the expert choices of
+     MOE_V2's 4 steps at world size 1 (recorded first), held to them as in
+     (a); the free choices that differ from the replayed ones, and the
+     routing flips of their weights after each step against world 1's,
+     printed. It prints the step seconds, the pipe's p2p and broadcast ms
+     and the collectives' ms a step, the peak memory a rank and the card's
+     name and power limit.
 --gate NAME runs one sampling gate instead of the phases (after 1 and 2):
 the settings of a committed YAML with named overrides (GATES; a CPU test
 holds each equal to its YAML plus its overrides): s100, ddim_s100,
@@ -2700,6 +2720,459 @@ def check_data_axis(corpus: dict, results: dict, device) -> list:
     return rank_counts + [counts1]
 
 
+# phase 23: the pipe and expert axes, both ranks on the one card over gloo.
+# TRAIN_V2_CONT_PP2 (flagship_v2's 6 blocks as 2 stages of 3, 2
+# microbatches) for AXIS_STEPS steps, then one step each with edge_full and
+# with fuse_block; MOE_V2_EP2 (the expert banks over 2 ranks) and MOE_V2_DP2
+# (MoE on 2 data ranks) from flagship_v2 upcycled to MOE_V2 (upcycle_moe:
+# a network from a seed drifts apart from one ulp within a few steps, a
+# trained one does not) for AXIS_STEPS steps, replaying
+# the expert choices of MOE_V2's run at world size 1; each held against the
+# same steps at world size 1 in this call (the same loader batches and
+# noise): the loss of step 1 within AXIS_LOSS_RTOL_1, of the
+# later steps within AXIS_LOSS_RTOL, and PP2's params after step 1 each leaf
+# within TRAIN_WITNESS_RATIO x its one-ulp witness or one float32 ulp of the
+# leaf's largest value. The witness is world 1's step 1 from its gradient
+# with one bf16 ulp of each leaf's largest gradient element added, a random
+# sign, to every element (over TRAIN_WITNESS_SEEDS): the block kernels return
+# their weight gradients in bf16, and the pipe adds two microbatches' bf16
+# gradients where world 1 rounds one sum, so an element whose two halves
+# nearly cancel can change sign, and Adam's first step there moves by up to
+# twice the learning rate. The pipeline also runs at world size 1 through
+# NCCL (one stage, 2 microbatches).
+AXIS_STEPS = 4
+AXIS_LOSS_RTOL_1 = 1e-5
+AXIS_LOSS_RTOL = 1e-4
+
+
+def _axis_run(settings: dict, corpus: dict, device, name: str, resume: "str | None",
+              steps: int, backend: "str | None" = None, check_replicas: bool = False,
+              build=None, **build_kw) -> dict:
+    """The train CLI's run() with ``settings`` for ``steps`` steps, from
+    ``resume`` (--reset_ema, --reset_optim) or from train.seed, a checkpoint
+    after each step. With ``build`` the same ranks (cli.run_ranks) run
+    ``build`` (_pinned_run_local, _routes_run_local) in place of the CLI's
+    own rank body, given ``build_kw``."""
+    from moldiff_tpu_torch.train import cli as train_cli
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
+
+    start = int(load_checkpoint_numpy(resume)["step"]) if resume else 0
+    kw = dict(resume=resume, logdir=os.path.join("outputs_torch", "chip_smoke"), name=name,
+              max_iters=start + steps, reset_ema=bool(resume), reset_optim=bool(resume),
+              subsets=corpus, check_replicas=check_replicas)
+    settings = copy_settings(settings, ckpt_freq=1)
+    log = lambda m: say(f"  {m}")
+    if build is None:
+        return train_cli.run(settings, device=device, log=log, backend=backend, **kw)
+    return train_cli.run_ranks(build, settings, device, backend, log, override_lr=None,
+                               profile_at=0, corpus_mols=train_cli.DEFAULT_CORPUS_MOLS,
+                               config_path=None, **kw, **build_kw)
+
+
+def _summary(out: dict) -> dict:
+    """A rank's run summary without its state and trainer (they stay in the
+    rank's process)."""
+    return {k: v for k, v in out.items() if k not in ("state", "trainer")}
+
+
+def _routes_run_local(config: dict, device, mesh, log, flags: tuple, **kwargs) -> dict:
+    """One rank of cli.run_ranks: the train CLI's own rank body
+    (cli._run_local) once per flag of ``flags``, set on model.denoiser, in
+    one process group -> {"routes": {flag: its summary}}."""
+    from moldiff_tpu_torch.train import cli as train_cli
+
+    return {"routes": {flag: _summary(train_cli._run_local(
+        with_denoiser(config, **{flag: True}), device, mesh, log,
+        **dict(kwargs, name=f"{kwargs['name']}_{flag}"))) for flag in flags}}
+
+
+class RouteReplay:
+    """moe.choose replaced by a replay of recorded expert choices (a
+    RoutePins.recorded of world 1's run: one entry per MoE call, each the
+    choices of the whole batch's tokens), this data rank's rows of each, in
+    order; each call also counts the tokens (real and padded) whose free
+    choice differs, per choice."""
+
+    def __init__(self, recorded: list, part: int):
+        self.recorded, self.part = recorded, part
+        self.flips = []
+
+    def __enter__(self):
+        from moldiff_tpu_torch.models import moe
+
+        self.moe, self.choose_free = moe, moe.choose
+        moe.choose = self.choose
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.moe.choose = self.choose_free
+
+    def choose(self, probs, top_k: int) -> list:
+        free = self.choose_free(probs, top_k)
+        s = probs.shape[0]
+        pinned = [c[self.part * s:(self.part + 1) * s].to(probs.device)
+                  for c in self.recorded[len(self.flips)]]
+        self.flips.append([int((f != p).sum()) for f, p in zip(free, pinned)])
+        return pinned
+
+
+def _pinned_run_local(config: dict, device, mesh, log, pins: str, **kwargs) -> dict:
+    """One rank of cli.run_ranks: the train CLI's own rank body (cli._run_local)
+    with world 1's expert choices replayed (RouteReplay) -> its summary and
+    ``route_flips``, the free choices that differed, per MoE call."""
+    import torch
+
+    from moldiff_tpu_torch.train import cli as train_cli
+
+    recorded = torch.load(pins)
+    with RouteReplay(recorded, mesh.data_rank if mesh is not None else 0) as replay:
+        out = _summary(train_cli._run_local(config, device, mesh, log, **kwargs))
+    out["route_flips"] = replay.flips
+    return out
+
+
+def _axis_losses(name: str, out: dict, ref: dict) -> list:
+    """Each step's loss of a run on a mesh against world 1's: step 1 within
+    AXIS_LOSS_RTOL_1, the others within AXIS_LOSS_RTOL -> the relative
+    differences."""
+    rels = []
+    assert len(out["steps"]) == len(ref["steps"]), (name, len(out["steps"]), len(ref["steps"]))
+    for k, (a, b) in enumerate(zip(out["steps"], ref["steps"])):
+        assert a["it"] == b["it"] and a["n"] == b["n"], (name, a["it"], b["it"])
+        rels.append(abs(a["loss"] - b["loss"]) / abs(b["loss"]))
+        say(f"  {name} step {a['it']} N={a['n']}: loss {a['loss']:.7f} world 1 {b['loss']:.7f} "
+            f"(rel {rels[-1]:.2e}); s/step {a['s']:.4f} world 1 {b['s']:.4f}; collectives "
+            f"{1e3 * a['comm_s']:.2f} ms" + (f", pipe p2p {1e3 * a['pipe']['p2p_s']:.2f} ms "
+                                             f"({a['pipe']['p2p_bytes']} bytes) broadcast "
+                                             f"{1e3 * a['pipe']['broadcast_s']:.2f} ms"
+                                             if "pipe" in a else ""))
+        assert rels[-1] <= (AXIS_LOSS_RTOL_1 if k == 0 else AXIS_LOSS_RTOL), (name, k, rels)
+    return rels
+
+
+def _axis_launches(name: str, out: dict, per_step: dict) -> list:
+    """Every rank's launches in each step equal ``per_step`` -> each rank's
+    counts over the run."""
+    counts = []
+    for r, rank in enumerate(out["ranks"]):
+        for st in rank["steps"]:
+            assert st["launches"] == per_step, (name, r, st["it"], st["launches"], per_step)
+            check_step_terms(st, TRAIN_SETTINGS)
+        counts.append({k: v * len(rank["steps"]) for k, v in per_step.items()})
+    return counts
+
+
+def _mean_later(out: dict, key) -> float:
+    steps = out["steps"][1:] or out["steps"]
+    return statistics.mean(key(st) for st in steps)
+
+
+def step1_witness(settings: dict, corpus: dict, device) -> tuple:
+    """World 1's params after the first step of run() from flagship_v2 (the
+    loader's first batch and the run's first noise, drawn here as fit()
+    draws them), and per TRAIN_WITNESS_SEEDS the same step from the
+    gradient with one bf16 ulp of each leaf's largest element added, a
+    random sign, to every element."""
+    import torch
+
+    from moldiff_tpu_torch.data.loader import BucketedLoader
+    from moldiff_tpu_torch.train.optim import tree_leaves, tree_unflatten
+    from moldiff_tpu_torch.train.trainer import Trainer, batch_to_device
+
+    tcfg = settings["train"]
+    seed = int(tcfg["seed"])
+    trainer = Trainer(train_model(settings, device), tcfg)
+    state = trainer.load_checkpoint(CHECKPOINT, device)
+    loader = iter(BucketedLoader(corpus["train"], featurizer(settings), int(tcfg["batch_size"]),
+                                 tuple(tcfg["buckets"]), shuffle=True, seed=seed, infinite=True))
+    batch = batch_to_device(next(loader), device)
+    noise = trainer.draw_step_noise(batch, torch.Generator(device=device).manual_seed(seed))
+    grads, _, _ = trainer.gradient(state, batch, noise)
+
+    def step(g):
+        p, _ = trainer.optimizer.update(tree_unflatten(state.params, list(g)),
+                                        trainer.optimizer.init(state.params), state.params)
+        return [x.cpu() for x in tree_leaves(p)]
+
+    def bumped(g, gen):
+        ulp = torch.exp2(torch.floor(torch.log2(g.abs().max().clamp(min=1e-30))) - 7)
+        sign = torch.where(torch.rand(g.shape, generator=gen, device=g.device) < 0.5, -1.0, 1.0)
+        return g + sign * ulp
+
+    witness = []
+    for s in TRAIN_WITNESS_SEEDS:
+        gen = torch.Generator(device=device).manual_seed(s)
+        witness.append(step([bumped(g, gen) for g in grads]))
+    return step(grads), witness
+
+
+def _params_after(out: dict, k: int = 0) -> list:
+    """The params of a run's checkpoint after its step k + 1, as tensors."""
+    import torch
+
+    from moldiff_tpu_torch.train.optim import tree_leaves
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
+
+    return [torch.from_numpy(x) for x in
+            tree_leaves(load_checkpoint_numpy(out["checkpoints"][k])["params"])]
+
+
+def check_step1_witness(name: str, got: list, want: list, witness: list) -> dict:
+    """Each leaf of ``got`` (a mesh run's params after step 1) within
+    TRAIN_WITNESS_RATIO x the witness's largest move of that leaf, or one
+    float32 ulp of the leaf's largest value, from ``want`` (world 1's)."""
+    moved, over, far = 0, [], []
+    for j, (a, w) in enumerate(zip(got, want)):
+        d = float((a - w).abs().max())
+        d_w = max(float((x[j] - w).abs().max()) for x in witness)
+        ulp = float(w.abs().max()) * 2.0 ** -23
+        moved += d > 0
+        over.append(d / max(d_w, ulp))
+        if d > TRAIN_WITNESS_RATIO * d_w + ulp:
+            far.append((j, d, d_w, ulp))
+    top = max(range(len(over)), key=over.__getitem__)
+    say(f"  {name} params after step 1 against world 1's: {moved} of {len(got)} leaves differ; "
+        f"the largest leaf difference {max(over):.3g} x its witness (or ulp), leaf {top}; "
+        f"elements that differ {sum(int((a != w).sum()) for a, w in zip(got, want))} of "
+        f"{sum(w.numel() for w in want)}")
+    assert not far, (name, far)
+    return {"leaves_differ": moved, "leaves": len(got), "max_over_witness": max(over)}
+
+
+def moe_step_flips(runs: dict, ref: dict, device) -> dict:
+    """Per run (name -> its summary) and step: the real tokens (first and
+    second choice, summed over the blocks) that choose another expert in
+    MolDiff.forward of phase 4's inputs with the run's params after that
+    step than with world 1's (``ref``), each forward routing freely."""
+    import torch
+
+    from moldiff_tpu_torch.utils.checkpoint import params_to_torch, load_checkpoint_numpy
+
+    model = train_model(MOE_V2, device)
+    args = forward_inputs(model, device)
+    real = args[-1].reshape(-1) > 0
+    blocks = MOE_V2["model"]["denoiser"]["num_blocks"]
+
+    def choices(out, k):
+        params = params_to_torch(load_checkpoint_numpy(out["checkpoints"][k])["params"], device)
+        with RoutePins(blocks) as pins, torch.no_grad():
+            model.forward(params, *args)
+        return pins.recorded
+
+    flips = {name: [] for name in runs}
+    for k in range(len(ref["checkpoints"])):
+        want = choices(ref, k)
+        for name, out in runs.items():
+            got = choices(out, k)
+            flips[name].append([sum(int(((x[j] != y[j]) & real).sum()) for x, y in zip(got, want))
+                                for j in range(len(want[0]))])
+    flips["real_tokens_x_blocks"] = int(real.sum()) * blocks
+    return flips
+
+
+def upcycled_checkpoint(device) -> str:
+    """flagship_v2's params upcycled to MOE_V2's tree (upcycle_moe: every
+    expert its node MLP, the router MOE_V2's from its seed), written as a
+    step-0 checkpoint -> its path."""
+    import torch
+
+    from moldiff_tpu_torch.train.trainer import Trainer
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint
+
+    model = train_model(MOE_V2, device)
+    seeded = model.init_params(torch.Generator(device=device).manual_seed(
+        int(MOE_V2["train"]["seed"])))
+    trainer = Trainer(model, MOE_V2["train"])
+    state = trainer.init_from_params(upcycle_moe(load_checkpoint(CHECKPOINT, device)["params"],
+                                                 seeded))
+    path = os.path.join("outputs_torch", "chip_smoke", "moe_v2_upcycled.ckpt")
+    trainer.save_checkpoint(path, state, MOE_V2)
+    return path
+
+
+def _one_rank_pipe_step(rank: int, world: int, init: str, settings: dict, checkpoint: str,
+                        batch: dict, noise, device: str, backend: str) -> dict:
+    """Phase 23 (c): one step from flagship_v2 with the denoiser as a
+    pipeline of one stage (2 microbatches) through a process group of one
+    rank (NCCL on the card) -> its loss terms and launches."""
+    import torch.distributed as dist
+
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.parallel.mesh import make_mesh_pipe, shutdown_distributed
+    from moldiff_tpu_torch.train.trainer import Trainer
+
+    device = _rank_device(device)
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    try:
+        mesh = make_mesh_pipe(1, 1, device, backend).at(rank, device)
+        model = train_model(settings, device)
+        trainer = Trainer(model, settings["train"], mesh=mesh)
+        model.pipeline_cfg = (mesh, settings["train"]["num_microbatches"])
+        state = trainer.load_checkpoint(checkpoint, device)
+        kernels.reset_launch_counts()
+        state, aux = trainer.train_step(state, _to(batch, device), _to(noise, device))
+        return {"aux": {k: float(v) for k, v in aux.items()},
+                "launches": dict(kernels.launch_counts)}
+    finally:
+        shutdown_distributed()
+
+
+def check_pipe_expert_axes(corpus: dict, results: dict, device) -> list:
+    """Phase 23: (a) TRAIN_V2_CONT_PP2 through the train CLI's run(), 2
+    ranks (the 2 stages) on the one card over gloo, AXIS_STEPS steps from
+    flagship_v2 at batch 128, and the same steps at world size 1: losses
+    (_axis_losses), every rank's launches a step phase 10's (3 blocks x 2
+    microbatches a stage), the params after step 1 within the one-ulp
+    witness; (b) one PP2 step each with edge_full and with fuse_block
+    against world 1's; (c) the pipeline of one stage through an NCCL group
+    of one rank against the world-1 step at B = DP_GRAD_BATCH; (d)
+    MOE_V2_EP2 and MOE_V2_DP2 from flagship_v2 upcycled to MOE_V2
+    (upcycled_checkpoint), AXIS_STEPS steps through
+    cli.run_ranks with world 1's expert choices replayed, against MOE_V2's
+    at world size 1 as in (a), launches a step phase 21's; the free choices
+    that differ from the replayed ones, and the routing flips of their
+    weights after each step against world 1's. -> the launch counts of the
+    runs (each rank's, and world 1's)."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.parallel import launch
+    from moldiff_tpu_torch.train.settings import MOE_V2_DP2, MOE_V2_EP2, TRAIN_V2_CONT_PP2
+    from moldiff_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    paths = []
+
+    def world_one(settings, name, resume, steps):
+        kernels.reset_launch_counts()
+        out = _axis_run(settings, corpus, device, name, resume, steps)
+        paths.append(dict(kernels.launch_counts))
+        return out
+
+    # (a) the pipe: 4 steps at PP2, then world 1
+    per_step = train_launches(TRAIN_SETTINGS, results)
+    t0 = time.time()
+    pp = _axis_run(TRAIN_V2_CONT_PP2, corpus, device, "pp2", CHECKPOINT, AXIS_STEPS,
+                   backend="gloo", check_replicas=True)
+    wall_pp = time.time() - t0
+    t0 = time.time()
+    pp1 = world_one(TRAIN_SETTINGS, "pp2_world1", CHECKPOINT, AXIS_STEPS)
+    wall_pp1 = time.time() - t0
+    paths += _axis_launches("PP2", pp, per_step)
+    for r, rank in enumerate(pp["ranks"]):
+        assert all(st["replicas_equal"] and st["pipe"]["p2p_bytes"] > 0 for st in rank["steps"]), r
+    rel_pp = _axis_losses("PP2", pp, pp1)
+    p1, witness = step1_witness(TRAIN_SETTINGS, corpus, device)
+    cli_p1 = _params_after(pp1)
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(cli_p1, p1))
+    say(f"  world 1's step 1 recomputed here: {same} of {len(p1)} leaves bit-equal to run()'s")
+    wit_pp = check_step1_witness("PP2", _params_after(pp), p1, witness)
+    check_step1_witness("world 1 (run() against its recomputation)", cli_p1, p1, witness)
+
+    # (b) one PP2 step with each route (both in one process group) beside
+    # world 1's
+    routes = {}
+    flags = ("edge_full", "fuse_block")
+    both = _axis_run(TRAIN_V2_CONT_PP2, corpus, device, "pp2", CHECKPOINT, 1, backend="gloo",
+                     build=_routes_run_local, flags=flags)
+    for flag in flags:
+        ref_settings = with_denoiser(TRAIN_SETTINGS, **{flag: True})
+        out = dict(both["routes"][flag], ranks=[r["routes"][flag] for r in both["ranks"]])
+        ref = world_one(ref_settings, f"pp2_{flag}_world1", CHECKPOINT, 1)
+        paths.extend(_axis_launches(f"PP2 {flag}", out, train_launches(ref_settings, results)))
+        routes[flag] = {"rel": _axis_losses(f"PP2 {flag}", out, ref)[0],
+                        "s": out["steps"][0]["s"], "world1_s": ref["steps"][0]["s"]}
+
+    # (c) the pipeline through NCCL at world size 1
+    batch = train_batch(corpus["train"], DP_GRAD_BATCH, 40, device)
+    ref = Trainer(train_model(TRAIN_SETTINGS, device), TRAIN_SETTINGS["train"])
+    noise = ref.draw_step_noise(batch, torch.Generator(device=device).manual_seed(23))
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    one = launch.spawn(_one_rank_pipe_step, 1,
+                       args=(TRAIN_V2_CONT_PP2, CHECKPOINT, _to(batch, "cpu"), _to(noise, "cpu"),
+                             str(device), backend), timeout_s=300)[0]
+    _, plain_aux = ref.train_step(ref.load_checkpoint(CHECKPOINT, device), batch, noise)
+    rel_one = abs(one["aux"]["loss"] - float(plain_aux["loss"])) / abs(float(plain_aux["loss"]))
+    assert rel_one <= AXIS_LOSS_RTOL_1, (one["aux"], float(plain_aux["loss"]))
+    assert one["launches"] == {k: 2 * v for k, v in per_step.items()}, one["launches"]
+    paths.append(one["launches"])
+    say(f"pipe (c): one stage, 2 microbatches, through a {backend} group of one rank: loss "
+        f"{one['aux']['loss']:.7f} against the world-1 step's {float(plain_aux['loss']):.7f} "
+        f"(rel {rel_one:.2e}), B={DP_GRAD_BATCH}")
+
+    # (d) MoE on the expert axis and on the data axis, from flagship_v2
+    # upcycled: world 1 first, its expert choices recorded, then EP2 and
+    # DP2 replaying them
+    # (the router's argmax is discontinuous: a one-ulp difference in a
+    # block's input can send a token to another expert), the free choices
+    # that differ counted
+    moe_step = train_launches(MOE_V2, results)
+    t0 = time.time()
+    moe_ckpt = upcycled_checkpoint(device)
+    with RoutePins(10 ** 9) as pins:
+        moe1 = world_one(MOE_V2, "moe_world1", moe_ckpt, AXIS_STEPS)
+    pins_path = os.path.join("outputs_torch", "chip_smoke", "moe_world1_routes.pt")
+    torch.save([[c.cpu() for c in entry] for entry in pins.recorded], pins_path)
+    ep = _axis_run(MOE_V2_EP2, corpus, device, "moe_ep2", moe_ckpt, AXIS_STEPS, backend="gloo",
+                   check_replicas=True, build=_pinned_run_local, pins=pins_path)
+    dp = _axis_run(MOE_V2_DP2, corpus, device, "moe_dp2", moe_ckpt, AXIS_STEPS, backend="gloo",
+                   check_replicas=True, build=_pinned_run_local, pins=pins_path)
+    wall_moe = time.time() - t0
+    paths += _axis_launches("MoE EP2", ep, moe_step) + _axis_launches("MoE DP2", dp, moe_step)
+    flips = {}
+    for name, out in (("EP2", ep), ("DP2", dp)):
+        for r, rank in enumerate(out["ranks"]):
+            assert all(st["replicas_equal"] for st in rank["steps"]), (name, r)
+            assert all(st["loss_moe"] > 0 for st in rank["steps"]), (name, r)
+            assert len(rank["route_flips"]) == len(pins.recorded), (name, r)
+        flips[name] = [sum(rank["route_flips"][k][j] for rank in out["ranks"]
+                           for k in range(len(pins.recorded)))
+                       for j in range(len(pins.recorded[0]))]
+    rel_ep = _axis_losses("MoE EP2", ep, moe1)
+    rel_dp = _axis_losses("MoE DP2", dp, moe1)
+    weights = moe_step_flips({"EP2": ep, "DP2": dp}, moe1, device)
+    flips["tokens_x_calls"] = sum(int(c[0].numel()) for c in pins.recorded)
+    say(f"MoE routing: the free choices (first, second) that differ from world 1's replayed "
+        f"ones over the runs' {flips['tokens_x_calls']} tokens x MoE calls (EP2 counts each "
+        f"token on both ranks): EP2 {flips['EP2']}, DP2 {flips['DP2']}; MolDiff.forward of "
+        f"phase 4's inputs with the weights after each step against world 1's, over "
+        f"{weights['real_tokens_x_blocks']} real tokens x blocks: EP2 {weights['EP2']}, "
+        f"DP2 {weights['DP2']}")
+    flips["weights"] = weights
+
+    peak = lambda out: max(st.get("peak_bytes", 0) for r in out["ranks"] for st in r["steps"])
+    summary = {
+        "pp2_s_per_step": _mean_later(pp, lambda st: st["s"]),
+        "world1_s_per_step": _mean_later(pp1, lambda st: st["s"]),
+        "pp2_collective_ms": 1e3 * _mean_later(pp, lambda st: st["comm_s"]),
+        "pp2_p2p_ms": 1e3 * _mean_later(pp, lambda st: st["pipe"]["p2p_s"]),
+        "pp2_broadcast_ms": 1e3 * _mean_later(pp, lambda st: st["pipe"]["broadcast_s"]),
+        "pp2_p2p_bytes": pp["steps"][-1]["pipe"]["p2p_bytes"],
+        "pp2_peak_gb": peak(pp) / 1e9, "pp2_loss_rel": rel_pp, "pp2_step1_params": wit_pp,
+        "pp2_routes": routes, "nccl_world1_loss_rel": rel_one,
+        "ep2_s_per_step": _mean_later(ep, lambda st: st["s"]),
+        "dp2_moe_s_per_step": _mean_later(dp, lambda st: st["s"]),
+        "moe_world1_s_per_step": _mean_later(moe1, lambda st: st["s"]),
+        "ep2_collective_ms": 1e3 * _mean_later(ep, lambda st: st["comm_s"]),
+        "dp2_moe_collective_ms": 1e3 * _mean_later(dp, lambda st: st["comm_s"]),
+        "ep2_peak_gb": peak(ep) / 1e9, "dp2_moe_peak_gb": peak(dp) / 1e9,
+        "ep2_loss_rel": rel_ep, "dp2_moe_loss_rel": rel_dp, "moe_flips": flips,
+        "walls_s": {"pp2": wall_pp, "pp2_world1": wall_pp1, "moe_three_runs": wall_moe},
+        "card": nvidia_smi()}
+    say(f"pipe (a): PP2 (gloo, one card) {summary['pp2_s_per_step']:.4f} s/step against world "
+        f"1's {summary['world1_s_per_step']:.4f} (steps 2-{AXIS_STEPS}), p2p "
+        f"{summary['pp2_p2p_ms']:.2f} ms, broadcast {summary['pp2_broadcast_ms']:.2f} ms, "
+        f"collectives {summary['pp2_collective_ms']:.2f} ms a step, peak "
+        f"{summary['pp2_peak_gb']:.2f} GB a rank")
+    say(f"expert (d): EP2 {summary['ep2_s_per_step']:.4f} s/step, MoE DP2 "
+        f"{summary['dp2_moe_s_per_step']:.4f}, world 1 {summary['moe_world1_s_per_step']:.4f}; "
+        f"collectives {summary['ep2_collective_ms']:.2f} / {summary['dp2_moe_collective_ms']:.2f}"
+        f" ms a step; peak {summary['ep2_peak_gb']:.2f} / {summary['dp2_moe_peak_gb']:.2f} GB")
+    say(f"phase 23 (pipe and expert axes): {time.time() - t_phase:.1f} s")
+    say(json.dumps({"pipe_expert_axes": summary}))
+    return paths
+
+
 def copy_settings(settings: dict, **train) -> dict:
     """A copy of ``settings`` with ``train`` set on its train section."""
     import copy
@@ -3015,7 +3488,7 @@ def main() -> None:
                          "settings as written, scored and held to the JAX package's scores")
     ap.add_argument("--gate-num-mols", type=int, default=1000)
     ap.add_argument("--gate-batch-size", type=int, default=128)
-    ap.add_argument("--budget-s", type=float, default=900.0,
+    ap.add_argument("--budget-s", type=float, default=1050.0,
                     help="wall-clock budget; the run is stopped with a traceback after it "
                          "(the default ends a hang inside a 1200 s call)")
     args = ap.parse_args()
@@ -3251,9 +3724,14 @@ def main() -> None:
     # sharded over 2 processes
     data_counts = check_data_axis(corpus, results, device)
 
+    # 23. the pipe and expert axes: GPipe over the stacked blocks, MoE's
+    # expert banks over 2 ranks and MoE on 2 data ranks (2 ranks on the one
+    # card over gloo), the pipeline through NCCL at world size 1
+    axis_counts = check_pipe_expert_axes(corpus, results, device)
+
     main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts,
                   b_counts, x_counts, a_counts, v_counts, r_counts, rr_counts, *variant_counts,
-                  *data_counts)
+                  *data_counts, *axis_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(c[name] for c in main_paths),

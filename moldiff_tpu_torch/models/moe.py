@@ -14,16 +14,81 @@ take no expert capacity); tokens over an expert's capacity are dropped
 float32 whatever the compute dtype. The parameter layout is JAX's: a
 bias-free router ``[din, E]`` and the experts' MLP leaves stacked on a
 leading expert axis.
+
+On a mesh (``cfg["comm"]``, a :class:`MoEComm` the trainer sets) the layer
+computes what JAX's GSPMD computes over the global tokens while each rank
+holds its data shard's rows:
+
+- the data axis: the capacity comes from the global token count; a token's
+  capacity position is its local running count plus those of the lower
+  data ranks, first choices ahead of every second choice (one all-gather
+  of each rank's per-expert counts per choice and of its real tokens); the
+  load-balance loss is returned as this rank's share of the global one
+  (the global first-choice shares f times this rank's sum of router
+  probabilities over the global real-token count), so that the shares
+  summed over the data ranks are JAX's loss and its gradient;
+- the expert axis: the tokens of a data shard are replicated over
+  ``expert``; this rank holds E / n_expert of the experts (the trainer's
+  shards, ``ep_param_sharding``) and runs them on their dispatch slots,
+  and the combine partials are summed over the expert group. The tokens
+  and gates enter the expert region through an identity whose backward
+  sums over the group, and the partials leave it through a sum whose
+  backward is the identity (Megatron's pair), so every rank's gradient of
+  the router and of every replicated leaf is the whole one.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..utils.tree import tree_map
 from .nn import init_linear, init_mlp, mlp
+
+
+@dataclass(frozen=True)
+class MoEComm:
+    """This rank's place for :func:`moe_mlp`: its data coordinate of
+    ``n_data`` and the data group, its expert coordinate of ``n_expert``
+    and the expert group (None: the whole world)."""
+    n_data: int = 1
+    data_rank: int = 0
+    data_group: Any = None
+    n_expert: int = 1
+    expert_rank: int = 0
+    expert_group: Any = None
+
+
+class _ToExperts(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.to(torch.float32).contiguous()
+        dist.all_reduce(out, group=ctx.group)
+        return out.to(g.dtype), None
+
+
+class _FromExperts(torch.autograd.Function):
+    """The sum over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def normalize_moe_cfg(moe) -> Optional[dict]:
@@ -86,6 +151,25 @@ def _expert_mlp(experts: dict, x: torch.Tensor) -> torch.Tensor:
     return mlp(tree_map(lambda w: w[:, None] if w.dim() == 2 else w, experts), x)
 
 
+def _global_counts(sels: List[torch.Tensor], mask: torch.Tensor,
+                   comm: Optional[MoEComm]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(the lower data ranks' per-expert counts [k, E], the global ones
+    [k, E], the global real-token count) of the choices ``sels``: zeros,
+    the local counts and the local count without a data axis."""
+    local = torch.cat([torch.stack([torch.sum(sel, dim=0) for sel in sels]).reshape(-1),
+                       torch.sum(mask).reshape(1)])
+    if comm is None or comm.n_data == 1:
+        every = local[None]
+        rank = 0
+    else:
+        parts = [torch.empty_like(local) for _ in range(comm.n_data)]
+        dist.all_gather(parts, local, group=comm.data_group)
+        every, rank = torch.stack(parts), comm.data_rank
+    lower, total = every[:rank].sum(0), every.sum(0)
+    shape = (len(sels), -1)
+    return lower[:-1].reshape(shape), total[:-1].reshape(shape), total[-1]
+
+
 def moe_mlp(p: dict, x: torch.Tensor, node_mask: torch.Tensor, cfg: dict):
     """Routed expert MLP (moe.py:71-140). x [B, N, D] in the compute dtype,
     node_mask [B, N] (1 = real atom) -> (y [B, N, dout], aux).
@@ -93,25 +177,40 @@ def moe_mlp(p: dict, x: torch.Tensor, node_mask: torch.Tensor, cfg: dict):
     ``aux`` is the Switch load-balance loss E * sum_e f_e * P_e over real
     tokens (f_e: the share whose first choice is e, P_e: the mean router
     probability), 1.0 at perfect balance. First choices take capacity
-    before second choices (GShard); over-capacity tokens are dropped."""
+    before second choices (GShard); over-capacity tokens are dropped.
+    ``cfg["comm"]`` (a :class:`MoEComm`, optional): this rank's place on a
+    data and an expert axis, as the module docstring says; ``aux`` is then
+    this rank's share of the global loss, and ``p["experts"]`` holds this
+    rank's experts."""
     b, n, d = x.shape
     s = b * n
+    comm = cfg.get("comm")
+    n_data = comm.n_data if comm is not None else 1
     num_experts = p["router"]["w"].shape[-1]
     top_k = cfg["top_k"]
-    capacity = max(1, int(math.ceil(cfg["capacity_factor"] * top_k * s / num_experts)))
+    capacity = max(1, int(math.ceil(cfg["capacity_factor"] * top_k * s * n_data
+                                    / num_experts)))
     tokens = x.reshape(s, d)
     mask = node_mask.reshape(s).to(torch.float32)
 
     logits = tokens.to(torch.float32) @ p["router"]["w"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     sels, token_gates = gates(probs, mask, choose(probs, top_k))
+    lower, total, n_real = _global_counts(sels, mask, comm)
+    experts = None
+    if comm is not None and comm.n_expert > 1:
+        experts = slice(comm.expert_rank * num_experts // comm.n_expert,
+                        (comm.expert_rank + 1) * num_experts // comm.n_expert)
+        token_gates = [_ToExperts.apply(g, comm.expert_group) for g in token_gates]
 
     dispatch = torch.zeros((s, num_experts, capacity), dtype=torch.float32, device=x.device)
     combine = torch.zeros_like(dispatch)
+    # the global positions: first choices ahead of every second choice, and
+    # the lower data ranks' tokens ahead of this rank's (moe.py:115-118)
     offset = torch.zeros((num_experts,), dtype=torch.float32, device=x.device)
-    for sel, gate in zip(sels, token_gates):
-        position = torch.cumsum(sel, dim=0) - 1.0 + offset[None, :]
-        offset = offset + torch.sum(sel, dim=0)
+    for i, (sel, gate) in enumerate(zip(sels, token_gates)):
+        position = torch.cumsum(sel, dim=0) - 1.0 + (offset + lower[i])[None, :]
+        offset = offset + total[i]
         pos_int = torch.sum(position * sel, dim=-1).to(torch.int64)
         # jax.nn.one_hot of an index outside [0, C) is all zeros
         within = torch.nn.functional.one_hot(pos_int.clamp(0, capacity),
@@ -122,12 +221,23 @@ def moe_mlp(p: dict, x: torch.Tensor, node_mask: torch.Tensor, cfg: dict):
         combine = combine + d_k * gate[:, None, None]
 
     dt = x.dtype
+    if experts is not None:
+        dispatch, combine = dispatch[:, experts], combine[:, experts]
+        tokens = _ToExperts.apply(tokens, comm.expert_group)
     expert_in = torch.einsum("sec,sd->ecd", dispatch.to(dt), tokens)
     expert_out = _expert_mlp(p["experts"], expert_in)
-    y = torch.einsum("sec,ech->sh", combine.to(dt), expert_out)
+    if experts is None:
+        y = torch.einsum("sec,ech->sh", combine.to(dt), expert_out)
+    else:
+        # the partials in float32 from the compute dtype's products, rounded
+        # once after the sum, as the one product over all experts rounds
+        f32 = torch.float32
+        y = torch.einsum("sec,ech->sh", combine.to(dt).to(f32), expert_out.to(f32))
+        y = _FromExperts.apply(y, comm.expert_group).to(dt)
 
-    n_real = torch.clamp(torch.sum(mask), min=1.0)
-    f = torch.sum(sels[0], dim=0) / n_real
+    # this rank's share of the global loss: f global, P's sum this rank's
+    n_real = torch.clamp(n_real, min=1.0)
+    f = total[0] / n_real
     pbar = torch.sum(probs * mask[:, None], dim=0) / n_real
     aux = num_experts * torch.sum(f * pbar)
     return y.reshape(b, n, -1), aux

@@ -179,6 +179,10 @@ class MolDiff:
         self._denoiser_cfg = denoiser_cfg
         self.denoiser_static = denoiser_static_config(**denoiser_cfg)
         self.time_emb = GaussianSmearing(stop=T, num_gaussians=self.time_dim, type_="linear")
+        # (mesh, num_microbatches), set by the trainer on a (data, pipe) mesh:
+        # the denoiser then runs as a GPipe pipeline over its stacked blocks
+        # (parallel/pipeline.py; moldiff.py:150-155)
+        self.pipeline_cfg = None
 
     def _transitions(self, betas: dict) -> tuple:
         """(Gaussian, node categorical, edge categorical) transitions of
@@ -253,9 +257,18 @@ class MolDiff:
         h_edge = torch.cat([linear(params["edge_embedder"], h_edge_dense),
                             time_feat[:, None, None, :].expand(b, n, n, self.time_dim)], dim=-1)
         t_norm = (t_float / self.num_timesteps)[:, None, None]
-        out = node_edge_net(params["denoiser"], self.denoiser_static, h_node, pos_pert, h_edge,
-                            node_time=t_norm, edge_time=t_norm, pair_mask=pair_mask,
-                            blocks=blocks, node_mask=node_mask)
+        if self.pipeline_cfg is not None:
+            from ..parallel.pipeline import pipeline_denoiser
+
+            pipe_mesh, n_micro = self.pipeline_cfg
+            out = pipeline_denoiser(params["denoiser"], self.denoiser_static, h_node, pos_pert,
+                                    h_edge, node_time=t_norm, edge_time=t_norm,
+                                    pair_mask=pair_mask, mesh=pipe_mesh,
+                                    num_microbatches=n_micro)
+        else:
+            out = node_edge_net(params["denoiser"], self.denoiser_static, h_node, pos_pert,
+                                h_edge, node_time=t_norm, edge_time=t_norm, pair_mask=pair_mask,
+                                blocks=blocks, node_mask=node_mask)
         h_node, pos_out, h_edge = out[:3]
         pred_node = mlp(params["node_decoder"], h_node)
         h_half_sym = graph_ops.dense_to_halfedge(graph_ops.symmetrize_dense(h_edge))

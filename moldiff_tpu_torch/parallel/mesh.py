@@ -1,5 +1,6 @@
-"""The data axis: process groups, the mesh record and the placements of
-data-parallel and fully sharded training (moldiff_tpu/parallel/mesh.py).
+"""Process groups, the mesh record and the placements of data-parallel,
+fully sharded, pipeline-parallel and expert-parallel training
+(moldiff_tpu/parallel/mesh.py).
 
 JAX runs one program over a device mesh and lets GSPMD place the
 collectives. Here each rank is a process with one device, and the trainer
@@ -7,10 +8,15 @@ calls ``torch.distributed`` itself: the batch is split over the ``data``
 axis, the gradients are all-reduced (or reduce-scattered under FSDP), and
 the parameters are identical on every rank (or sharded, one slice each).
 
-Only the data axis is ported. The ``graph``, ``model``, ``pipe`` and
-``expert`` axes need collectives between the denoiser's kernels; a config
-that asks for one of them raises NotImplementedError (ROADMAP.md lists
-them as the next slice).
+A mesh has the data axis and at most one more: ``pipe`` (the denoiser's
+stacked blocks split over stages, parallel/pipeline.py) or ``expert`` (the
+MoE expert banks split over ranks, models/moe.py). Ranks are laid out as
+JAX's ``devices.reshape(n_data, n_axis)``: rank = d * A + a. Each axis has
+its own process groups (:meth:`Mesh.group`): the data group of a rank is
+the ranks of its ``a`` (they hold the same shards), its axis group the
+ranks of its ``d`` (they see the same rows of the batch). The ``graph`` and
+``model`` axes are not ported: a config that asks for one raises
+NotImplementedError (ROADMAP.md: the next slice).
 
 Backends: ``nccl`` for CUDA with one rank per card, ``gloo`` for the CPU
 (and, asked for explicitly, for several ranks that share one card: NCCL
@@ -31,13 +37,14 @@ from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 DATA_AXIS = "data"
 GRAPH_AXIS = "graph"    # shards the pair tensors' receiver axis (not ported)
 MODEL_AXIS = "model"    # tensor parallelism over MLP hidden dims (not ported)
-EXPERT_AXIS = "expert"  # expert parallelism over MoE banks (not ported)
+PIPE_AXIS = "pipe"      # pipeline parallelism over the stacked blocks
+EXPERT_AXIS = "expert"  # expert parallelism over MoE banks
 
 # a dead rank fails the run after this long instead of hanging it
 DEFAULT_TIMEOUT_S = 600.0
 
-NOT_PORTED = ("the {axis} axis is not ported yet: the port runs the data axis only "
-              "(ROADMAP.md, the next slice: graph, model, pipe, expert)")
+NOT_PORTED = ("the {axis} axis is not ported yet: the port runs the data, pipe and expert "
+              "axes (ROADMAP.md, the next slice: graph and model)")
 
 
 def default_backend(device: "str | torch.device") -> str:
@@ -67,6 +74,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 
 def shutdown_distributed() -> None:
+    _GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -80,24 +88,81 @@ def rank_device(device: "str | torch.device", rank: int) -> torch.device:
     return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
 
 
+# (data, axis size) -> (data groups by axis coordinate, axis groups by data
+# coordinate), made once per process group
+_GROUPS: dict = {}
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """The data axis of a run: its size, the process group's backend, and
-    this process's rank and device. Built in the parent by
+    """A run's axes (``axes``: ``("data",)``, ``("data", "pipe")`` or
+    ``("data", "expert")``) and their sizes, the process group's backend,
+    and this process's rank and device. Built in the parent by
     :func:`make_mesh_from_config` (rank 0), then placed on each worker's
     rank with :meth:`at`."""
     data: int = 1
     backend: str = "gloo"
     rank: int = 0
     device: torch.device = torch.device("cpu")
+    pipe: int = 1
+    expert: int = 1
+    axes: tuple = (DATA_AXIS,)
+
+    def size(self, axis: str) -> int:
+        return {DATA_AXIS: self.data, PIPE_AXIS: self.pipe, EXPERT_AXIS: self.expert}[axis]
 
     @property
     def shape(self) -> dict:
-        return {DATA_AXIS: self.data}
+        return {a: self.size(a) for a in self.axes}
 
     @property
     def world_size(self) -> int:
-        return self.data
+        return self.data * self.pipe * self.expert
+
+    @property
+    def axis(self) -> Optional[str]:
+        """The axis beside data (pipe or expert), None on a data mesh."""
+        return next((a for a in self.axes if a != DATA_AXIS), None)
+
+    @property
+    def axis_size(self) -> int:
+        return self.pipe * self.expert
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.axis_size
+
+    @property
+    def axis_rank(self) -> int:
+        return self.rank % self.axis_size
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (0 on an axis of size 1)."""
+        return self.data_rank if axis == DATA_AXIS else (self.axis_rank if axis == self.axis
+                                                          else 0)
+
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis``: None (the
+        whole world) where that line is the world. Every rank must make
+        its first call at the same point: the groups are made then, all of
+        them on every rank, in one order."""
+        if self.axis_size == 1 or (axis != DATA_AXIS and self.data == 1):
+            return None
+        key = (self.data, self.axis_size)
+        if key not in _GROUPS:
+            d_n, a_n = key
+            _GROUPS[key] = ([dist.new_group([d * a_n + a for d in range(d_n)])
+                             for a in range(a_n)],
+                            [dist.new_group([d * a_n + a for a in range(a_n)])
+                             for d in range(d_n)])
+        data_groups, axis_groups = _GROUPS[key]
+        return data_groups[self.axis_rank] if axis == DATA_AXIS else axis_groups[self.data_rank]
+
+    def group_rank(self, axis: str, coord: int) -> int:
+        """The global rank at ``coord`` on ``axis`` of this rank's line."""
+        if axis == DATA_AXIS:
+            return coord * self.axis_size + self.axis_rank
+        return self.data_rank * self.axis_size + coord
 
     def at(self, rank: int, device: "str | torch.device") -> "Mesh":
         return replace(self, rank=int(rank), device=torch.device(device))
@@ -108,15 +173,42 @@ class Mesh:
         return self.device if self.backend == "nccl" else torch.device("cpu")
 
 
+def make_mesh_pipe(n_data: int, n_pipe: int, device: "str | torch.device" = "cpu",
+                   backend: Optional[str] = None) -> Mesh:
+    """The (data, pipe) mesh (pipeline.py:38-46): batch over data, the
+    denoiser's stacked blocks over pipe."""
+    device = torch.device(device)
+    return Mesh(data=int(n_data), pipe=int(n_pipe), axes=(DATA_AXIS, PIPE_AXIS),
+                backend=backend or default_backend(device), device=rank_device(device, 0))
+
+
+def make_mesh_expert(n_data: int, n_expert: int, device: "str | torch.device" = "cpu",
+                     backend: Optional[str] = None) -> Mesh:
+    """The (data, expert) mesh (mesh.py:76-85): batch over data, MoE
+    expert banks over expert."""
+    device = torch.device(device)
+    return Mesh(data=int(n_data), expert=int(n_expert), axes=(DATA_AXIS, EXPERT_AXIS),
+                backend=backend or default_backend(device), device=rank_device(device, 0))
+
+
+def pipe_enabled(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and PIPE_AXIS in mesh.axes and mesh.pipe > 1
+
+
+def ep_enabled(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and EXPERT_AXIS in mesh.axes and mesh.expert > 1
+
+
 def make_mesh_from_config(parallel_cfg: Optional[dict], device: "str | torch.device" = "cuda",
                           backend: Optional[str] = None) -> Mesh:
     """The mesh of a config's ``parallel:`` section, by the JAX rules
     (mesh.py:147-189): ``num_devices`` null means every visible card (one
     on the CPU); ``pipe`` is exclusive with graph / model and ``expert``
     with every other axis; num_devices must divide by their product; the
-    data axis takes the rest. Any axis but data above 1 raises
-    NotImplementedError. ``fsdp`` does not change the mesh (the trainer
-    reads it). ``backend`` defaults to NCCL on CUDA (one rank per card:
+    data axis takes the rest: (data, expert) with expert above 1, else
+    (data, pipe) with pipe above 1, else data alone. ``graph`` or ``model``
+    above 1 raises NotImplementedError. ``fsdp`` does not change the mesh
+    (the trainer reads it). ``backend`` defaults to NCCL on CUDA (one rank per card:
     num_devices above the visible cards raises) and gloo on the CPU; gloo,
     asked for, may put several ranks on one card."""
     cfg = dict(parallel_cfg or {})
@@ -137,14 +229,17 @@ def make_mesh_from_config(parallel_cfg: Optional[dict], device: "str | torch.dev
         raise ValueError(
             f"num_devices={total} not divisible by graph*model*pipe*expert="
             f"{n_graph * n_model * n_pipe * n_expert}")
-    for axis, size in ((EXPERT_AXIS, n_expert), ("pipe", n_pipe), (MODEL_AXIS, n_model),
-                       (GRAPH_AXIS, n_graph)):
+    for axis, size in ((MODEL_AXIS, n_model), (GRAPH_AXIS, n_graph)):
         if size > 1:
             raise NotImplementedError(NOT_PORTED.format(axis=axis))
     backend = backend or default_backend(device)
     if backend == "nccl" and total > visible:
         raise ValueError(f"num_devices={total} but {visible} card(s) visible: NCCL takes one "
                          "rank per card (backend='gloo' may share a card)")
+    if n_expert > 1:
+        return make_mesh_expert(total // n_expert, n_expert, device, backend)
+    if n_pipe > 1:
+        return make_mesh_pipe(total // n_pipe, n_pipe, device, backend)
     return Mesh(data=total, backend=backend, rank=0, device=rank_device(device, 0))
 
 
@@ -152,12 +247,14 @@ def make_mesh_from_config(parallel_cfg: Optional[dict], device: "str | torch.dev
 
 @dataclass(frozen=True)
 class Placement:
-    """A leaf's place on the data axis: ``dim`` None is replicated; else
-    rank r holds ``[r * size, (r + 1) * size)`` of dimension ``dim``
-    (JAX's NamedSharding with the data axis on ``dim``)."""
+    """A leaf's place on one mesh axis: ``dim`` None is replicated; else
+    the rank at coordinate c of ``axis`` holds ``[c * size, (c + 1) *
+    size)`` of dimension ``dim`` (JAX's NamedSharding with ``axis`` on
+    ``dim``), and the ranks along the other axes hold copies of it."""
     shape: tuple
     dim: Optional[int]
     parts: int
+    axis: str = DATA_AXIS
 
     @property
     def shard_shape(self) -> tuple:
@@ -167,19 +264,23 @@ class Placement:
         s[self.dim] //= self.parts
         return tuple(s)
 
-    def index(self, rank: int) -> tuple:
-        """Rank ``rank``'s slices of the whole leaf."""
+    def index(self, coord: int) -> tuple:
+        """The slices of the whole leaf held at coordinate ``coord``."""
         if self.dim is None:
             return tuple(slice(0, n) for n in self.shape)
         size = self.shape[self.dim] // self.parts
-        return tuple(slice(rank * size, (rank + 1) * size) if d == self.dim else slice(0, n)
+        return tuple(slice(coord * size, (coord + 1) * size) if d == self.dim else slice(0, n)
                      for d, n in enumerate(self.shape))
 
-    def take(self, full: torch.Tensor, rank: int) -> torch.Tensor:
+    def take(self, full: torch.Tensor, coord: int) -> torch.Tensor:
         if self.dim is None:
             return full
         size = self.shape[self.dim] // self.parts
-        return full.narrow(self.dim, rank * size, size).contiguous()
+        return full.narrow(self.dim, coord * size, size).contiguous()
+
+
+def replicated(shape: tuple) -> Placement:
+    return Placement(tuple(int(s) for s in shape), None, 1)
 
 
 def fsdp_placement(shape: tuple, n_data: int) -> Placement:
@@ -202,13 +303,79 @@ def fsdp_param_sharding(mesh: "Mesh | int", tree: Any) -> Any:
     return tree_map(lambda x: fsdp_placement(tuple(x.shape), n), tree)
 
 
+def _axis_size(mesh: "Mesh | int", axis: str) -> int:
+    if isinstance(mesh, int):
+        return mesh
+    return mesh.size(axis) if axis in mesh.axes else 1
+
+
+def ep_param_sharding(mesh: "Mesh | int", tree: Any) -> Any:
+    """JAX's expert placement (mesh.py:92-144) as a tree of
+    :class:`Placement`: in every dict holding ``router`` and ``experts``
+    (an expert bank), each experts leaf is split over ``expert`` on the
+    last of its first two dimensions equal to the router's fan-out E (dim
+    1 of the stacked [num_blocks, E, ...] leaves) when E divides by the
+    axis; routers and every other leaf are replicated."""
+    n = _axis_size(mesh, EXPERT_AXIS)
+
+    def expert_leaf(x, num_experts: int) -> Placement:
+        shape = tuple(int(s) for s in x.shape)
+        if n <= 1 or num_experts % n != 0 or len(shape) < 1:
+            return replicated(shape)
+        dims = [d for d in range(min(2, len(shape))) if shape[d] == num_experts]
+        return Placement(shape, dims[-1], n, EXPERT_AXIS) if dims else replicated(shape)
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "router" in node and "experts" in node:
+                e = int(node["router"]["w"].shape[-1])
+                out = {k: walk(v) for k, v in node.items()}
+                out["experts"] = tree_map(lambda x: expert_leaf(x, e), node["experts"])
+                return out
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return replicated(node.shape)
+
+    return walk(tree)
+
+
+def pipe_placement(shape: tuple, n_pipe: int) -> Placement:
+    """A leaf under a ``blocks`` key (pipeline.py:53-87): split on dim 0
+    over ``pipe`` when it divides, else replicated."""
+    shape = tuple(int(s) for s in shape)
+    if n_pipe > 1 and len(shape) >= 1 and shape[0] % n_pipe == 0:
+        return Placement(shape, 0, n_pipe, PIPE_AXIS)
+    return replicated(shape)
+
+
+# -- collectives on one axis ----------------------------------------------------
+
+def all_gather_axis(mesh: Mesh, places: List[Placement], leaves: List[torch.Tensor],
+                    run=None) -> List[torch.Tensor]:
+    """The whole leaves of ``leaves`` (this rank's shards in ``places``),
+    by one all-gather per axis over that axis's group; replicated leaves
+    are kept. ``run(fn, *args, **kw)`` calls each collective (to time it)."""
+    run = run or (lambda fn, *a, **kw: fn(*a, **kw))
+    out = list(leaves)
+    for axis in sorted({p.axis for p in places if p.dim is not None}):
+        idx = [j for j, p in enumerate(places) if p.dim is not None and p.axis == axis]
+        mine = flatten([leaves[j] for j in idx])
+        parts = [torch.empty_like(mine) for _ in range(mesh.size(axis))]
+        run(dist.all_gather, parts, mine, group=mesh.group(axis))
+        for j, *per in zip(idx, *(unflatten(p, [leaves[j] for j in idx]) for p in parts)):
+            out[j] = torch.cat(per, dim=places[j].dim)
+    return out
+
+
 # -- the batch ------------------------------------------------------------------
 
 def rank_rows(b: int, mesh: Mesh) -> slice:
     """This rank's rows of a leading axis of ``b`` (a multiple of the data
-    axis): JAX's PartitionSpec(DATA_AXIS)."""
+    axis): JAX's PartitionSpec(DATA_AXIS), the same rows on every rank of
+    one data coordinate."""
     per = b // mesh.data
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    return slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
 
 
 def shard_batch(batch: dict, mesh: Mesh) -> dict:
@@ -236,19 +403,20 @@ def unflatten(flat: torch.Tensor, like: List[torch.Tensor]) -> List[torch.Tensor
     return out
 
 
-def all_reduce_sum(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The sums over ranks of ``tensors``, by one all-reduce of one flat
-    float32 buffer."""
+def all_reduce_sum(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The sums over the ranks of ``group`` (None: all) of ``tensors``, by
+    one all-reduce of one flat float32 buffer."""
     flat = flatten(tensors)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     return unflatten(flat, tensors)
 
 
-def broadcast_leaves(tree: Any, src: int = 0) -> tuple:
-    """(rank ``src``'s leaves of ``tree`` in its structure, whether this
-    rank's were bit-equal to them), by one broadcast of a flat buffer."""
+def broadcast_leaves(tree: Any, src: int = 0, group=None) -> tuple:
+    """(global rank ``src``'s leaves of ``tree`` in its structure, whether
+    this rank's were bit-equal to them), by one broadcast of a flat buffer
+    over ``group`` (None: all ranks)."""
     leaves = tree_leaves(tree)
     flat = flatten(leaves)
     mine = flat.clone()
-    dist.broadcast(flat, src)
+    dist.broadcast(flat, src, group=group)
     return tree_unflatten(tree, unflatten(flat, leaves)), bool(torch.equal(flat, mine))

@@ -93,14 +93,17 @@ def _barrier() -> None:
 
 
 def save_checkpoint_sharded(path: str, entries: list, rank: int = 0, world: int = 1,
-                            config=None, scheduler=None, key=None, extra=None) -> None:
+                            config=None, scheduler=None, key=None, extra=None,
+                            coords: Optional[dict] = None) -> None:
     """Write a sharded checkpoint directory from ``entries``: (key path,
-    this rank's array, parallel.mesh.Placement) per leaf. A sharded leaf's
-    slice is written by the rank that holds it, a replicated leaf by rank 0
-    (JAX's replica 0). Every rank of the process group calls it: rank 0
-    makes ``<path>.tmp``, all write, rank 0 writes meta.pkl and renames it
-    into place, with a barrier between the steps (JAX's
-    sync_global_devices)."""
+    this rank's array, parallel.mesh.Placement) per leaf. ``coords``: this
+    rank's coordinate on each mesh axis (default ``{"data": rank}``). A
+    sharded leaf's slice is written by the rank that holds it at
+    coordinate 0 of every other axis, a replicated leaf by rank 0 (JAX's
+    replica 0). Every rank of the process group calls it: rank 0 makes
+    ``<path>.tmp``, all write, rank 0 writes meta.pkl and renames it into
+    place, with a barrier between the steps (JAX's sync_global_devices)."""
+    coords = coords if coords is not None else {"data": rank}
     tmp = path + ".tmp"
     if rank == 0:
         if os.path.exists(tmp):
@@ -112,9 +115,13 @@ def save_checkpoint_sharded(path: str, entries: list, rank: int = 0, world: int 
         arr = _host(x)
         specs.append({"shape": tuple(place.shape), "dtype": str(arr.dtype),
                       "sharded": place.dim is not None})
-        if place.dim is not None or rank == 0:
-            np.save(os.path.join(tmp, _shard_filename(i, place.index(rank))),
-                    np.asarray(arr, order="C"))
+        if place.dim is None:
+            writes = rank == 0
+        else:
+            writes = all(c == 0 for a, c in coords.items() if a != place.axis)
+        if writes:
+            index = place.index(coords.get(place.axis, 0) if place.dim is not None else 0)
+            np.save(os.path.join(tmp, _shard_filename(i, index)), np.asarray(arr, order="C"))
     if rank == 0:
         meta = {"paths": [p for p, _, _ in entries], "specs": specs,
                 "config": config.to_dict() if hasattr(config, "to_dict") else config,

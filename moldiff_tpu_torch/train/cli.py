@@ -37,9 +37,12 @@ parallel/mesh.py): with ``num_devices`` null (every visible card) or above
 1 and more than one rank, :func:`run` starts one worker process per rank
 (rank r on ``cuda:r``; on the CPU, ``--device cpu`` with ``num_devices: K``
 starts K gloo processes), each checks that it is on its card, and they
-train as one data-parallel run (``parallel.fsdp``: fully sharded). Every
-rank runs the same loader and keeps its rows of each batch; rank 0 alone
-writes log.txt, metrics.jsonl, the event file and the checkpoints. A
+train as one run: data-parallel (``parallel.fsdp``: fully sharded), with
+``parallel.pipe: P`` the denoiser as a GPipe pipeline of P stages
+(``train.num_microbatches``, default P), or with ``parallel.expert: K`` the
+MoE expert banks split over K ranks (train/trainer.py). Every rank runs
+the same loader and keeps its data coordinate's rows of each batch; rank 0
+alone writes log.txt, metrics.jsonl, the event file and the checkpoints. A
 failed rank fails the run. With one card visible nothing changes: no
 process group, no worker. ``train.ckpt_sharded`` writes each checkpoint
 as a sharded directory (train/checkpoint_sharded.py), which prune and
@@ -72,7 +75,7 @@ from ..data.loader import BucketedLoader
 from ..models.moldiff import MolDiff, resolve_device
 from ..ops import kernels
 from ..parallel import launch
-from ..parallel.mesh import (Mesh, broadcast_leaves, initialize_distributed,
+from ..parallel.mesh import (DATA_AXIS, Mesh, broadcast_leaves, initialize_distributed,
                              make_mesh_from_config, rank_device, shutdown_distributed)
 from ..utils.config import Config
 from ..utils.misc import MetricsWriter, get_logger, get_new_log_dir, seed_all
@@ -128,9 +131,11 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
     BondPredictor) -> summary: the log dir, the data source ("store",
     "recipe", or "given" for ``subsets``), one record per train step
     (iteration, bucket, loss terms, grad norm, lr, seconds, kernel
-    launches; on the data axis also the seconds in collectives, and with
-    ``check_replicas`` whether every rank's params were bit-equal after
-    it), the validation losses, the checkpoints written and the seconds
+    launches, on a card the peak of allocated device memory; on a mesh also
+    the seconds in collectives, on the pipe the pipeline's transfers
+    (``pipe``: parallel/pipeline.py stats), and with ``check_replicas``
+    whether the params of every rank of each data group were bit-equal
+    after it), the validation losses, the checkpoints written and the seconds
     each took (an async one: its snapshot), the step timer's
     summary, the metrics and event files, and the final state and
     trainer. Log lines go to ``log.txt`` and stderr, and to ``log`` when
@@ -144,7 +149,7 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
     seed = int(train_cfg.seed)
     seed_all(seed)
     log_dir = get_new_log_dir(logdir, prefix=name) if lead else None
-    if mesh is not None and mesh.data > 1:
+    if mesh is not None and mesh.world_size > 1:
         shared = [log_dir]
         dist.broadcast_object_list(shared, 0)
         log_dir = shared[0]
@@ -167,7 +172,9 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
         if device.type == "cuda" and torch.cuda.current_device() != device.index:
             raise RuntimeError(f"rank {rank} runs on cuda:{torch.cuda.current_device()}, "
                                f"not on its card {device}")
-        say(f"data axis: {trainer.world} ranks ({mesh.backend}){' FSDP' if fsdp else ''}")
+        axis = f", {mesh.axis} axis: {mesh.axis_size} ranks" if mesh.axis else ""
+        say(f"data axis: {trainer.n_data} ranks ({mesh.backend}){' FSDP' if fsdp else ''}{axis}"
+            f"{' (pipeline)' if trainer.pp else ''}")
     # one stream from the seed: the initial params (when not resumed), then
     # every step's noise
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -239,11 +246,16 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
             steps.append({"it": it, "n": int(batch["node_type"].shape[1]), "s": dt,
                           "launches": {k: kernels.launch_counts[k] - before[k] for k in before},
                           **aux, "lr": lr})
+            if device.type == "cuda":
+                steps[-1]["peak_bytes"] = torch.cuda.max_memory_allocated(device)
             if trainer.mesh is not None:
                 steps[-1]["comm_s"] = trainer.comm_s
+                if trainer.pp:
+                    steps[-1]["pipe"] = trainer.pipe_stats
                 if check_replicas and not trainer.fsdp:
-                    flag = torch.tensor([0.0 if broadcast_leaves(state.params)[1] else 1.0],
-                                        device=mesh.comm_device())
+                    same = broadcast_leaves(state.params, src=mesh.group_rank(DATA_AXIS, 0),
+                                            group=mesh.group(DATA_AXIS))[1]
+                    flag = torch.tensor([0.0 if same else 1.0], device=mesh.comm_device())
                     dist.all_reduce(flag)
                     steps[-1]["replicas_equal"] = float(flag[0]) == 0.0
             if it % 100 == 0 or it == first:
@@ -311,7 +323,7 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
 
 def _rank_worker(rank: int, world: int, init_method: str, mesh: Mesh, build: Callable,
                  config: dict, kwargs: dict) -> dict:
-    """One rank of a data-parallel run (launch.spawn's worker): joins the
+    """One rank of a run on a mesh (launch.spawn's worker): joins the
     process group, builds the model on its card and fits -> the picklable
     part of the summary (rank 0's log lines under ``log_lines``)."""
     device = rank_device(mesh.device, rank)
@@ -337,9 +349,9 @@ def run_ranks(build: Callable, config: dict, device: "str | torch.device | None"
     summary, and ``ranks``, every rank's (without state and trainer)."""
     device = resolve_device(device)
     mesh = make_mesh_from_config(config.get("parallel"), device, backend)
-    if mesh.data <= 1:
+    if mesh.world_size <= 1:
         return build(config, device=device, mesh=None, log=log, **kwargs)
-    ranks = launch.spawn(_rank_worker, mesh.data, args=(mesh, build, config, kwargs))
+    ranks = launch.spawn(_rank_worker, mesh.world_size, args=(mesh, build, config, kwargs))
     if log is not None:
         for line in ranks[0]["log_lines"]:
             log(line)

@@ -29,6 +29,13 @@ and the data axis (phase 22 of chip_smoke.py), TRAIN_V2_CONT with its
   TRAIN_V2_CONT_FSDP2   parallel {num_devices: 2, fsdp: true},
                         train.ckpt_sharded true
 
+and the pipe and expert axes (phase 23), with the same overrides:
+
+  TRAIN_V2_CONT_PP2     parallel {num_devices: 2, pipe: 2}, train.num_microbatches 2:
+                        the 6 blocks as 2 stages of 3, 2 microbatches
+  MOE_V2_EP2            MOE_V2, parallel {num_devices: 2, expert: 2}: 2 experts a rank
+  MOE_V2_DP2            MOE_V2, parallel {num_devices: 2}: MoE on two data ranks
+
 ``chip_smoke.py`` and ``profile_steps --train`` run these. Each dict is
 built anew here, so that no two share a nested dict; copy one before
 changing it.
@@ -157,3 +164,7 @@ def _sections(settings: dict, **sections) -> dict:
 TRAIN_V2_CONT_DP2 = _sections(TRAIN_V2_CONT, parallel={"num_devices": 2})
 TRAIN_V2_CONT_FSDP2 = _sections(TRAIN_V2_CONT, parallel={"num_devices": 2, "fsdp": True},
                                 train={"ckpt_sharded": True})
+TRAIN_V2_CONT_PP2 = _sections(TRAIN_V2_CONT, parallel={"num_devices": 2, "pipe": 2},
+                              train={"num_microbatches": 2})
+MOE_V2_EP2 = _sections(MOE_V2, parallel={"num_devices": 2, "expert": 2})
+MOE_V2_DP2 = _sections(MOE_V2, parallel={"num_devices": 2})

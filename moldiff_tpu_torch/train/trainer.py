@@ -32,6 +32,25 @@ reduce-scatters the gradients, takes the norm from all-reduced sums of
 squares and updates the shards. A step at world W computes the world-1
 step on the padded batch up to the order of its sums.
 
+On a (data, pipe) or (data, expert) mesh (trainer.py:124-154) the batch is
+split over data alone: the ranks of one data coordinate see the same rows
+and the same noise, and the counts are summed over the data group. With
+``pipe`` MolDiff's denoiser runs as a GPipe pipeline (parallel/pipeline.py;
+``pp``: the model has a ``pipeline_cfg``, so the bond predictor trains with
+the pipe ranks as replicas, as in JAX) and the stacked block leaves are
+held split over the stages (``pipe_param_sharding``); with ``expert`` the
+MoE expert banks are held split over the expert ranks
+(``ep_param_sharding``), and the MoE layers read the mesh (models/moe.py
+MoEComm). MoE on a data axis above 1 computes JAX's global capacity,
+positions and load-balance loss in the same way. Every rank of one data
+coordinate then holds the whole gradient of the replicated leaves (the
+embedders', on the pipe, on stage 0 alone) and of its own shards, and the
+loss of its rows: the replicated leaves' gradients and the loss terms are
+taken from axis coordinate 0 (zero elsewhere) and summed over the world,
+the shards' over the data group, so each is counted once. The norm for
+clipping sums the shards' squares over the axis group. Params, adam
+moments and EMA are held in these placements at rest.
+
 Checkpoints keep the JAX package's pickle layout (trainer.py:372-395):
 ``config``, float32 numpy ``params`` and ``ema_params``, ``step``,
 ``scheduler`` (its state_dict), ``key`` None and ``opt_state`` None, so
@@ -55,8 +74,11 @@ import torch.distributed as dist
 
 from ..data.batching import pad_batch_to_multiple
 from ..data.loader import BATCH_KEYS
-from ..parallel.mesh import (Mesh, all_reduce_sum, broadcast_leaves, flatten, fsdp_placement,
-                             rank_rows, unflatten)
+from ..models.moe import MoEComm
+from ..parallel import pipeline
+from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, Mesh, all_gather_axis, all_reduce_sum,
+                             broadcast_leaves, ep_enabled, ep_param_sharding, flatten,
+                             fsdp_placement, pipe_enabled, rank_rows, replicated, unflatten)
 from ..utils.checkpoint import load_checkpoint_numpy, params_to_torch
 from . import checkpoint_sharded
 from .optim import (OptState, Optimizer, get_lr, get_scheduler, global_norm, set_lr,
@@ -98,9 +120,10 @@ def _rows(noise: Any, rows: slice) -> Any:
     return None if noise is None else noise[rows]
 
 
-def _is_moe(model) -> bool:
+def _moe_static(model) -> Optional[dict]:
+    """The model's static config when its denoiser or encoder is MoE."""
     static = getattr(model, "denoiser_static", None) or getattr(model, "encoder_static", {})
-    return bool(static.get("moe"))
+    return static if static.get("moe") else None
 
 
 class Trainer:
@@ -109,27 +132,51 @@ class Trainer:
     ``loss_counts(node_type, halfedge_type, node_mask)`` and
     ``get_loss(params, node_type, pos, halfedge_type, node_mask, noise,
     counts)`` (MolDiff and BondPredictor do). ``mesh``: this process's
-    rank of the data axis (parallel/mesh.py), ``fsdp`` its sharding."""
+    rank of the mesh (parallel/mesh.py), ``fsdp`` the data axis's
+    sharding."""
 
     def __init__(self, model, train_config: dict, mesh: Optional[Mesh] = None,
                  fsdp: bool = False):
         self.model = model
         self.config = train_config
-        # the data axis: None without ranks to split over and no process
-        # group (a mesh of one rank inside a process group runs the data
-        # path, its collectives over the one rank); fsdp only when it has
+        # the mesh: None without ranks to split over and no process group (a
+        # mesh of one rank inside a process group runs the mesh path, its
+        # collectives over the one rank); fsdp only when the data axis has
         # ranks to shard over, as in JAX (trainer.py:132-143)
-        active = mesh is not None and (mesh.data > 1 or dist.is_initialized())
+        active = mesh is not None and (mesh.world_size > 1 or dist.is_initialized())
         self.mesh = mesh if active else None
-        self.world = self.mesh.data if self.mesh is not None else 1
-        self.fsdp = bool(fsdp) and self.world > 1
-        if self.world > 1 and _is_moe(model):
-            # JAX's capacity, capacity positions and aux loss read the
-            # global tokens (moe.py:83-84, 118, 138): none is a sum of
-            # per-rank terms
-            raise NotImplementedError("MoE under a data axis > 1 is not ported yet "
-                                      "(ROADMAP.md: with the expert axis)")
-        self.places: Optional[list] = None   # FSDP: one Placement per param leaf
+        self.world = self.mesh.world_size if self.mesh is not None else 1
+        self.n_data = self.mesh.data if self.mesh is not None else 1
+        self.fsdp = bool(fsdp) and self.n_data > 1
+        # the pipe axis runs MolDiff's denoiser as a pipeline (trainer.py:124-131)
+        self.pp = pipe_enabled(self.mesh) and hasattr(model, "pipeline_cfg")
+        if self.pp:
+            model.pipeline_cfg = (self.mesh, train_config.get("num_microbatches"))
+        if self.fsdp and self.pp:
+            raise ValueError(
+                "fsdp is exclusive with the 'model'/'pipe' axes: both shard "
+                "the same param leaves with conflicting layouts")
+        self.ep = ep_enabled(self.mesh)
+        if self.ep and self.fsdp:
+            raise ValueError(
+                "fsdp is exclusive with the 'expert' axis: conflicting "
+                "layouts on expert leaves")
+        if self.fsdp and self.mesh.axis_size > 1:
+            raise NotImplementedError("fsdp beside a pipe axis that runs no pipeline (the bond "
+                                      "predictor's) is not ported")
+        if self.mesh is not None and self.mesh.axis_size > 1:
+            self.mesh.group(DATA_AXIS)   # every rank makes the groups here, in one order
+        static = _moe_static(model)
+        if static is not None and self.mesh is not None and (self.n_data > 1 or self.ep):
+            # the expert banks read the mesh (models/moe.py)
+            m = self.mesh
+            static["moe"] = dict(static["moe"], comm=MoEComm(
+                m.data, m.data_rank, m.group(DATA_AXIS), m.expert, m.coord(EXPERT_AXIS),
+                m.group(EXPERT_AXIS) if self.ep else None))
+        # one Placement per param leaf: the data axis's under FSDP, the pipe
+        # or expert axis's on those meshes
+        self.places: Optional[list] = None
+        self.pipe_stats: dict = {}           # the pipeline's transfers, last step
         self.comm_s = 0.0                    # seconds in collectives, last step
         self.grad_accum = int(train_config.get("grad_accum", 1) or 1)
         opt_cfg = dict(train_config["optimizer"])
@@ -150,7 +197,7 @@ class Trainer:
     def _padded(self, b: int) -> int:
         """The global batch padded to a multiple of data x grad_accum
         (trainer.py:284-293)."""
-        mult = self.world * self.grad_accum
+        mult = self.n_data * self.grad_accum
         return -(-b // mult) * mult
 
     def draw_noise(self, batch: dict, generator: torch.Generator) -> TrainNoise:
@@ -185,70 +232,89 @@ class Trainer:
             grads = torch.autograd.grad(loss, leaves)
         return list(grads), {k: v.detach() for k, v in aux.items()}
 
-    # -- the data axis ---------------------------------------------------------
+    # -- the mesh ---------------------------------------------------------------
 
-    def _collective(self, fn, *args):
+    def _collective(self, fn, *args, **kwargs):
         """Run one collective, its seconds (after the work queued before
         it) added to ``comm_s``."""
         sync = self.mesh.device.type == "cuda"
         if sync:
             torch.cuda.synchronize(self.mesh.device)
         t0 = time.perf_counter()
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         if sync:
             torch.cuda.synchronize(self.mesh.device)
         self.comm_s += time.perf_counter() - t0
         return out
 
     def _local(self, batch: dict, noise: List[TrainNoise]) -> list:
-        """This rank's (microbatch, noise) pairs of the global batch, and
-        each microbatch's counts summed over the ranks (one all-reduce)."""
+        """This rank's (microbatch, noise) pairs of the global batch (its
+        data coordinate's rows), and each microbatch's counts summed over
+        the data group (one all-reduce)."""
         k = len(noise)
-        batch = pad_batch_to_multiple(batch, self.world * k)
+        batch = pad_batch_to_multiple(batch, self.n_data * k)
         m = batch["node_type"].shape[0] // k
         rows = rank_rows(m, self.mesh)
         micros = [({key: v[i * m:(i + 1) * m][rows] for key, v in batch.items()},
                    _rows(noise[i], rows)) for i in range(k)]
         counts = [self.model.loss_counts(mb["node_type"], mb["halfedge_type"], mb["node_mask"])
                   for mb, _ in micros]
-        flat = self._collective(all_reduce_sum, [v for c in counts for v in c.values()])
+        flat = self._collective(all_reduce_sum, [v for c in counts for v in c.values()],
+                                group=self.mesh.group(DATA_AXIS))
         it = iter(flat)
         return [(mb, nz, {name: next(it) for name in c}) for (mb, nz), c in zip(micros, counts)]
 
     def _sharded(self) -> List[int]:
-        return [j for j, p in enumerate(self.places) if p.dim is not None]
+        return [j for j, p in enumerate(self.places or []) if p.dim is not None]
 
     def gather(self, tree: Any) -> Any:
-        """FSDP: the whole leaves of a tree of shards (params, moments or
-        EMA), by one all-gather of the sharded leaves; replicated leaves
-        are kept. Without FSDP the tree itself."""
-        if not self.fsdp or tree is None:
+        """The whole leaves of a tree of shards (params, moments or EMA), by
+        one all-gather of the sharded leaves over their axis; replicated
+        leaves are kept. Without shards the tree itself."""
+        if not self._sharded() or tree is None:
             return tree
-        leaves = tree_leaves(tree)
-        idx = self._sharded()
-        mine = flatten([leaves[j] for j in idx])
-        parts = [torch.empty_like(mine) for _ in range(self.world)]
-        self._collective(dist.all_gather, parts, mine)
-        out = list(leaves)
-        for j, *per_rank in zip(idx, *(unflatten(p, [leaves[j] for j in idx]) for p in parts)):
-            out[j] = torch.cat(per_rank, dim=self.places[j].dim)
-        return tree_unflatten(tree, out)
+        return tree_unflatten(tree, all_gather_axis(self.mesh, self.places, tree_leaves(tree),
+                                                    run=self._collective))
 
     def shard(self, tree: Any) -> Any:
-        """FSDP: this rank's shards of a tree of whole leaves."""
-        if not self.fsdp or tree is None:
+        """This rank's shards of a tree of whole leaves."""
+        if self.places is None or tree is None:
             return tree
-        return tree_unflatten(tree, [p.take(x, self.mesh.rank)
+        return tree_unflatten(tree, [p.take(x, self.mesh.coord(p.axis))
                                      for p, x in zip(self.places, tree_leaves(tree))])
+
+    def _once(self, values: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``values`` (replicated over the axis beside data) summed over the
+        world with each data coordinate's counted once: from axis
+        coordinate 0."""
+        if self.mesh.axis_size > 1 and self.mesh.axis_rank != 0:
+            values = [torch.zeros_like(v) for v in values]
+        return self._collective(all_reduce_sum, values)
 
     def _reduce(self, grads: List[torch.Tensor], aux: dict) -> tuple:
         """(gradients summed over the ranks: this rank's shards under FSDP,
         the global norm before clipping, the summed loss terms)."""
         names, grads = list(aux), list(grads)
-        if not self.fsdp:
-            out = self._collective(all_reduce_sum, grads + [aux[k] for k in names])
+        if not self.fsdp and not self._sharded():
+            out = self._once(grads + [aux[k] for k in names])
             grads = out[:len(grads)]
             return grads, global_norm(grads), dict(zip(names, out[len(grads):]))
+        if not self.fsdp:
+            # the pipe or expert shards: summed over the data group; their
+            # squares over the axis group for the norm
+            sh = self._sharded()
+            rep = [j for j in range(len(grads)) if j not in set(sh)]
+            out = self._once([grads[j] for j in rep] + [aux[k] for k in names])
+            mine = [grads[j] for j in sh]
+            if self.n_data > 1:
+                mine = self._collective(all_reduce_sum, mine, group=self.mesh.group(DATA_AXIS))
+            local = list(grads)
+            for j, g in zip(rep + sh, out[:len(rep)] + mine):
+                local[j] = g
+            sq = global_norm(mine).square().reshape(1)
+            self._collective(dist.all_reduce, sq, group=self.mesh.group(self.mesh.axis))
+            norm = torch.sqrt(sq[0] + global_norm(out[:len(rep)]).square())
+            return local, norm, dict(zip(names, out[len(rep):]))
         idx = set(self._sharded())
         rep = [j for j in range(len(grads)) if j not in idx]
         sh = sorted(idx)
@@ -292,7 +358,8 @@ class Trainer:
         assert len(noise) == k, (len(noise), k)
         if self.mesh is not None:
             self.comm_s = 0.0
-            params = self.gather(state.params)
+            pipeline.reset_stats()
+            params = self.gather(state.params) if self.fsdp else state.params
             micros = self._local(batch, noise)
         elif k == 1:
             params, micros = state.params, [(batch, noise[0], None)]
@@ -313,7 +380,9 @@ class Trainer:
         else:
             aux = auxs[0]
         if self.mesh is not None:
-            return self._reduce(grads, aux)
+            out = self._reduce(grads, aux)
+            self.pipe_stats = dict(pipeline.stats) if self.pp else {}
+            return out
         return grads, global_norm(grads), aux
 
     def train_step(self, state: TrainState, batch: dict,
@@ -325,7 +394,7 @@ class Trainer:
         aux["grad_norm"] = norm
         new_params, opt_state = self.optimizer.update(
             tree_unflatten(state.params, grads), state.opt_state, state.params,
-            g_norm=norm if self.fsdp else None)
+            g_norm=norm if self.mesh is not None else None)
         return self._with_ema(state, new_params, opt_state), aux
 
     @torch.no_grad()
@@ -338,8 +407,8 @@ class Trainer:
         if self.mesh is None:
             return self.loss_fn(params, pad_batch_to_multiple(batch, self.grad_accum), noise)[1]
         mb, nz, counts = self._local(batch, [noise])[0]
-        aux = self.loss_fn(self.gather(params), mb, nz, counts)[1]
-        return dict(zip(aux, self._collective(all_reduce_sum, list(aux.values()))))
+        aux = self.loss_fn(self.gather(params) if self.fsdp else params, mb, nz, counts)[1]
+        return dict(zip(aux, self._once(list(aux.values()))))
 
     def scheduler_step(self, state: TrainState, val_metric: float) -> TrainState:
         """The host-side learning-rate update between steps."""
@@ -357,7 +426,8 @@ class Trainer:
         """A state with a fresh optimizer; EMA seeded from a copy of the
         params unless given (trainer.py:327-333). On the data axis every
         rank takes rank 0's params and EMA (one broadcast; a rank whose own
-        differed raises on every rank), sharded under FSDP."""
+        differed raises on every rank), then keeps its shards of them: FSDP's,
+        the pipe's or the expert axis's placements."""
         ema = None
         if self.ema_decay > 0:
             ema = _copy(params) if ema_params is None else ema_params
@@ -372,15 +442,19 @@ class Trainer:
                 raise RuntimeError(f"the params differed on {int(differ[0])} rank(s) before "
                                    "the broadcast from rank 0")
             if self.fsdp:
-                self.places = [fsdp_placement(tuple(x.shape), self.world)
+                self.places = [fsdp_placement(tuple(x.shape), self.n_data)
                                for x in tree_leaves(params)]
-                params, ema = self.shard(params), self.shard(ema)
+            elif self.pp:
+                self.places = tree_leaves(pipeline.pipe_param_sharding(self.mesh, params))
+            elif self.ep:
+                self.places = tree_leaves(ep_param_sharding(self.mesh, params))
+            params, ema = self.shard(params), self.shard(ema)
         return TrainState(params, self.optimizer.init(params), int(step), ema)
 
     def gathered(self, state: TrainState) -> TrainState:
-        """The state with whole leaves (a collective under FSDP: every rank
-        calls it); the state itself otherwise."""
-        if not self.fsdp:
+        """The state with whole leaves (a collective where leaves are
+        sharded: every rank calls it); the state itself otherwise."""
+        if not self._sharded():
             return state
         opt = state.opt_state
         return TrainState(self.gather(state.params),
@@ -425,21 +499,23 @@ class Trainer:
 
     def save_checkpoint_sharded(self, path: str, state: TrainState, config: Any,
                                 extra: Optional[dict] = None) -> None:
-        """A sharded checkpoint directory (checkpoint_sharded.py): each rank
-        writes its own shards, rank 0 the replicated leaves and meta.pkl
-        (every rank calls it)."""
-        rank = self.mesh.rank if self.mesh is not None else 0
+        """A sharded checkpoint directory (checkpoint_sharded.py): each
+        shard is written by the rank that holds it at data coordinate 0,
+        the replicated leaves and meta.pkl by rank 0 (every rank calls
+        it)."""
+        mesh = self.mesh
+        rank = mesh.rank if mesh is not None else 0
+        coords = {a: mesh.coord(a) for a in mesh.axes} if mesh is not None else None
         checkpoint_sharded.save_checkpoint_sharded(
             path, self.state_entries(state), rank=rank, world=self.world,
-            config=config, scheduler=self.scheduler, extra=extra)
+            config=config, scheduler=self.scheduler, extra=extra, coords=coords)
 
     def state_entries(self, state: TrainState) -> list:
         """(key path, this rank's array, Placement) per leaf of ``state``,
         in the order of JAX's TrainState (params, opt_state, step, EMA;
         dict keys sorted), so that params leaf i is JAX's leaf i."""
-        places = self.places or [fsdp_placement(tuple(x.shape), 1)
-                                 for x in tree_leaves(state.params)]
-        rep = fsdp_placement((), 1)
+        places = self.places or [replicated(x.shape) for x in tree_leaves(state.params)]
+        rep = replicated(())
         opt = state.opt_state
 
         def entries(prefix: tuple, tree: Any) -> list:

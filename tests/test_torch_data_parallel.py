@@ -5,9 +5,9 @@ mid-run adam state, fed the noise JAX draws from the same key for the
 padded global batch (params rtol 2e-5 / atol 2e-6, loss terms rtol 1e-5
 beyond the port's own world-1 distance from JAX);
 an odd batch (B = 5, W = 2) with grad_accum 2; the bond predictor's step;
-the port at W = 2 against the port at world 1; the eval step's terms; the
-broadcast start; and MoE refused on a data axis. A narrow 2-block model
-at float32, as tests/test_torch_train.py's."""
+the port at W = 2 against the port at world 1; the eval step's terms; and
+the broadcast start (MoE on a data axis: tests/test_torch_expert_parallel.py).
+A narrow 2-block model at float32, as tests/test_torch_train.py's."""
 import copy
 
 import jax
@@ -26,7 +26,6 @@ from moldiff_tpu.utils.config import load_config
 from moldiff_tpu_torch.models.bond_predictor import BondLossNoise
 from moldiff_tpu_torch.models.moldiff import LossNoise
 from moldiff_tpu_torch.parallel import launch
-from moldiff_tpu_torch.parallel.mesh import Mesh
 from moldiff_tpu_torch.train.trainer import Trainer, TrainNoise
 from moldiff_tpu_torch.utils.checkpoint import params_to_torch
 from moldiff_tpu_torch.utils.tree import tree_leaves
@@ -326,13 +325,3 @@ def test_broadcast_start(params, perturb):
     else:
         assert out[0] == out[1] and out[0].startswith("ok"), out
 
-
-def test_moe_refused_on_a_data_axis():
-    cfg = model_cfg()
-    cfg["denoiser"]["moe"] = {"num_experts": 2, "top_k": 1}
-    kn, ke = TYPES["moldiff"]
-    with pytest.raises(NotImplementedError, match="MoE"):
-        Trainer(make_model("moldiff", cfg, kn, ke), train_cfg(),
-                mesh=Mesh(data=2, backend="gloo"))
-    # world 1 is no data axis: MoE trains as before
-    assert Trainer(make_model("moldiff", cfg, kn, ke), train_cfg(), mesh=Mesh()).mesh is None

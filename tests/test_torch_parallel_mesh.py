@@ -1,7 +1,7 @@
 """moldiff_tpu_torch.parallel.mesh against moldiff_tpu.parallel.mesh:
-make_mesh_from_config over JAX's cases (sizes, the axes' exclusivity, the
-divisibility errors, the axes not yet ported raising, NCCL's one rank per
-card), fsdp_param_sharding's dimension and per-rank shard shapes leaf by
+make_mesh_from_config over JAX's cases (sizes, the pipe and expert meshes
+and their rank layout, the axes' exclusivity, the divisibility errors, the
+graph and model axes raising, NCCL's one rank per card), fsdp_param_sharding's dimension and per-rank shard shapes leaf by
 leaf against JAX's on W = 2 and 4 meshes for the flagship and demo
 trees, pad_batch_to_multiple and shard_batch."""
 import jax
@@ -47,10 +47,23 @@ def test_errors_equal_jax(cfg):
 
 @pytest.mark.parametrize("axis", ["graph", "model", "pipe", "expert"])
 def test_axes_not_ported_raise(axis):
+    """graph and model raise NotImplementedError (the next slice); pipe and
+    expert build JAX's mesh: its axes and sizes, and rank d * A + a at JAX's
+    device (d, a), with each axis's group of ranks."""
     cfg = {"num_devices": 4, axis: 2}
-    jmesh.make_mesh_from_config(cfg, devices=jax.devices())   # JAX builds it
-    with pytest.raises(NotImplementedError, match=f"the {axis} axis is not ported"):
-        mesh.make_mesh_from_config(cfg, "cpu")
+    want = jmesh.make_mesh_from_config(cfg, devices=jax.devices())   # JAX builds it
+    if axis in ("graph", "model"):
+        with pytest.raises(NotImplementedError, match=f"the {axis} axis is not ported"):
+            mesh.make_mesh_from_config(cfg, "cpu")
+        return
+    got = mesh.make_mesh_from_config(cfg, "cpu")
+    assert got.shape == dict(want.shape) and got.world_size == want.size
+    assert (mesh.pipe_enabled(got), mesh.ep_enabled(got)) == (axis == "pipe", axis == "expert")
+    ids = [d.id for d in jax.devices()]
+    for (d, a), dev in np.ndenumerate(want.devices):
+        r = got.at(ids.index(dev.id), "cpu")
+        assert (r.data_rank, r.axis_rank) == (d, a)
+        assert (r.group_rank(mesh.DATA_AXIS, 0), r.group_rank(axis, 0)) == (a, 2 * d)
 
 
 def test_nccl_takes_one_rank_per_card(monkeypatch):

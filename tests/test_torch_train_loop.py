@@ -280,13 +280,20 @@ def test_variant_settings_are_their_yaml_plus_one_override(name, path, section, 
     ("TRAIN_V2_CONT_DP2", {"parallel": {"num_devices": 2}}),
     ("TRAIN_V2_CONT_FSDP2", {"parallel": {"num_devices": 2, "fsdp": True},
                              "train": {"ckpt_sharded": True}}),
+    ("TRAIN_V2_CONT_PP2", {"parallel": {"num_devices": 2, "pipe": 2},
+                           "train": {"num_microbatches": 2}}),
+    ("MOE_V2_EP2", {"parallel": {"num_devices": 2, "expert": 2}}),
+    ("MOE_V2_DP2", {"parallel": {"num_devices": 2}}),
 ])
 def test_parallel_settings_are_their_yaml_plus_overrides(name, sections):
-    """The data-axis settings chip_smoke.py's phase 22 runs:
-    train_v2_cont.yml with its parallel section (and train.ckpt_sharded)
-    overridden, the rest untouched."""
+    """The mesh settings chip_smoke.py's phases 22 and 23 run:
+    train_v2_cont.yml (with MOE_V2's expert bank for the MOE_ ones) with
+    its parallel section (and train.ckpt_sharded or
+    train.num_microbatches) overridden, the rest untouched."""
     with open("configs/train/train_v2_cont.yml") as f:
         want = yaml.safe_load(f)
+    if name.startswith("MOE_"):
+        want["model"]["denoiser"]["moe"] = {"num_experts": 4, "top_k": 2}
     for section, values in sections.items():
         want[section].update(values)
     assert getattr(settings, name) == want

@@ -2,9 +2,11 @@
 starts two gloo processes. A 2-step FSDP run of the denoiser's CLI with
 ``train.ckpt_sharded`` (rank 0's run records: log.txt, metrics.jsonl, the
 event file; both ranks' step records equal; one sharded checkpoint kept),
-then ``--resume`` from that directory; and one data-parallel step of the
+then ``--resume`` from that directory; one data-parallel step of the
 bond predictor's CLI (the params bit-equal on both ranks after it; a
-pickle checkpoint the JAX loader reads)."""
+pickle checkpoint the JAX loader reads); and a MoE denoiser on
+``parallel.expert: 2`` with ``train.ckpt_sharded`` (the expert banks split
+over the two ranks in the directory, read back whole)."""
 import copy
 import json
 import math
@@ -16,7 +18,7 @@ from moldiff_tpu.train.trainer import load_checkpoint as jax_load_checkpoint
 from moldiff_tpu_torch.train import bond_cli
 from moldiff_tpu_torch.train import checkpoint_sharded
 from moldiff_tpu_torch.train import cli as train_cli
-from moldiff_tpu_torch.train.settings import TRAIN_BONDPRED_DEMO, TRAIN_V2_CONT_FSDP2
+from moldiff_tpu_torch.train.settings import MOE_V2_EP2, TRAIN_BONDPRED_DEMO, TRAIN_V2_CONT_FSDP2
 
 
 def _small(settings: dict, section: str) -> dict:
@@ -79,3 +81,23 @@ def test_bond_cli_two_ranks(tmp_path):
     assert s0["replicas_equal"] and s1["replicas_equal"]   # the params bit-equal on both ranks
     blob = jax_load_checkpoint(out["checkpoints"][0])
     assert blob["step"] == 1 and np.isfinite(out["val"][0]["loss"])
+
+
+def test_train_cli_expert_two_ranks(tmp_path):
+    cfg = _small(MOE_V2_EP2, "denoiser")
+    cfg["train"].update(ckpt_sharded=True)
+    logs = []
+    out = train_cli.run(cfg, None, device="cpu", logdir=str(tmp_path / "logs"), max_iters=1,
+                        corpus_mols=40, log=logs.append, check_replicas=True)
+    assert any("data axis: 1 ranks (gloo), expert axis: 2 ranks" in m for m in logs)
+    s0, s1 = (r["steps"][0] for r in out["ranks"])
+    assert s0["loss"] == s1["loss"] and s0["loss_moe"] > 0 and s0["replicas_equal"]
+    path = out["checkpoints"][0]
+    meta = checkpoint_sharded.read_meta(path)
+    experts = [i for i, p in enumerate(meta["paths"])
+               if p[0] == "params" and "experts" in p]
+    assert experts and all(meta["specs"][i]["sharded"] for i in experts)
+    assert sum(os.path.basename(f).startswith(f"leaf{experts[0]}_") for f in os.listdir(path)) == 2
+    st = checkpoint_sharded.load_checkpoint_sharded(path)["state"]
+    w = st["params"]["denoiser"]["blocks"]["node_block"]["node_net"]["experts"]
+    assert w["layers"][0]["lin"]["w"].shape[:2] == (2, 4) and int(st["step"]) == 1

@@ -1,7 +1,8 @@
-"""Workers of the multi-process tests of moldiff_tpu_torch's data axis: each
-rank is a process started by moldiff_tpu_torch.parallel.launch.spawn (gloo
-on the CPU, a FileStore rendezvous). This module imports neither JAX nor
-the JAX package: the spawned interpreters import it."""
+"""Workers of the multi-process tests of moldiff_tpu_torch's data, pipe and
+expert axes: each rank is a process started by
+moldiff_tpu_torch.parallel.launch.spawn (gloo on the CPU, a FileStore
+rendezvous). This module imports neither JAX nor the JAX package: the
+spawned interpreters import it."""
 import copy
 
 import numpy as np
@@ -9,7 +10,8 @@ import torch
 
 from moldiff_tpu_torch.models.bond_predictor import BondPredictor
 from moldiff_tpu_torch.models.moldiff import MolDiff
-from moldiff_tpu_torch.parallel.mesh import Mesh, initialize_distributed, shutdown_distributed
+from moldiff_tpu_torch.parallel.mesh import (Mesh, initialize_distributed, make_mesh_expert,
+                                             make_mesh_pipe, shutdown_distributed)
 from moldiff_tpu_torch.train.trainer import Trainer
 from moldiff_tpu_torch.utils.checkpoint import params_to_torch
 from moldiff_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -160,6 +162,100 @@ def ckpt_worker(rank: int, world: int, init: str, kind: str, model_cfg: dict, kn
         out = whole(trainer, st)
         out["lr"] = st.opt_state.lr
         out["scheduler"] = trainer.scheduler.state_dict()
+        return out
+    finally:
+        shutdown_distributed()
+
+
+def mesh_of(world: int, axes: "dict | None" = None) -> Mesh:
+    """The gloo mesh of ``world`` ranks: data alone, or with ``axes``
+    ({"pipe": P} or {"expert": K}) the data axis takes the rest."""
+    if not axes:
+        return Mesh(data=world, backend="gloo")
+    (axis, size), = axes.items()
+    make = make_mesh_pipe if axis == "pipe" else make_mesh_expert
+    return make(world // size, size, "cpu", "gloo")
+
+
+def axis_run(rank: int, world: int, kind: str, model_cfg: dict, kn: int, ke: int,
+             train_cfg: dict, state: dict, steps: list, axes: "dict | None",
+             ckpt_dir: "str | None" = None, read_dir: "str | None" = None) -> dict:
+    """One trainer on ``mesh_of(world, axes)`` from ``state`` through
+    ``steps`` -> the loss terms and whole state after each step, the shard
+    shapes of params, moments and EMA, the step's pipeline transfers. With
+    ``ckpt_dir``: a sharded directory and a pickle checkpoint
+    (``<ckpt_dir>.ckpt``) written after the steps, read back by a new
+    trainer, and the last step taken again from both the state and the
+    directory. With ``read_dir``: the whole state read from that directory
+    by a new trainer, and its shard shapes."""
+    mesh = mesh_of(world, axes).at(rank, "cpu")
+    trainer = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh)
+    st = start_state(trainer, state)
+    rec = {"pp": trainer.pp, "ep": trainer.ep}
+    st, rec["aux"], rec["states"] = run_steps(trainer, st, steps)
+    rec["pipe"] = dict(trainer.pipe_stats)
+    rec["shapes"] = {name: [tuple(x.shape) for x in tree_leaves(tree)]
+                     for name, tree in (("params", st.params), ("mu", st.opt_state.mu),
+                                        ("ema", st.ema_params)) if tree is not None}
+    if ckpt_dir is not None:
+        trainer.save_checkpoint_sharded(ckpt_dir, st, {"model": model_cfg})
+        trainer.save_checkpoint(ckpt_dir + ".ckpt", st, {"model": model_cfg})
+        rec["last"] = run_steps(trainer, st, steps[-1:])[1:]
+        back = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh)
+        resumed = back.load_checkpoint(ckpt_dir, "cpu")
+        rec["resumed_step"] = resumed.step
+        rec["again"] = run_steps(back, resumed, steps[-1:])[1:]
+    if read_dir is not None:
+        other = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh)
+        got = other.load_checkpoint(read_dir, "cpu")
+        rec["read"] = whole(other, got)
+        rec["read_shapes"] = [tuple(x.shape) for x in tree_leaves(got.params)]
+    return rec
+
+
+def axis_worker(rank: int, world: int, init: str, runs: list) -> list:
+    """:func:`axis_run` of each kwargs dict of ``runs``, in one process
+    group of ``world`` gloo ranks."""
+    torch.set_num_threads(1)
+    initialize_distributed(init, world, rank, backend="gloo")
+    try:
+        return [axis_run(rank, world, **kw) for kw in runs]
+    finally:
+        shutdown_distributed()
+
+
+def pipe_forward_worker(rank: int, world: int, init: str, n_pipe: int, params: dict,
+                        static_cfg: dict, inputs: list, cases: list) -> list:
+    """pipeline_denoiser on ``mesh_of(world, {"pipe": n_pipe})``: per case
+    (num_microbatches, update_pos, with_grads) this rank's outputs of its
+    data shard's rows from its stage's blocks and, with_grads, the
+    gradients of the sum of its outputs with respect to the whole block
+    leaves (zero outside the stage's blocks)."""
+    from moldiff_tpu_torch.models.denoiser import denoiser_static_config
+    from moldiff_tpu_torch.parallel.pipeline import pipeline_denoiser
+
+    torch.set_num_threads(1)
+    initialize_distributed(init, world, rank, backend="gloo")
+    try:
+        mesh = mesh_of(world, {"pipe": n_pipe}).at(rank, "cpu")
+        out = []
+        for n_micro, update_pos, with_grads in cases:
+            static = denoiser_static_config(**static_cfg, update_pos=update_pos)
+            tree = params_to_torch(params[update_pos], "cpu")
+            leaves = [x.requires_grad_(with_grads) for x in tree_leaves(tree)]
+            b = inputs[0].shape[0] // mesh.data
+            rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+            k = static["num_blocks"] // n_pipe
+            s = mesh.axis_rank
+            with torch.set_grad_enabled(with_grads):
+                stage = {"blocks": tree_map(lambda x: x[s * k:(s + 1) * k], tree["blocks"])}
+                res = pipeline_denoiser(stage, static, *(torch.tensor(x[rows]) for x in inputs),
+                                        mesh=mesh, num_microbatches=n_micro)
+            rec = {"out": [x.detach().numpy() for x in res]}
+            if with_grads:
+                grads = torch.autograd.grad(sum(x.sum() for x in res), leaves)
+                rec["grads"] = [g.numpy() for g in grads]
+            out.append(rec)
         return out
     finally:
         shutdown_distributed()
