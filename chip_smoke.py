@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (moldiff_tpu_torch) on one NVIDIA card.
 
-  python3 chip_smoke.py                 # the smoke run (one card, about 11 min)
+  python3 chip_smoke.py                 # the smoke run (one card, about 13 min)
   python3 chip_smoke.py --num-mols 192 --batch-size 128 --budget-s 700
                                         # a longer sampling phase, for the success rate
   python3 chip_smoke.py --num-mols 8 --guided-num-mols 1000 --guided-batch-size 128 \
@@ -219,6 +219,20 @@ Phases, each asserting and none catching a failure:
      printed. It prints the step seconds, the pipe's p2p and broadcast ms
      and the collectives' ms a step, the peak memory a rank and the card's
      name and power limit.
+ 24. the graph and model axes (JAX's plain route, its collectives written
+     out), the ranks on the one card over gloo: the train CLI's rank body
+     with TRAIN_V2_CONT_GRAPH2 (the pair tensors split by receiver over 2
+     ranks) and TRAIN_V2_CONT_TP2 (the MLPs split over 2 ranks), 4 steps
+     each from flagship_v2 at batch 128, and TRAIN_BONDPRED_V2 on graph 2
+     one step from bondpred_40k, in one process group of 2; one step on
+     graph 2 x model 2 (4 ranks) at batch 32; each against the same steps
+     at world size 1 on the plain route (make_mesh_2d(1, 1)): every loss
+     within GRAPH_LOSS_RTOL, GRAPH2's and TP2's params after step 1 within
+     2x the one-ulp witness, no kernel launched on any rank, the replicas'
+     params bit-equal; the kernel route's step-1 loss printed beside the
+     plain route's. It prints the seconds a step, the collectives' ms and
+     bytes a step by kind, the peak memory a rank against world 1's, and
+     the card's name and power limit.
 --gate NAME runs one sampling gate instead of the phases (after 1 and 2):
 the settings of a committed YAML with named overrides (GATES; a CPU test
 holds each equal to its YAML plus its overrides): s100, ddim_s100,
@@ -2867,12 +2881,15 @@ def _mean_later(out: dict, key) -> float:
     return statistics.mean(key(st) for st in steps)
 
 
-def step1_witness(settings: dict, corpus: dict, device) -> tuple:
-    """World 1's params after the first step of run() from flagship_v2 (the
-    loader's first batch and the run's first noise, drawn here as fit()
-    draws them), and per TRAIN_WITNESS_SEEDS the same step from the
+def step1_witness(settings: dict, corpus: dict, device, mesh=None,
+                  checkpoint: str = CHECKPOINT) -> tuple:
+    """World 1's params after the first step of run() from ``checkpoint``
+    (the loader's first batch and the run's first noise, drawn here as
+    fit() draws them), and per TRAIN_WITNESS_SEEDS the same step from the
     gradient with one bf16 ulp of each leaf's largest element added, a
-    random sign, to every element."""
+    random sign, to every element. ``mesh``: the trainer's (a mesh of one
+    rank without a process group: make_mesh_2d(1, 1) takes the plain
+    route)."""
     import torch
 
     from moldiff_tpu_torch.data.loader import BucketedLoader
@@ -2881,8 +2898,8 @@ def step1_witness(settings: dict, corpus: dict, device) -> tuple:
 
     tcfg = settings["train"]
     seed = int(tcfg["seed"])
-    trainer = Trainer(train_model(settings, device), tcfg)
-    state = trainer.load_checkpoint(CHECKPOINT, device)
+    trainer = Trainer(train_model(settings, device), tcfg, mesh=mesh)
+    state = trainer.load_checkpoint(checkpoint, device)
     loader = iter(BucketedLoader(corpus["train"], featurizer(settings), int(tcfg["batch_size"]),
                                  tuple(tcfg["buckets"]), shuffle=True, seed=seed, infinite=True))
     batch = batch_to_device(next(loader), device)
@@ -3170,6 +3187,215 @@ def check_pipe_expert_axes(corpus: dict, results: dict, device) -> list:
         f" ms a step; peak {summary['ep2_peak_gb']:.2f} / {summary['dp2_moe_peak_gb']:.2f} GB")
     say(f"phase 23 (pipe and expert axes): {time.time() - t_phase:.1f} s")
     say(json.dumps({"pipe_expert_axes": summary}))
+    return paths
+
+
+# phase 24: the graph and model axes (JAX's plain route, models/denoiser.py
+# node_edge_net_sharded), both ranks on the one card over gloo, in one
+# process group: TRAIN_V2_CONT_GRAPH2 (the pair tensors split by receiver
+# over 2 ranks) and TRAIN_V2_CONT_TP2 (the MLPs split over 2 ranks) for
+# AXIS_STEPS steps from flagship_v2, and one step of TRAIN_BONDPRED_V2 on
+# graph 2 from bondpred_40k; then one step of MESH3D (graph 2 x model 2, 4
+# ranks) at batch MESH3D_BATCH. Each is held against the same steps at
+# world size 1 on the plain route (make_mesh_2d(1, 1), as JAX runs it) in
+# this call: every loss within GRAPH_LOSS_RTOL; the gradient norm before
+# clipping (a backward that sums over graph as well as data scales it by the
+# graph size, which Adam's first step all but hides in the params) of step 1,
+# from the same params and batch, within GRAPH_NORM_RTOL_1, one bf16 unit
+# roundoff (the two backward passes differ in the order of their bf16 sums),
+# and of the later steps within GRAPH_NORM_RTOL (after step 1 the params
+# differ where Adam's first step flipped a sign, and the norm moves by
+# percents: phase 22's data axis, on the kernel route, by up to 4e-2); the
+# params after step 1 of every run each leaf within TRAIN_WITNESS_RATIO x its
+# one-ulp witness (phase 23's, from the plain route's gradient of that run's
+# settings); and no kernel of the table launched on any of these ranks. The two routes differ at world
+# 1 by bf16 roundings: the kernel route's step-1 loss is printed beside the
+# plain route's, not held.
+GRAPH_LOSS_RTOL = 1e-3
+GRAPH_NORM_RTOL_1 = 2.0 ** -8
+GRAPH_NORM_RTOL = 0.1
+MESH3D_BATCH = 32
+
+
+def _plain_run_local(config: dict, device, mesh, log, bond: bool = False, **kwargs) -> dict:
+    """cli.run_ranks' body for one rank without a process group: the train
+    CLI's (bond_cli's with ``bond``) rank body on make_mesh_2d(1, 1), so the
+    model takes JAX's plain route at world size 1."""
+    from moldiff_tpu_torch.parallel.mesh import make_mesh_2d
+    from moldiff_tpu_torch.train import bond_cli
+    from moldiff_tpu_torch.train import cli as train_cli
+
+    run_local = bond_cli._run_local if bond else train_cli._run_local
+    return run_local(config, device, make_mesh_2d(1, 1, device, "gloo"), log, **kwargs)
+
+
+def _axes_run_local(config: dict, device, mesh, log, runs: list, **kwargs) -> dict:
+    """One rank of cli.run_ranks: per (name, settings, resume, steps, bond)
+    of ``runs`` the train CLI's (bond_cli's) rank body on the mesh of
+    ``settings``' parallel section at this rank, in one process group ->
+    {"runs": {name: its summary}}."""
+    from moldiff_tpu_torch.parallel.mesh import make_mesh_from_config
+    from moldiff_tpu_torch.train import bond_cli
+    from moldiff_tpu_torch.train import cli as train_cli
+    from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
+
+    out = {}
+    for name, settings, resume, steps, bond in runs:
+        m = make_mesh_from_config(settings["parallel"], device, mesh.backend).at(mesh.rank, device)
+        assert m.world_size == mesh.world_size
+        run_local = bond_cli._run_local if bond else train_cli._run_local
+        start = int(load_checkpoint_numpy(resume)["step"])
+        out[name] = _summary(run_local(copy_settings(settings, ckpt_freq=1), device, m, log,
+                                       **dict(kwargs, name=name, resume=resume,
+                                              max_iters=start + steps)))
+    return {"runs": out}
+
+
+def _comm(out: dict) -> dict:
+    """Per rank, the mean over steps 2-AXIS_STEPS (or the one step) of the
+    seconds and bytes a step of the model's collectives (by kind) and of
+    the trainer's."""
+    keys = [f"{k}_{q}" for k in ("all_reduce", "all_gather", "reduce_scatter")
+            for q in ("s", "bytes", "calls")]
+    per_rank = []
+    for rank in out["ranks"]:
+        steps = rank["steps"][1:] or rank["steps"]
+        rec = {k: statistics.mean(st["model_comm"][k] for st in steps) for k in keys}
+        rec["trainer_s"] = statistics.mean(st["comm_s"] for st in steps)
+        rec["s_per_step"] = statistics.mean(st["s"] for st in steps)
+        rec["peak_gb"] = max(st.get("peak_bytes", 0) for st in rank["steps"]) / 1e9
+        per_rank.append(rec)
+    return per_rank
+
+
+def check_graph_model_axes(corpus: dict, results: dict, device) -> list:
+    """Phase 24: (a) TRAIN_V2_CONT_GRAPH2 and TRAIN_V2_CONT_TP2 through the
+    train CLI's rank body, AXIS_STEPS steps each from flagship_v2 at batch
+    128, and GRAPH2_BOND one step from bondpred_40k, the 2 ranks on the one
+    card over gloo in one process group, params checked equal over the
+    replicas after each step; (b) MESH3D (data 1, graph 2, model 2) one
+    step at batch MESH3D_BATCH through run(), 4 ranks; (c) each against the
+    same steps at world size 1 on the plain route, and the plain route's
+    step-1 loss against the kernel route's (one step of phase 10's
+    settings). Every step of every rank launches no kernel. -> the launch
+    counts of the runs."""
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.parallel.mesh import make_mesh_2d
+    from moldiff_tpu_torch.train.settings import (TRAIN_BONDPRED_V2, TRAIN_V2_CONT_GRAPH2,
+                                                  TRAIN_V2_CONT_TP2)
+
+    t_phase = time.time()
+    zero = {k: 0 for k in train_launches(TRAIN_SETTINGS, results)}
+    bond_graph2 = copy_settings(TRAIN_BONDPRED_V2)
+    bond_graph2["parallel"] = {"num_devices": 2, "graph": 2}
+    mesh3d = copy_settings(TRAIN_SETTINGS, batch_size=MESH3D_BATCH)
+    mesh3d["parallel"] = {"num_devices": 4, "graph": 2, "model": 2}
+    paths = []
+
+    def world_one(settings, name, resume, steps, **kw):
+        kernels.reset_launch_counts()
+        out = _axis_run(settings, corpus, device, name, resume, steps, **kw)
+        paths.append(dict(kernels.launch_counts))
+        return out
+
+    # (c) first: world 1, the plain route and the kernel route's step 1
+    t0 = time.time()
+    plain = world_one(TRAIN_SETTINGS, "plain_world1", CHECKPOINT, AXIS_STEPS,
+                      build=_plain_run_local)
+    wall_plain = time.time() - t0
+    assert paths[-1] == zero, paths[-1]
+    kernel = world_one(TRAIN_SETTINGS, "kernel_world1", CHECKPOINT, 1)
+    k1, p1_loss = kernel["steps"][0]["loss"], plain["steps"][0]["loss"]
+    say(f"  world 1, step 1 from flagship_v2 (B=128, N={plain['steps'][0]['n']}): plain route "
+        f"loss {p1_loss:.7f}, kernel route {k1:.7f} (rel {abs(k1 - p1_loss) / abs(p1_loss):.2e}); "
+        f"s/step plain {_mean_later(plain, lambda st: st['s']):.4f}, peak "
+        f"{max(st.get('peak_bytes', 0) for st in plain['steps']) / 1e9:.2f} GB")
+    bond1 = world_one(bond_graph2 | {"parallel": {}}, "bond_plain_world1", BOND_PREDICTOR_40K,
+                      1, build=_plain_run_local, bond=True)
+    one3d = world_one(mesh3d | {"parallel": {}}, "mesh3d_plain_world1", CHECKPOINT, 1,
+                      build=_plain_run_local)
+
+    # (a) GRAPH2, TP2 and the predictor on graph 2, one process group
+    t0 = time.time()
+    runs = [("graph2", TRAIN_V2_CONT_GRAPH2, CHECKPOINT, AXIS_STEPS, False),
+            ("tp2", TRAIN_V2_CONT_TP2, CHECKPOINT, AXIS_STEPS, False),
+            ("bond_graph2", bond_graph2, BOND_PREDICTOR_40K, 1, True)]
+    both = _axis_run(TRAIN_V2_CONT_GRAPH2, corpus, device, "axes", CHECKPOINT, AXIS_STEPS,
+                     backend="gloo", check_replicas=True, build=_axes_run_local, runs=runs)
+    wall_two = time.time() - t0
+    outs = {name: dict(both["runs"][name], ranks=[r["runs"][name] for r in both["ranks"]])
+            for name, *_ in runs}
+    # (b) graph 2 x model 2, four ranks
+    t0 = time.time()
+    outs["mesh3d"] = _axis_run(mesh3d, corpus, device, "mesh3d", CHECKPOINT, 1, backend="gloo",
+                               check_replicas=True)
+    wall_3d = time.time() - t0
+
+    rels, norm_rels = {}, {}
+    for name, ref in (("graph2", plain), ("tp2", plain), ("bond_graph2", bond1),
+                      ("mesh3d", one3d)):
+        out = outs[name]
+        settings = TRAIN_BONDPRED_V2 if name.startswith("bond") else TRAIN_SETTINGS
+        for r, rank in enumerate(out["ranks"]):
+            for st in rank["steps"]:
+                assert st["launches"] == zero, (name, r, st["it"], st["launches"])
+                assert st["replicas_equal"], (name, r, st["it"])
+                check_step_terms(st, settings)
+            paths.append({k: 0 for k in zero})
+        rels[name], norm_rels[name] = [], []
+        for k, (a, b) in enumerate(zip(out["steps"], ref["steps"])):
+            assert a["it"] == b["it"] and a["n"] == b["n"], (name, a["it"], b["it"])
+            rels[name].append(abs(a["loss"] - b["loss"]) / abs(b["loss"]))
+            norm_rels[name].append(abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]))
+            say(f"  {name} step {a['it']} N={a['n']}: loss {a['loss']:.7f} world 1 (plain) "
+                f"{b['loss']:.7f} (rel {rels[name][-1]:.2e}); grad_norm {a['grad_norm']:.6f} "
+                f"world 1 {b['grad_norm']:.6f} (rel {norm_rels[name][-1]:.2e}); s/step "
+                f"{a['s']:.4f} world 1 {b['s']:.4f}")
+        assert len(rels[name]) == len(ref["steps"]), (name, len(out["steps"]))
+        assert max(rels[name]) <= GRAPH_LOSS_RTOL, (name, rels[name])
+        assert norm_rels[name][0] <= GRAPH_NORM_RTOL_1, (name, norm_rels[name])
+        assert max(norm_rels[name]) <= GRAPH_NORM_RTOL, (name, norm_rels[name])
+
+    # each run's params after step 1 against its world-1 plain run's,
+    # within the one-ulp witness of that run's settings
+    wit = {}
+    for ref_name, ref, settings, ckpt, names in (
+            ("world 1 plain", plain, TRAIN_SETTINGS, CHECKPOINT, ("graph2", "tp2")),
+            ("world 1 plain predictor", bond1, bond_graph2 | {"parallel": {}},
+             BOND_PREDICTOR_40K, ("bond_graph2",)),
+            ("world 1 plain B=32", one3d, mesh3d | {"parallel": {}}, CHECKPOINT, ("mesh3d",))):
+        p1, witness = step1_witness(settings, corpus, device, mesh=make_mesh_2d(1, 1, device),
+                                    checkpoint=ckpt)
+        for name in names:
+            wit[name] = check_step1_witness(name.upper(), _params_after(outs[name]), p1, witness)
+        check_step1_witness(f"{ref_name} (run() against its recomputation)", _params_after(ref),
+                            p1, witness)
+    comm = {name: _comm(outs[name]) for name in ("graph2", "tp2", "mesh3d")}
+    for name, per_rank in comm.items():
+        for r, c in enumerate(per_rank):
+            say(f"  {name} rank {r}: {c['s_per_step']:.4f} s/step; collectives a step: "
+                + ", ".join(f"{k} {1e3 * c[k + '_s']:.1f} ms {c[k + '_bytes'] / 1e6:.1f} MB "
+                            f"({c[k + '_calls']:.0f} calls)"
+                            for k in ("all_gather", "reduce_scatter", "all_reduce"))
+                + f", the trainer's {1e3 * c['trainer_s']:.1f} ms; peak {c['peak_gb']:.2f} GB")
+    peak1 = max(st.get("peak_bytes", 0) for st in plain["steps"]) / 1e9
+    summary = {
+        "world1_plain_s_per_step": _mean_later(plain, lambda st: st["s"]),
+        "world1_plain_peak_gb": peak1,
+        "world1_kernel_step1_loss": k1, "world1_plain_step1_loss": p1_loss,
+        "loss_rel": rels, "grad_norm_rel": norm_rels, "step1_params": wit, "comm": comm,
+        "peak_gb_over_world1": {name: max(c["peak_gb"] for c in per_rank) / max(peak1, 1e-9)
+                                for name, per_rank in comm.items() if name != "mesh3d"},
+        "walls_s": {"plain_world1": wall_plain, "graph2_tp2_bond": wall_two, "mesh3d": wall_3d},
+        "card": nvidia_smi()}
+    say(f"graph/model axes: GRAPH2 {comm['graph2'][0]['s_per_step']:.4f} s/step, TP2 "
+        f"{comm['tp2'][0]['s_per_step']:.4f}, world 1 plain {summary['world1_plain_s_per_step']:.4f}"
+        f"; peak a rank GRAPH2 {summary['peak_gb_over_world1']['graph2']:.2f}x, TP2 "
+        f"{summary['peak_gb_over_world1']['tp2']:.2f}x world 1's {peak1:.2f} GB")
+    say(f"phase 24 (graph and model axes): {time.time() - t_phase:.1f} s")
+    say(json.dumps({"graph_model_axes": summary}))
     return paths
 
 
@@ -3729,9 +3955,14 @@ def main() -> None:
     # card over gloo), the pipeline through NCCL at world size 1
     axis_counts = check_pipe_expert_axes(corpus, results, device)
 
+    # 24. the graph and model axes: JAX's plain route with the pair tensors
+    # split by receiver and the MLPs split (2 and 4 ranks on the one card
+    # over gloo), against world size 1 on the plain route
+    graph_counts = check_graph_model_axes(corpus, results, device)
+
     main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts,
                   b_counts, x_counts, a_counts, v_counts, r_counts, rr_counts, *variant_counts,
-                  *data_counts, *axis_counts)
+                  *data_counts, *axis_counts, *graph_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(c[name] for c in main_paths),

@@ -71,6 +71,9 @@ class BondPredictor:
         # cross-entropy class weights, "no bond" down-weighted (:60-62)
         self.edge_weight = torch.tensor([0.1] + [1.0] * (num_edge_types - 1),
                                         dtype=torch.float32, device=self.device)
+        # set by the trainer on a mesh with a graph axis: MolDiff.pair_sharding
+        # (bond_predictor.py:65)
+        self.pair_sharding = None
 
     def init_params(self, generator: torch.Generator) -> dict:
         """Fresh float32 params on the predictor's device from ``generator``
@@ -121,14 +124,15 @@ class BondPredictor:
             t_norm = torch.zeros((b, 1, 1), dtype=torch.float32, device=h_node.device)
         out = node_edge_net(params["encoder"], self.encoder_static, h_node_emb, pos_node,
                             h_edge_emb, node_time=t_norm, edge_time=t_norm, pair_mask=pair_mask,
-                            blocks=blocks, node_mask=node_mask)
+                            blocks=blocks, node_mask=node_mask, pair_sharding=self.pair_sharding)
         h_node_out, _, h_edge_out = out[:3]
         dev = str(h_node.device)
         iu = graph_ops._index_tensor("iu", n, dev)
         ju = graph_ops._index_tensor("ju", n, dev)
         h_half_sym = graph_ops.dense_to_halfedge(graph_ops.symmetrize_dense(h_edge_out))
         h_node_pair = h_node_out[:, iu] + h_node_out[:, ju]
-        pred = mlp(params["edge_decoder"], torch.cat([h_half_sym, h_node_pair], dim=-1))
+        tp = self.pair_sharding.model if self.pair_sharding is not None else None
+        pred = mlp(params["edge_decoder"], torch.cat([h_half_sym, h_node_pair], dim=-1), tp)
         if return_moe_aux:
             return pred, (out[3] if len(out) > 3 else None)
         return pred

@@ -39,6 +39,44 @@ The model variants take JAX's routes (denoiser.py:91-145, :234-246, :344,
   PyTorch in the compute dtype, since the kernels compute gated blocks only
   (JAX takes them only where ``"gate" in p``);
 - ``fuse_block`` is switched off, silently, under either variant.
+
+On a mesh with a graph axis (``pair_sharding``, parallel/mesh.py: JAX sets
+it whenever the mesh has a ``graph`` axis, of any size) JAX turns the
+kernels off (denoiser.py:521-527, :546-552, :576, :585) and runs its plain
+route, gated or not, with GSPMD placing the collectives; so does the port
+(:func:`node_edge_net_sharded`), with every collective written out
+(parallel/collectives.py). No kernel of ops/kernels.py runs there. The
+receiver axis (axis 1) of every [B, N, N, .] tensor is split over the G
+graph ranks: rank g holds rows [g n_loc, (g + 1) n_loc), n_loc = ceil(N /
+G); an N that does not divide is padded with receiver rows whose pair mask
+is 0. Positions and node features stay replicated. Per block:
+
+- the distances, their smearing and the edge embedding: the rank's rows;
+- NodeBlock: the sum over senders is local; the rank's rows of the update
+  are all-gathered;
+- EdgeBlock: T (a sum over receivers) is a sum across the ranks of which
+  each needs its own rows: a reduce-scatter; U (a sum over senders) is
+  local, and every column needs it: an all-gather;
+- PosUpdate: the force sum is local; the rank's rows of the position delta
+  are all-gathered;
+- after the last block the edge features' rows are all-gathered, so the
+  decoders and the loss run replicated.
+
+The gradient rule that keeps this right: a replicated tensor or parameter
+that enters row-split work goes through ``copy_to`` (identity; its
+gradient all-reduced over graph, since each rank's work saw only its
+rows); a row-split tensor made replicated is all-gathered, its backward
+taking the rank's slice; a sum across ranks is reduce-scattered, its
+backward all-gathered. The denoiser's params all enter row-split work, so
+they pass ``copy_to`` once at the entry (one all-reduce of their
+gradients); the block's input node features and positions pass it once
+per block, and the updated node features once more before PosUpdate.
+Under this rule every parameter's gradient is whole and equal on every
+graph rank, and the trainer sums only over ``data``: all-reducing the
+gradients over ``graph`` as well would count the replicated work (the
+embedders, the decoders, the loss) G times. With a model axis the MLPs
+split over it (models/nn.py ShardedMLP) run as Megatron's pair inside
+this route.
 """
 from __future__ import annotations
 
@@ -46,8 +84,11 @@ from typing import Optional
 
 import torch
 
+import torch.nn.functional as F
+
 from ..ops import kernels
-from ..utils.tree import tree_map
+from ..parallel import collectives
+from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from .moe import init_moe_mlp, moe_mlp, normalize_moe_cfg
 from .nn import (GaussianSmearing, init_layernorm, init_linear, init_mlp, layernorm, linear,
                  linear_parts, mlp, mlp_parts, safe_distance)
@@ -179,83 +220,55 @@ def node_block(p, x, edge_attr, node_time, pair_mask, node_mask=None, moe_cfg=No
     """NodeBlock (denoiser.py:65-145) -> its output, and the expert bank's
     load-balance loss under ``moe_cfg`` (then ``node_mask`` is needed).
     Gated and dense: the kernel message sum (differentiable through the
-    backward kernel). Otherwise JAX's plain path (:114-142): the routed bank
-    or the node MLP, the edge MLP, the message linear, the gate MLP over
-    [edge ‖ node of the sender ‖ time] where gated, summed over senders in
-    float32. Then centroid linear, LN, relu, out."""
-    moe_aux = None
+    backward kernel). Otherwise JAX's plain path (:func:`_node_aggr`) on the
+    routed bank's or the node MLP's output. Then centroid linear, LN, relu,
+    out."""
     if moe_cfg is not None:
         h_node, moe_aux = moe_mlp(p["node_net"], x, node_mask, moe_cfg)
-    if "gate" in p and moe_aux is None:
+        aggr = _node_aggr(p, x, edge_attr, node_time, pair_mask, h_node=h_node)
+        return _node_out(p, x, aggr), moe_aux
+    if "gate" in p:
         aggr = kernels.node_block_aggregate_ad(
             {k: p[k] for k in ("node_net", "edge_net", "msg_net", "gate")},
             x, edge_attr, node_time, pair_mask)
-    else:
-        if moe_aux is None:
-            h_node = mlp(p["node_net"], x)
-        msg = linear(p["msg_net"], mlp(p["edge_net"], edge_attr) * h_node[:, None, :, :])
-        if "gate" in p:
-            gate = mlp_parts(p["gate"], (edge_attr, x[:, None, :, :],
-                                         node_time.to(x.dtype)[..., None]),
-                             (edge_attr.shape[-1], x.shape[-1], 1))
-            msg = msg * torch.sigmoid(gate)
-        aggr = _sum_pairs(msg, pair_mask, 2)
-    out = linear(p["centroid_lin"], x) + aggr
-    out = layernorm(p["ln"], out)
-    out = linear(p["out"], torch.relu(out))
-    return out if moe_cfg is None else (out, moe_aux)
-
-
-def _bond_ffn_ungated(p, bond_feat, node_feat):
-    """An ungated BondFFN (denoiser.py:163-195): the bond and node linears'
-    product through the inter MLP."""
-    inter = linear(p["bond_linear"], bond_feat) * linear(p["node_linear"], node_feat)
-    return mlp(p["inter"], inter)
+        return _node_out(p, x, aggr)
+    return _node_block_rows(p, _WHOLE, x, edge_attr, node_time, pair_mask, x.shape[1])
 
 
 def edge_block(p, h_bond, h_node, bond_time, pair_mask, edge_full: bool = False):
     """EdgeBlock (denoiser.py:219-290). Gated: with ``edge_full`` the whole
     block is one kernel, forward and backward (rows 6, 7); otherwise the
     partial path: the kernel pair aggregate (differentiable through its
-    backward kernel). Ungated: JAX's plain chains and sums. Then the
-    node/self FFNs, LN, relu, out."""
-    h_left, h_right = h_node[:, :, None, :], h_node[:, None, :, :]
-    if "gate" in p["bond_ffn_left"]:
-        if edge_full:
-            return kernels.edge_block_full_ad(p, h_bond, h_node, bond_time, pair_mask)
-        t_pn, u_pn = kernels.edge_pair_aggregate_ad(
-            {"left": p["bond_ffn_left"], "right": p["bond_ffn_right"]},
-            h_bond, h_node, bond_time, pair_mask)
-    else:
-        t_pn = _sum_pairs(_bond_ffn_ungated(p["bond_ffn_left"], h_bond, h_left), pair_mask, 1)
-        u_pn = _sum_pairs(_bond_ffn_ungated(p["bond_ffn_right"], h_bond, h_right), pair_mask, 2)
-    h = (t_pn[:, :, None, :] + u_pn[:, None, :, :]
-         + linear(p["node_ffn_left"], h_left)
-         + linear(p["node_ffn_right"], h_right)
-         + linear(p["self_ffn"], h_bond))
-    h = layernorm(p["ln"], h)
-    return linear(p["out"], torch.relu(h))
+    backward kernel), then :func:`_edge_out`. Ungated: JAX's plain route
+    (:func:`_edge_block_rows`)."""
+    if "gate" not in p["bond_ffn_left"]:
+        return _edge_block_rows(p, _WHOLE, h_bond, h_node, bond_time, pair_mask,
+                                h_node.shape[1])
+    if edge_full:
+        return kernels.edge_block_full_ad(p, h_bond, h_node, bond_time, pair_mask)
+    t_pn, u_pn = kernels.edge_pair_aggregate_ad(
+        {"left": p["bond_ffn_left"], "right": p["bond_ffn_right"]},
+        h_bond, h_node, bond_time, pair_mask)
+    return _edge_out(p, h_bond, h_node[:, :, None, :], h_node[:, None, :, :], t_pn, u_pn)
 
 
 def pos_update(p, h_node, h_edge, rel_vec, distance, edge_time, pair_mask):
     """PosUpdate (denoiser.py:338-372) -> the float32 position delta.
     Gated: the kernel alone (pallas_bwd path), differentiable through its
-    backward kernel. Ungated: JAX's plain math, the force in float32."""
+    backward kernel. Ungated: JAX's plain route (:func:`_pos_update_rows`),
+    the force in float32."""
     if "gate" in p["edge_lin"]:
         return kernels.pos_update_ad(p, h_node, h_edge, rel_vec, distance, edge_time, pair_mask)
-    left = mlp(p["left_lin_edge"], h_node)[:, :, None, :]
-    right = mlp(p["right_lin_edge"], h_node)[:, None, :, :]
-    weight = _bond_ffn_ungated(p["edge_lin"], h_edge, left * right)
-    mask = pair_mask[..., None]
-    d_safe = torch.where(mask > 0, distance[..., None], torch.ones_like(mask))
-    force = weight.to(torch.float32) * rel_vec / d_safe / (d_safe + 1.0)
-    return torch.sum(force * mask.to(torch.float32), dim=2)
+    return _pos_update_rows(p, _WHOLE, h_node, h_edge, rel_vec, distance, edge_time, pair_mask,
+                            h_node.shape[1])
 
 
-def dist_features(pos_node, static, dtype):
-    """(smeared distances in ``dtype``, rel vectors, distances), all pairs
-    (denoiser.py:465-478)."""
-    rel = pos_node[:, :, None, :] - pos_node[:, None, :, :]
+def dist_features(pos_node, static, dtype, rows=None):
+    """(smeared distances in ``dtype``, rel vectors, distances) of the
+    receivers ``rows`` (all of ``pos_node`` by default) against every
+    sender (denoiser.py:465-478)."""
+    rows = pos_node if rows is None else rows
+    rel = rows[:, :, None, :] - pos_node[:, None, :, :]
     dist = safe_distance(rel)
     return static["smearing"](dist).to(dtype), rel, dist
 
@@ -335,14 +348,20 @@ def prepare_blocks(params: dict, static: dict) -> list:
 
 
 def node_edge_net(params, static, h_node, pos_node, h_edge, node_time, edge_time,
-                  pair_mask, blocks: Optional[list] = None, node_mask=None):
+                  pair_mask, blocks: Optional[list] = None, node_mask=None,
+                  pair_sharding=None):
     """Forward pass -> (h_node, pos_node, h_edge), and with ``moe`` also the
     load-balance loss, the mean over blocks (denoiser.py:600-666);
     ``node_mask`` [B, N] is needed under ``moe``.
 
     ``blocks``: the output of :func:`prepare_blocks` for ``params``; made
     here when not given. A Python loop over blocks replaces ``lax.scan``.
+    ``pair_sharding`` (parallel/collectives.py PairSharding): JAX's plain
+    route, row-split over the graph axis (:func:`node_edge_net_sharded`).
     """
+    if pair_sharding is not None:
+        return node_edge_net_sharded(params, static, h_node, pos_node, h_edge, node_time,
+                                     edge_time, pair_mask, pair_sharding, node_mask=node_mask)
     dt = compute_dtype(static)
     in_dtype = h_node.dtype
     if blocks is None:
@@ -360,3 +379,180 @@ def node_edge_net(params, static, h_node, pos_node, h_edge, node_time, edge_time
     if static["moe"] is not None:
         return out + (torch.stack(auxes).mean(),)
     return out
+
+
+# -- JAX's plain route, row-split over the graph axis ------------------------------
+
+# one rank holding every row, no model split: every collective is the
+# identity (the ungated blocks off a graph axis take the route so)
+_WHOLE = collectives.PairSharding(collectives.Axis("graph"), collectives.Axis("model"))
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended on axis 1 up to ``rows``."""
+    extra = rows - x.shape[1]
+    return x if extra == 0 else F.pad(x, [0, 0] * (x.dim() - 2) + [0, extra])
+
+
+def _own_rows(ps, x: torch.Tensor, n_loc: int) -> torch.Tensor:
+    """This graph rank's rows of axis 1 of ``x`` (padded), no collective:
+    for a tensor that passed ``copy_to``."""
+    return _pad_rows(x, n_loc * ps.graph.size).narrow(1, ps.graph.rank * n_loc, n_loc)
+
+
+def bond_ffn(p, bond_feat, node_feat, time, tp=None):
+    """BondFFN, JAX's plain math (denoiser.py:163-195): the bond and node
+    linears' product through the inter MLP, gated (where ``gate`` is in
+    ``p``) by the gate MLP over [bond || node || time]. ``tp``: the model
+    axis of split MLPs."""
+    while time.dim() < bond_feat.dim():
+        time = time[..., None]
+    inter = linear(p["bond_linear"], bond_feat) * linear(p["node_linear"], node_feat)
+    inter = mlp(p["inter"], inter, tp)
+    if "gate" in p:
+        gate = mlp_parts(p["gate"], (bond_feat, node_feat, time.to(bond_feat.dtype)),
+                         (bond_feat.shape[-1], node_feat.shape[-1], 1), tp)
+        inter = inter * torch.sigmoid(gate)
+    return inter
+
+
+def _node_aggr(p, x, edge_attr, node_time, pair_mask, tp=None, h_node=None):
+    """NodeBlock's plain message sum (denoiser.py:114-142) over the senders
+    of ``x`` [B, N, Dn] into the receivers of ``edge_attr`` and
+    ``pair_mask``: the node MLP (or ``h_node``, the routed bank's output),
+    the edge MLP, the message linear, the gate MLP over [edge || node of the
+    sender || time] where gated, summed in float32. ``tp``: the model axis
+    of split MLPs."""
+    if h_node is None:
+        h_node = mlp(p["node_net"], x, tp)
+    msg = linear(p["msg_net"], mlp(p["edge_net"], edge_attr, tp) * h_node[:, None, :, :])
+    if "gate" in p:
+        gate = mlp_parts(p["gate"], (edge_attr, x[:, None, :, :],
+                                     node_time.to(x.dtype)[..., None]),
+                         (edge_attr.shape[-1], x.shape[-1], 1), tp)
+        msg = msg * torch.sigmoid(gate)
+    return _sum_pairs(msg, pair_mask, 2)
+
+
+def _node_out(p, x_rows, aggr):
+    """NodeBlock's tail: the centroid linear of the receivers ``x_rows``
+    plus the message sum, LN, relu, out."""
+    out = linear(p["centroid_lin"], x_rows) + aggr
+    out = layernorm(p["ln"], out)
+    return linear(p["out"], torch.relu(out))
+
+
+def _node_block_rows(p, ps, x, edge_attr, node_time, pair_mask, n_loc: int):
+    """NodeBlock's plain route for this rank's rows: ``x`` [B, N, Dn]
+    (passed ``copy_to``), ``edge_attr`` and ``pair_mask`` the rank's rows
+    -> its rows of the update."""
+    aggr = _node_aggr(p, x, edge_attr, node_time, pair_mask, ps.model)
+    return _node_out(p, _own_rows(ps, x, n_loc), aggr)
+
+
+def _edge_block_rows(p, ps, h_bond, x, bond_time, pair_mask, n_loc: int):
+    """EdgeBlock's plain route (denoiser.py:263-283) for this rank's rows:
+    T (the sum over receivers) reduce-scattered to the rank's rows, U (the
+    sum over senders) all-gathered for every column."""
+    graph, tp = ps.graph, ps.model
+    n, dt = x.shape[1], h_bond.dtype
+    mask = pair_mask.to(dt)[..., None]
+    h_left = _own_rows(ps, x, n_loc)[:, :, None, :]
+    h_right = x[:, None, :, :]
+    msg_left = bond_ffn(p["bond_ffn_left"], h_bond, h_left, bond_time, tp) * mask
+    t_part = torch.sum(msg_left, dim=1, dtype=torch.float32)
+    t_rows = collectives.reduce_scatter(graph, _pad_rows(t_part, n_loc * graph.size), 1).to(dt)
+    msg_right = bond_ffn(p["bond_ffn_right"], h_bond, h_right, bond_time, tp) * mask
+    u_rows = torch.sum(msg_right, dim=2, dtype=torch.float32).to(dt)
+    u = collectives.gather_shared(graph, u_rows, 1)[:, :n]
+    return _edge_out(p, h_bond, h_left, h_right, t_rows, u)
+
+
+def _edge_out(p, h_bond, h_left, h_right, t, u):
+    """EdgeBlock's tail (denoiser.py:278-290): the pair sums T (by
+    receiver) and U (by sender), the node and self FFNs, LN, relu, out."""
+    h = (t[:, :, None, :] + u[:, None, :, :]
+         + linear(p["node_ffn_left"], h_left)
+         + linear(p["node_ffn_right"], h_right)
+         + linear(p["self_ffn"], h_bond))
+    h = layernorm(p["ln"], h)
+    return linear(p["out"], torch.relu(h))
+
+
+def _pos_update_rows(p, ps, x, h_edge, rel_vec, distance, edge_time, pair_mask, n_loc: int):
+    """PosUpdate's plain route (denoiser.py:352-375) for this rank's rows
+    -> its rows of the float32 position delta."""
+    tp = ps.model
+    left = mlp(p["left_lin_edge"], _own_rows(ps, x, n_loc), tp)[:, :, None, :]
+    right = mlp(p["right_lin_edge"], x, tp)[:, None, :, :]
+    weight = bond_ffn(p["edge_lin"], h_edge, left * right, edge_time, tp)
+    mask = pair_mask[..., None]
+    d = distance[..., None]
+    d_safe = torch.where(mask > 0, d, torch.ones_like(d))
+    force = weight.to(torch.float32) * rel_vec / d_safe / (d_safe + 1.0)
+    return torch.sum(force * mask.to(torch.float32), dim=2)
+
+
+def _block_rows(blk, static, ps, h_node, pos_node, h_edge, node_time, edge_time, pair_mask,
+                n_loc: int, dist0=None) -> tuple:
+    """One block (denoiser.py:481-597) on this rank's rows of the edge
+    features -> (h_node, pos_node: replicated; h_edge: the rank's rows)."""
+    graph = ps.graph
+    n = h_node.shape[1]
+    if static["update_pos"] or dist0 is None:
+        x, pos = collectives.copy_to(graph, h_node, pos_node)
+        h_dist, rel_vec, distance = dist_features(pos, static, h_edge.dtype,
+                                                  _own_rows(ps, pos, n_loc))
+    else:
+        x = collectives.copy_to(graph, h_node)
+        h_dist, rel_vec, distance = dist0
+    if static["update_edge"]:
+        h_edge_i = linear_parts(blk["edge_emb"], (h_edge, h_dist),
+                                (h_edge.shape[-1], h_dist.shape[-1]))
+    else:
+        h_edge_i = linear(blk["edge_emb"], h_dist)
+    delta = _node_block_rows(blk["node_block"], ps, x, h_edge_i, node_time, pair_mask, n_loc)
+    delta = collectives.gather(graph, delta, 1)[:, :n]
+    if static["update_edge"]:
+        h_edge_i = h_edge_i + _edge_block_rows(blk["edge_block"], ps, h_edge_i, x, edge_time,
+                                               pair_mask, n_loc)
+    h_node = h_node + delta
+    if static["update_pos"]:
+        x = collectives.copy_to(graph, h_node)
+        d_pos = _pos_update_rows(blk["pos_block"], ps, x, h_edge_i, rel_vec, distance,
+                                 edge_time, pair_mask, n_loc)
+        pos_node = pos_node + collectives.gather(graph, d_pos, 1)[:, :n]
+    return h_node, pos_node, h_edge_i
+
+
+def node_edge_net_sharded(params, static, h_node, pos_node, h_edge, node_time, edge_time,
+                          pair_mask, pair_sharding, node_mask=None):
+    """:func:`node_edge_net` by JAX's plain route with the pair tensors'
+    receiver axis split over the graph axis of ``pair_sharding`` (and the
+    split MLPs over its model axis), as the module docstring sets out ->
+    (h_node, pos_node, h_edge), all replicated. Every rank of the graph
+    and model axes passes the same (replicated) inputs and its shards of
+    ``params``."""
+    if static.get("moe") is not None:
+        raise NotImplementedError(
+            "a MoE denoiser beside a graph or model axis is not ported (ROADMAP.md)")
+    ps, graph = pair_sharding, pair_sharding.graph
+    dt, in_dtype = compute_dtype(static), h_node.dtype
+    n = h_node.shape[1]
+    n_loc = -(-n // graph.size)
+    like = params["blocks"]
+    leaves = collectives.copy_to(graph, *tree_leaves(like))
+    leaves = list(leaves) if isinstance(leaves, tuple) else [leaves]
+    blocks = prepare_blocks({"blocks": tree_unflatten(like, leaves)}, static)
+    h_node = h_node.to(dt)
+    pm_rows = _own_rows(ps, pair_mask, n_loc)
+    h_edge = collectives.scatter(graph, _pad_rows(h_edge.to(dt), n_loc * graph.size), 1)
+    dist0 = None
+    if not static["update_pos"]:
+        pos = collectives.copy_to(graph, pos_node)
+        dist0 = dist_features(pos, static, dt, _own_rows(ps, pos, n_loc))
+    for blk in blocks:
+        h_node, pos_node, h_edge = _block_rows(blk, static, ps, h_node, pos_node, h_edge,
+                                               node_time, edge_time, pm_rows, n_loc, dist0)
+    h_edge = collectives.gather(graph, h_edge, 1)[:, :n]
+    return h_node.to(in_dtype), pos_node, h_edge.to(in_dtype)

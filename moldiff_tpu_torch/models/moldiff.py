@@ -183,6 +183,11 @@ class MolDiff:
         # the denoiser then runs as a GPipe pipeline over its stacked blocks
         # (parallel/pipeline.py; moldiff.py:150-155)
         self.pipeline_cfg = None
+        # parallel/collectives.py PairSharding, set by the trainer on a mesh
+        # with a graph axis: the denoiser then runs JAX's plain route with its
+        # pair tensors' receiver axis split over graph, and split MLPs over
+        # the model axis (models/denoiser.py; moldiff.py:148-151)
+        self.pair_sharding = None
 
     def _transitions(self, betas: dict) -> tuple:
         """(Gaussian, node categorical, edge categorical) transitions of
@@ -268,11 +273,13 @@ class MolDiff:
         else:
             out = node_edge_net(params["denoiser"], self.denoiser_static, h_node, pos_pert,
                                 h_edge, node_time=t_norm, edge_time=t_norm, pair_mask=pair_mask,
-                                blocks=blocks, node_mask=node_mask)
+                                blocks=blocks, node_mask=node_mask,
+                                pair_sharding=self.pair_sharding)
         h_node, pos_out, h_edge = out[:3]
-        pred_node = mlp(params["node_decoder"], h_node)
+        tp = self.pair_sharding.model if self.pair_sharding is not None else None
+        pred_node = mlp(params["node_decoder"], h_node, tp)
         h_half_sym = graph_ops.dense_to_halfedge(graph_ops.symmetrize_dense(h_edge))
-        pred_halfedge = mlp(params["edge_decoder"], h_half_sym)
+        pred_halfedge = mlp(params["edge_decoder"], h_half_sym, tp)
         preds = MolDiffPreds(pred_node, pos_out, pred_halfedge)
         if return_moe_aux:
             return preds, (out[3] if len(out) > 3 else None)

@@ -10,6 +10,28 @@ The ``init_*`` functions build the JAX package's trees with torch
 ``b`` (nn.py:21-27), from an explicit ``torch.Generator`` on the device the
 tensors go to. ``jax.random`` and torch's generators differ, so a tree
 matches JAX's in keys, shapes, dtype and distribution, not in its numbers.
+
+Tensor parallelism (the ``model`` axis, parallel/mesh.py
+tp_param_sharding): an MLP whose hidden width is split over the axis is a
+:class:`ShardedMLP` (the trainer marks the shards it holds, :func:`mark_tp`),
+and :func:`mlp` / :func:`mlp_parts` given the axis run it as Megatron's
+conjugate pair, written out (parallel/collectives.py):
+
+- the inputs enter layer 0 (column-parallel: its ``w``, ``b`` and ``ln``
+  hold this rank's hidden columns) through ``copy_to``: identity forward,
+  the gradient all-reduced over the axis backward;
+- the LayerNorm between layers normalises over the whole hidden width:
+  its mean, then its variance (``jnp.mean``, then ``jnp.var``, as
+  :func:`layernorm`), in float32 from partial sums all-reduced over the
+  axis; each rank uses a statistic for its own columns only, so the
+  gradient that reaches it on one rank is partial, and the all-reduce's
+  backward all-reduces too;
+- middle layers (replicated) all-gather their input, and the last layer
+  takes this rank's columns of theirs back;
+- the last layer (row-parallel: ``w`` holds this rank's contracting rows)
+  makes partial sums, all-reduced (``reduce_from``: the output is
+  replicated, so the backward is the identity), and then adds its
+  replicated bias once.
 """
 from __future__ import annotations
 
@@ -17,6 +39,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..parallel import collectives
 
 
 def _uniform(generator: torch.Generator, shape: tuple, bound: float, device) -> torch.Tensor:
@@ -78,9 +102,12 @@ def linear_parts(p: dict, parts, sizes) -> torch.Tensor:
     return y
 
 
-def mlp_parts(p: dict, parts, sizes) -> torch.Tensor:
+def mlp_parts(p: dict, parts, sizes, tp=None) -> torch.Tensor:
     """``mlp`` whose first Linear runs by :func:`linear_parts` over the
-    implicit concat of ``parts`` (nn.py:70-82)."""
+    implicit concat of ``parts`` (nn.py:70-82). ``tp``: the model axis
+    (parallel/collectives.py Axis) a :class:`ShardedMLP` is split over."""
+    if isinstance(p, ShardedMLP):
+        return _mlp_tp(p, parts, sizes, tp)
     first = p["layers"][0]
     x = linear_parts(first["lin"], parts, sizes)
     if "ln" in first:
@@ -97,12 +124,82 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``tp``: as :func:`mlp_parts`."""
+    if isinstance(p, ShardedMLP):
+        return _mlp_tp(p, (x,), (x.shape[-1],), tp)
     for lp in p["layers"]:
         x = linear(lp["lin"], x)
         if "ln" in lp:
             x = torch.relu(layernorm(lp["ln"], x))
     return x
+
+
+class ShardedMLP(dict):
+    """An MLP's params (``{"layers": [...]}``) whose hidden width is split
+    over the model axis: layer 0's ``lin`` and ``ln`` hold this rank's
+    columns, the last layer's ``w`` its contracting rows."""
+
+
+def mark_tp(tree, places):
+    """``tree`` with each MLP whose layer 0 ``w`` is split (in ``places``,
+    parallel/mesh.py tp_param_sharding of ``tree``: only an MLP's is)
+    made a :class:`ShardedMLP`; leaves are kept."""
+    if isinstance(tree, dict):
+        out = {k: mark_tp(v, places[k]) for k, v in tree.items()}
+        layers = places.get("layers")
+        if (isinstance(layers, list) and layers and isinstance(layers[0], dict)
+                and "lin" in layers[0] and layers[0]["lin"]["w"].dim is not None):
+            return ShardedMLP(out)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(mark_tp(v, q) for v, q in zip(tree, places))
+    return tree
+
+
+def unmark_tp(tree):
+    """``tree`` with plain dicts in place of :class:`ShardedMLP`."""
+    if isinstance(tree, dict):
+        return {k: unmark_tp(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unmark_tp(v) for v in tree)
+    return tree
+
+
+def layernorm_tp(p: dict, x: torch.Tensor, tp, width: int, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`layernorm` of a tensor whose last dimension (``width`` in
+    all) is split over ``tp``: this rank's columns, ``p`` its slice."""
+    xf = x.to(torch.float32)
+    mean = collectives.all_reduce(tp, xf.sum(dim=-1, keepdim=True)) / width
+    d = xf - mean
+    var = collectives.all_reduce(tp, (d * d).sum(dim=-1, keepdim=True)) / width
+    y = d * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def _mlp_tp(p: ShardedMLP, parts, sizes, tp) -> torch.Tensor:
+    """A :class:`ShardedMLP` on ``parts`` (replicated over ``tp``)."""
+    if tp is None:
+        raise ValueError("a tensor-parallel MLP needs its model axis")
+    layers = p["layers"]
+    parts = collectives.copy_to(tp, *parts)
+    parts = parts if isinstance(parts, tuple) else (parts,)
+    first = layers[0]
+    x = linear_parts(first["lin"], parts, sizes)
+    width = x.shape[-1] * tp.size
+    if "ln" in first:
+        x = torch.relu(layernorm_tp(first["ln"], x, tp, width))
+    if len(layers) > 2:
+        x = collectives.gather(tp, x, -1)
+        x = mlp({"layers": layers[1:-1]}, x)
+        x = collectives.scatter(tp, x, -1)
+    last = layers[-1]
+    y = collectives.reduce_from(tp, x @ last["lin"]["w"])
+    if "b" in last["lin"]:
+        y = y + last["lin"]["b"]
+    if "ln" in last:
+        y = torch.relu(layernorm(last["ln"], y))
+    return y
 
 
 class GaussianSmearing:

@@ -1,22 +1,26 @@
 """Process groups, the mesh record and the placements of data-parallel,
-fully sharded, pipeline-parallel and expert-parallel training
-(moldiff_tpu/parallel/mesh.py).
+fully sharded, graph-parallel, tensor-parallel, pipeline-parallel and
+expert-parallel training (moldiff_tpu/parallel/mesh.py).
 
 JAX runs one program over a device mesh and lets GSPMD place the
 collectives. Here each rank is a process with one device, and the trainer
-calls ``torch.distributed`` itself: the batch is split over the ``data``
-axis, the gradients are all-reduced (or reduce-scattered under FSDP), and
-the parameters are identical on every rank (or sharded, one slice each).
+and the model call ``torch.distributed`` themselves: the batch is split
+over the ``data`` axis, the gradients are all-reduced (or reduce-scattered
+under FSDP), and the parameters are identical on every rank (or sharded,
+one slice each).
 
-A mesh has the data axis and at most one more: ``pipe`` (the denoiser's
-stacked blocks split over stages, parallel/pipeline.py) or ``expert`` (the
-MoE expert banks split over ranks, models/moe.py). Ranks are laid out as
-JAX's ``devices.reshape(n_data, n_axis)``: rank = d * A + a. Each axis has
-its own process groups (:meth:`Mesh.group`): the data group of a rank is
-the ranks of its ``a`` (they hold the same shards), its axis group the
-ranks of its ``d`` (they see the same rows of the batch). The ``graph`` and
-``model`` axes are not ported: a config that asks for one raises
-NotImplementedError (ROADMAP.md: the next slice).
+A mesh has the data axis and at most one of: ``pipe`` (the denoiser's
+stacked blocks split over stages, parallel/pipeline.py), ``expert`` (the
+MoE expert banks split over ranks, models/moe.py), ``graph`` (the pair
+tensors' receiver axis split over ranks, models/denoiser.py), or ``graph``
+and ``model`` together (JAX's 3-D mesh: MLP hidden widths split over
+``model``, models/nn.py; the graph axis may have size 1 there, as in
+JAX). Ranks are laid out as JAX's ``devices.reshape(n_data, ...)``: rank
+= d * A + a on a 2-D mesh, (d * G + g) * M + m on the 3-D one. Each axis
+has its own process groups (:meth:`Mesh.group`): the group of a rank along
+an axis is the ranks that differ from it on that axis alone (its data
+group holds the same shards, its graph or model group sees the same rows
+of the batch).
 
 Backends: ``nccl`` for CUDA with one rank per card, ``gloo`` for the CPU
 (and, asked for explicitly, for several ranks that share one card: NCCL
@@ -25,6 +29,8 @@ refuses two ranks on one device).
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 from dataclasses import dataclass, replace
 from typing import Any, List, Optional
 
@@ -33,19 +39,16 @@ import torch.distributed as dist
 
 from ..data.batching import pad_batch_to_multiple  # noqa: F401  (mesh.py:337-348)
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
+from .collectives import Axis, PairSharding
 
 DATA_AXIS = "data"
-GRAPH_AXIS = "graph"    # shards the pair tensors' receiver axis (not ported)
-MODEL_AXIS = "model"    # tensor parallelism over MLP hidden dims (not ported)
+GRAPH_AXIS = "graph"    # shards the pair tensors' receiver axis
+MODEL_AXIS = "model"    # tensor parallelism over MLP hidden dims
 PIPE_AXIS = "pipe"      # pipeline parallelism over the stacked blocks
 EXPERT_AXIS = "expert"  # expert parallelism over MoE banks
 
 # a dead rank fails the run after this long instead of hanging it
 DEFAULT_TIMEOUT_S = 600.0
-
-NOT_PORTED = ("the {axis} axis is not ported yet: the port runs the data, pipe and expert "
-              "axes (ROADMAP.md, the next slice: graph and model)")
-
 
 def default_backend(device: "str | torch.device") -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
@@ -88,18 +91,18 @@ def rank_device(device: "str | torch.device", rank: int) -> torch.device:
     return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
 
 
-# (data, axis size) -> (data groups by axis coordinate, axis groups by data
-# coordinate), made once per process group
+# (axes, sizes) -> {axis: {the other axes' coordinates: the line's group}},
+# made once per process group
 _GROUPS: dict = {}
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """A run's axes (``axes``: ``("data",)``, ``("data", "pipe")`` or
-    ``("data", "expert")``) and their sizes, the process group's backend,
-    and this process's rank and device. Built in the parent by
-    :func:`make_mesh_from_config` (rank 0), then placed on each worker's
-    rank with :meth:`at`."""
+    """A run's axes (``axes``: ``("data",)``, ``("data", A)`` with A one of
+    pipe, expert and graph, or ``("data", "graph", "model")``) and their
+    sizes, the process group's backend, and this process's rank and
+    device. Built in the parent by :func:`make_mesh_from_config` (rank 0),
+    then placed on each worker's rank with :meth:`at`."""
     data: int = 1
     backend: str = "gloo"
     rank: int = 0
@@ -107,9 +110,12 @@ class Mesh:
     pipe: int = 1
     expert: int = 1
     axes: tuple = (DATA_AXIS,)
+    graph: int = 1
+    model: int = 1
 
     def size(self, axis: str) -> int:
-        return {DATA_AXIS: self.data, PIPE_AXIS: self.pipe, EXPERT_AXIS: self.expert}[axis]
+        return {DATA_AXIS: self.data, PIPE_AXIS: self.pipe, EXPERT_AXIS: self.expert,
+                GRAPH_AXIS: self.graph, MODEL_AXIS: self.model}[axis]
 
     @property
     def shape(self) -> dict:
@@ -117,16 +123,12 @@ class Mesh:
 
     @property
     def world_size(self) -> int:
-        return self.data * self.pipe * self.expert
-
-    @property
-    def axis(self) -> Optional[str]:
-        """The axis beside data (pipe or expert), None on a data mesh."""
-        return next((a for a in self.axes if a != DATA_AXIS), None)
+        return self.data * self.pipe * self.expert * self.graph * self.model
 
     @property
     def axis_size(self) -> int:
-        return self.pipe * self.expert
+        """The ranks of one data coordinate (the product of the other axes)."""
+        return self.world_size // self.data
 
     @property
     def data_rank(self) -> int:
@@ -134,35 +136,44 @@ class Mesh:
 
     @property
     def axis_rank(self) -> int:
+        """This rank's place among the ranks of its data coordinate."""
         return self.rank % self.axis_size
 
+    def _stride(self, axis: str) -> int:
+        i = self.axes.index(axis)
+        return math.prod(self.size(a) for a in self.axes[i + 1:])
+
     def coord(self, axis: str) -> int:
-        """This rank's coordinate on ``axis`` (0 on an axis of size 1)."""
-        return self.data_rank if axis == DATA_AXIS else (self.axis_rank if axis == self.axis
-                                                          else 0)
+        """This rank's coordinate on ``axis`` (0 on an axis the mesh lacks)."""
+        if axis not in self.axes:
+            return 0
+        return (self.rank // self._stride(axis)) % self.size(axis)
 
     def group(self, axis: str):
         """The process group of this rank's line along ``axis``: None (the
         whole world) where that line is the world. Every rank must make
         its first call at the same point: the groups are made then, all of
-        them on every rank, in one order."""
-        if self.axis_size == 1 or (axis != DATA_AXIS and self.data == 1):
+        them on every rank (every line of every axis), in one order."""
+        if self.size(axis) == self.world_size:
             return None
-        key = (self.data, self.axis_size)
+        key = (self.axes, tuple(self.size(a) for a in self.axes))
         if key not in _GROUPS:
-            d_n, a_n = key
-            _GROUPS[key] = ([dist.new_group([d * a_n + a for d in range(d_n)])
-                             for a in range(a_n)],
-                            [dist.new_group([d * a_n + a for a in range(a_n)])
-                             for d in range(d_n)])
-        data_groups, axis_groups = _GROUPS[key]
-        return data_groups[self.axis_rank] if axis == DATA_AXIS else axis_groups[self.data_rank]
+            lines = {}
+            for a in self.axes:
+                others = [b for b in self.axes if b != a]
+                lines[a] = {}
+                for rest in itertools.product(*(range(self.size(b)) for b in others)):
+                    at = dict(zip(others, rest))
+                    ranks = [sum(dict(at, **{a: c})[b] * self._stride(b) for b in self.axes)
+                             for c in range(self.size(a))]
+                    lines[a][rest] = dist.new_group(ranks)
+            _GROUPS[key] = lines
+        rest = tuple(self.coord(b) for b in self.axes if b != axis)
+        return _GROUPS[key][axis][rest]
 
     def group_rank(self, axis: str, coord: int) -> int:
         """The global rank at ``coord`` on ``axis`` of this rank's line."""
-        if axis == DATA_AXIS:
-            return coord * self.axis_size + self.axis_rank
-        return self.data_rank * self.axis_size + coord
+        return self.rank + (coord - self.coord(axis)) * self._stride(axis)
 
     def at(self, rank: int, device: "str | torch.device") -> "Mesh":
         return replace(self, rank=int(rank), device=torch.device(device))
@@ -191,12 +202,53 @@ def make_mesh_expert(n_data: int, n_expert: int, device: "str | torch.device" = 
                 backend=backend or default_backend(device), device=rank_device(device, 0))
 
 
+def make_mesh_2d(n_data: int, n_graph: int, device: "str | torch.device" = "cpu",
+                 backend: Optional[str] = None) -> Mesh:
+    """The (data, graph) mesh (mesh.py:49-57): batch over data, the pair
+    tensors' receiver axis over graph."""
+    device = torch.device(device)
+    return Mesh(data=int(n_data), graph=int(n_graph), axes=(DATA_AXIS, GRAPH_AXIS),
+                backend=backend or default_backend(device), device=rank_device(device, 0))
+
+
+def make_mesh_3d(n_data: int, n_graph: int, n_model: int, device: "str | torch.device" = "cpu",
+                 backend: Optional[str] = None) -> Mesh:
+    """The (data, graph, model) mesh (mesh.py:60-69): batch over data, the
+    pair tensors' receiver axis over graph, MLP hidden widths over model
+    (:func:`tp_param_sharding`)."""
+    device = torch.device(device)
+    return Mesh(data=int(n_data), graph=int(n_graph), model=int(n_model),
+                axes=(DATA_AXIS, GRAPH_AXIS, MODEL_AXIS),
+                backend=backend or default_backend(device), device=rank_device(device, 0))
+
+
 def pipe_enabled(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and PIPE_AXIS in mesh.axes and mesh.pipe > 1
 
 
 def ep_enabled(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and EXPERT_AXIS in mesh.axes and mesh.expert > 1
+
+
+def tp_enabled(mesh: Optional[Mesh]) -> bool:
+    """mesh.py:72-73: a model axis above 1."""
+    return mesh is not None and MODEL_AXIS in mesh.axes and mesh.model > 1
+
+
+def graph_enabled(mesh: Optional[Mesh]) -> bool:
+    """Whether JAX sets ``pair_sharding`` on this mesh (mesh.py:312-319): it
+    has a graph axis, of any size (a 3-D mesh always has one). The model
+    then runs JAX's plain route, row-sharded (models/denoiser.py)."""
+    return mesh is not None and GRAPH_AXIS in mesh.axes
+
+
+def pair_sharding(mesh: Optional[Mesh]) -> Optional[PairSharding]:
+    """mesh.py:312-319: where the mesh has a graph axis, the graph and
+    model axes of this rank (both of size 1 at world 1 without a process
+    group, as ``make_mesh_2d(1, 1)`` there); None otherwise."""
+    if not graph_enabled(mesh):
+        return None
+    return PairSharding(Axis.of(mesh, GRAPH_AXIS), Axis.of(mesh, MODEL_AXIS))
 
 
 def make_mesh_from_config(parallel_cfg: Optional[dict], device: "str | torch.device" = "cuda",
@@ -206,9 +258,10 @@ def make_mesh_from_config(parallel_cfg: Optional[dict], device: "str | torch.dev
     on the CPU); ``pipe`` is exclusive with graph / model and ``expert``
     with every other axis; num_devices must divide by their product; the
     data axis takes the rest: (data, expert) with expert above 1, else
-    (data, pipe) with pipe above 1, else data alone. ``graph`` or ``model``
-    above 1 raises NotImplementedError. ``fsdp`` does not change the mesh
-    (the trainer reads it). ``backend`` defaults to NCCL on CUDA (one rank per card:
+    (data, pipe) with pipe above 1, else (data, graph, model) with model
+    above 1 (graph may be 1 there), else (data, graph) with graph above 1,
+    else data alone. ``fsdp`` does not change the mesh (the trainer reads
+    it). ``backend`` defaults to NCCL on CUDA (one rank per card:
     num_devices above the visible cards raises) and gloo on the CPU; gloo,
     asked for, may put several ranks on one card."""
     cfg = dict(parallel_cfg or {})
@@ -229,9 +282,6 @@ def make_mesh_from_config(parallel_cfg: Optional[dict], device: "str | torch.dev
         raise ValueError(
             f"num_devices={total} not divisible by graph*model*pipe*expert="
             f"{n_graph * n_model * n_pipe * n_expert}")
-    for axis, size in ((MODEL_AXIS, n_model), (GRAPH_AXIS, n_graph)):
-        if size > 1:
-            raise NotImplementedError(NOT_PORTED.format(axis=axis))
     backend = backend or default_backend(device)
     if backend == "nccl" and total > visible:
         raise ValueError(f"num_devices={total} but {visible} card(s) visible: NCCL takes one "
@@ -240,6 +290,11 @@ def make_mesh_from_config(parallel_cfg: Optional[dict], device: "str | torch.dev
         return make_mesh_expert(total // n_expert, n_expert, device, backend)
     if n_pipe > 1:
         return make_mesh_pipe(total // n_pipe, n_pipe, device, backend)
+    n_data = total // (n_graph * n_model)
+    if n_model > 1:
+        return make_mesh_3d(n_data, n_graph, n_model, device, backend)
+    if n_graph > 1:
+        return make_mesh_2d(n_data, n_graph, device, backend)
     return Mesh(data=total, backend=backend, rank=0, device=rank_device(device, 0))
 
 
@@ -347,6 +402,60 @@ def pipe_placement(shape: tuple, n_pipe: int) -> Placement:
     if n_pipe > 1 and len(shape) >= 1 and shape[0] % n_pipe == 0:
         return Placement(shape, 0, n_pipe, PIPE_AXIS)
     return replicated(shape)
+
+
+def tp_param_sharding(mesh: "Mesh | int", tree: Any) -> Any:
+    """JAX's Megatron placement (mesh.py:192-276) as a tree of
+    :class:`Placement` on the ``model`` axis: in every MLP (a dict whose
+    ``layers`` is a list of two or more dicts that each hold ``lin``)
+    whose hidden width (layer 0's ``w``'s last dimension) divides by the
+    axis, layer 0's ``lin`` leaves and ``ln`` leaves are split on their
+    last dimension (column-parallel), the last layer's ``w`` on its
+    second-to-last, contracting dimension (row-parallel; its bias
+    replicated); middle layers, trailing LayerNorms, MLPs whose hidden
+    width does not divide and every other leaf are replicated. Stacked
+    block leaves ([num_blocks, ...]) split the same trailing dimensions.
+    Params, adam moments and EMA alike; the experts of a MoE bank hold a
+    ``layers`` list too, and are split the same way. ``mesh``: a Mesh or
+    the model axis's size."""
+    n = _axis_size(mesh, MODEL_AXIS)
+
+    def place(x, dim: Optional[int]) -> Placement:
+        shape = tuple(int(s) for s in x.shape)
+        return Placement(shape, None if dim is None else len(shape) + dim, n, MODEL_AXIS)
+
+    def walk_mlp(layers: list) -> list:
+        hidden = int(layers[0]["lin"]["w"].shape[-1])
+        if n <= 1 or hidden % n != 0:
+            return tree_map(lambda x: replicated(x.shape), layers)
+        last = len(layers) - 1
+        out = []
+        for i, layer in enumerate(layers):
+            spec = {}
+            for k, v in layer.items():
+                if k in ("lin", "ln") and i == 0:
+                    spec[k] = tree_map(lambda x: place(x, -1), v)
+                elif k == "lin" and i == last:
+                    spec[k] = {kk: place(vv, -2 if kk == "w" else None) for kk, vv in v.items()}
+                else:
+                    spec[k] = tree_map(lambda x: replicated(x.shape), v)
+            out.append(spec)
+        return out
+
+    def walk(node):
+        if isinstance(node, dict):
+            layers = node.get("layers")
+            if (isinstance(layers, (list, tuple)) and len(layers) >= 2
+                    and all(isinstance(l, dict) and "lin" in l for l in layers)):
+                out = {k: walk(v) for k, v in node.items() if k != "layers"}
+                out["layers"] = type(layers)(walk_mlp(list(layers)))
+                return out
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return replicated(node.shape)
+
+    return walk(tree)
 
 
 # -- collectives on one axis ----------------------------------------------------

@@ -39,8 +39,11 @@ parallel/mesh.py): with ``num_devices`` null (every visible card) or above
 starts K gloo processes), each checks that it is on its card, and they
 train as one run: data-parallel (``parallel.fsdp``: fully sharded), with
 ``parallel.pipe: P`` the denoiser as a GPipe pipeline of P stages
-(``train.num_microbatches``, default P), or with ``parallel.expert: K`` the
-MoE expert banks split over K ranks (train/trainer.py). Every rank runs
+(``train.num_microbatches``, default P), with ``parallel.expert: K`` the
+MoE expert banks split over K ranks, with ``parallel.graph: G`` the pair
+tensors split by receiver over G ranks, or with ``parallel.model: M`` (and
+``graph``, 1 by default) the MLPs' hidden widths split over M ranks
+(train/trainer.py; one rank per mesh position, JAX's layout). Every rank runs
 the same loader and keeps its data coordinate's rows of each batch; rank 0
 alone writes log.txt, metrics.jsonl, the event file and the checkpoints. A
 failed rank fails the run. With one card visible nothing changes: no
@@ -75,8 +78,9 @@ from ..data.loader import BucketedLoader
 from ..models.moldiff import MolDiff, resolve_device
 from ..ops import kernels
 from ..parallel import launch
-from ..parallel.mesh import (DATA_AXIS, Mesh, broadcast_leaves, initialize_distributed,
-                             make_mesh_from_config, rank_device, shutdown_distributed)
+from ..parallel.mesh import (DATA_AXIS, GRAPH_AXIS, Mesh, broadcast_leaves,
+                             initialize_distributed, make_mesh_from_config, rank_device,
+                             shutdown_distributed)
 from ..utils.config import Config
 from ..utils.misc import MetricsWriter, get_logger, get_new_log_dir, seed_all
 from ..utils.profiling import StepTimer, device_memory_stats, trace
@@ -133,9 +137,10 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
     (iteration, bucket, loss terms, grad norm, lr, seconds, kernel
     launches, on a card the peak of allocated device memory; on a mesh also
     the seconds in collectives, on the pipe the pipeline's transfers
-    (``pipe``: parallel/pipeline.py stats), and with ``check_replicas``
-    whether the params of every rank of each data group were bit-equal
-    after it), the validation losses, the checkpoints written and the seconds
+    (``pipe``: parallel/pipeline.py stats), on a graph axis the model's own
+    collectives (``model_comm``: parallel/collectives.py stats), and with
+    ``check_replicas`` whether the params of every rank of each data group
+    (and graph group) were bit-equal after it), the validation losses, the checkpoints written and the seconds
     each took (an async one: its snapshot), the step timer's
     summary, the metrics and event files, and the final state and
     trainer. Log lines go to ``log.txt`` and stderr, and to ``log`` when
@@ -172,9 +177,11 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
         if device.type == "cuda" and torch.cuda.current_device() != device.index:
             raise RuntimeError(f"rank {rank} runs on cuda:{torch.cuda.current_device()}, "
                                f"not on its card {device}")
-        axis = f", {mesh.axis} axis: {mesh.axis_size} ranks" if mesh.axis else ""
-        say(f"data axis: {trainer.n_data} ranks ({mesh.backend}){' FSDP' if fsdp else ''}{axis}"
-            f"{' (pipeline)' if trainer.pp else ''}")
+        axes = "".join(f", {a} axis: {n} ranks" for a, n in mesh.shape.items() if a != DATA_AXIS)
+        say(f"data axis: {trainer.n_data} ranks ({mesh.backend}){' FSDP' if fsdp else ''}{axes}"
+            f"{' (pipeline)' if trainer.pp else ''}"
+            f"{' (plain route, pair tensors split by receiver)' if trainer.graph else ''}"
+            f"{' (tensor parallel)' if trainer.tp else ''}")
     # one stream from the seed: the initial params (when not resumed), then
     # every step's noise
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -252,9 +259,14 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
                 steps[-1]["comm_s"] = trainer.comm_s
                 if trainer.pp:
                     steps[-1]["pipe"] = trainer.pipe_stats
+                if trainer.graph:
+                    steps[-1]["model_comm"] = trainer.model_comm
                 if check_replicas and not trainer.fsdp:
-                    same = broadcast_leaves(state.params, src=mesh.group_rank(DATA_AXIS, 0),
-                                            group=mesh.group(DATA_AXIS))[1]
+                    # the ranks that hold the same params: along data, and
+                    # along graph where the mesh has one
+                    same = all(broadcast_leaves(state.params, src=mesh.group_rank(axis, 0),
+                                                group=mesh.group(axis))[1]
+                               for axis in (DATA_AXIS, GRAPH_AXIS) if axis in mesh.axes)
                     flag = torch.tensor([0.0 if same else 1.0], device=mesh.comm_device())
                     dist.all_reduce(flag)
                     steps[-1]["replicas_equal"] = float(flag[0]) == 0.0

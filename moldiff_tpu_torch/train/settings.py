@@ -166,5 +166,7 @@ TRAIN_V2_CONT_FSDP2 = _sections(TRAIN_V2_CONT, parallel={"num_devices": 2, "fsdp
                                 train={"ckpt_sharded": True})
 TRAIN_V2_CONT_PP2 = _sections(TRAIN_V2_CONT, parallel={"num_devices": 2, "pipe": 2},
                               train={"num_microbatches": 2})
+TRAIN_V2_CONT_GRAPH2 = _sections(TRAIN_V2_CONT, parallel={"num_devices": 2, "graph": 2})
+TRAIN_V2_CONT_TP2 = _sections(TRAIN_V2_CONT, parallel={"num_devices": 2, "model": 2})
 MOE_V2_EP2 = _sections(MOE_V2, parallel={"num_devices": 2, "expert": 2})
 MOE_V2_DP2 = _sections(MOE_V2, parallel={"num_devices": 2})

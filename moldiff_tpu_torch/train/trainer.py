@@ -51,6 +51,22 @@ the shards' over the data group, so each is counted once. The norm for
 clipping sums the shards' squares over the axis group. Params, adam
 moments and EMA are held in these placements at rest.
 
+On a mesh with a graph axis ((data, graph), or (data, graph, model):
+trainer.py:102-124, :158-176) the model gets the mesh's pair sharding and
+runs JAX's plain route with its pair tensors split by receiver over graph
+(models/denoiser.py); the batch is split over data alone. With a model
+axis above 1 (``tp``) the params, adam moments and EMA are held in
+``tp_param_sharding``'s placements (the MLPs' hidden widths split over
+model; the model's split MLPs are marked, models/nn.py ShardedMLP) and the
+MLPs run as Megatron's pair. The model's own collectives leave every
+parameter's gradient whole on every graph and model rank (each split leaf's
+for its shard), so the gradients are summed over data alone, as on the
+other axes; the clip norm counts each split leaf's squares over the model
+group and each replicated leaf once, as JAX's ``optax.global_norm`` of the
+whole leaves. FSDP is exclusive with model, as in JAX, and allowed beside
+graph (its shards then live on every graph rank of their data
+coordinate, and its collectives run over the data group).
+
 Checkpoints keep the JAX package's pickle layout (trainer.py:372-395):
 ``config``, float32 numpy ``params`` and ``ema_params``, ``step``,
 ``scheduler`` (its state_dict), ``key`` None and ``opt_state`` None, so
@@ -75,10 +91,12 @@ import torch.distributed as dist
 from ..data.batching import pad_batch_to_multiple
 from ..data.loader import BATCH_KEYS
 from ..models.moe import MoEComm
-from ..parallel import pipeline
+from ..models.nn import mark_tp, unmark_tp
+from ..parallel import collectives, pipeline
 from ..parallel.mesh import (DATA_AXIS, EXPERT_AXIS, Mesh, all_gather_axis, all_reduce_sum,
                              broadcast_leaves, ep_enabled, ep_param_sharding, flatten,
-                             fsdp_placement, pipe_enabled, rank_rows, replicated, unflatten)
+                             fsdp_placement, graph_enabled, pair_sharding, pipe_enabled,
+                             rank_rows, replicated, tp_enabled, tp_param_sharding, unflatten)
 from ..utils.checkpoint import load_checkpoint_numpy, params_to_torch
 from . import checkpoint_sharded
 from .optim import (OptState, Optimizer, get_lr, get_scheduler, global_norm, set_lr,
@@ -152,7 +170,13 @@ class Trainer:
         self.pp = pipe_enabled(self.mesh) and hasattr(model, "pipeline_cfg")
         if self.pp:
             model.pipeline_cfg = (self.mesh, train_config.get("num_microbatches"))
-        if self.fsdp and self.pp:
+        # the graph and model axes: JAX's plain route, the pair tensors split
+        # by receiver (trainer.py:102-108); tensor parallelism over model
+        self.graph = graph_enabled(mesh)
+        self.tp = tp_enabled(self.mesh)
+        if self.graph and hasattr(model, "pair_sharding"):
+            model.pair_sharding = pair_sharding(self.mesh if active else mesh)
+        if self.fsdp and (self.tp or self.pp):
             raise ValueError(
                 "fsdp is exclusive with the 'model'/'pipe' axes: both shard "
                 "the same param leaves with conflicting layouts")
@@ -161,7 +185,7 @@ class Trainer:
             raise ValueError(
                 "fsdp is exclusive with the 'expert' axis: conflicting "
                 "layouts on expert leaves")
-        if self.fsdp and self.mesh.axis_size > 1:
+        if self.fsdp and pipe_enabled(self.mesh):
             raise NotImplementedError("fsdp beside a pipe axis that runs no pipeline (the bond "
                                       "predictor's) is not ported")
         if self.mesh is not None and self.mesh.axis_size > 1:
@@ -173,11 +197,13 @@ class Trainer:
             static["moe"] = dict(static["moe"], comm=MoEComm(
                 m.data, m.data_rank, m.group(DATA_AXIS), m.expert, m.coord(EXPERT_AXIS),
                 m.group(EXPERT_AXIS) if self.ep else None))
-        # one Placement per param leaf: the data axis's under FSDP, the pipe
-        # or expert axis's on those meshes
+        # one Placement per param leaf: the data axis's under FSDP, the pipe,
+        # expert or model axis's on those meshes (and, under tp, their tree)
         self.places: Optional[list] = None
+        self.place_tree: Any = None
         self.pipe_stats: dict = {}           # the pipeline's transfers, last step
         self.comm_s = 0.0                    # seconds in collectives, last step
+        self.model_comm: dict = {}           # the model's own (graph, model axes), last step
         self.grad_accum = int(train_config.get("grad_accum", 1) or 1)
         opt_cfg = dict(train_config["optimizer"])
         opt_cfg.setdefault("max_grad_norm", train_config.get("max_grad_norm", 0.0))
@@ -273,15 +299,17 @@ class Trainer:
         leaves are kept. Without shards the tree itself."""
         if not self._sharded() or tree is None:
             return tree
-        return tree_unflatten(tree, all_gather_axis(self.mesh, self.places, tree_leaves(tree),
-                                                    run=self._collective))
+        return unmark_tp(tree_unflatten(tree, all_gather_axis(
+            self.mesh, self.places, tree_leaves(tree), run=self._collective)))
 
     def shard(self, tree: Any) -> Any:
-        """This rank's shards of a tree of whole leaves."""
+        """This rank's shards of a tree of whole leaves (its split MLPs
+        marked under tp)."""
         if self.places is None or tree is None:
             return tree
-        return tree_unflatten(tree, [p.take(x, self.mesh.coord(p.axis))
-                                     for p, x in zip(self.places, tree_leaves(tree))])
+        out = tree_unflatten(tree, [p.take(x, self.mesh.coord(p.axis))
+                                    for p, x in zip(self.places, tree_leaves(tree))])
+        return mark_tp(out, self.place_tree) if self.tp else out
 
     def _once(self, values: List[torch.Tensor]) -> List[torch.Tensor]:
         """``values`` (replicated over the axis beside data) summed over the
@@ -300,8 +328,8 @@ class Trainer:
             grads = out[:len(grads)]
             return grads, global_norm(grads), dict(zip(names, out[len(grads):]))
         if not self.fsdp:
-            # the pipe or expert shards: summed over the data group; their
-            # squares over the axis group for the norm
+            # the pipe, expert or model shards: summed over the data group;
+            # their squares over their axis's group for the norm
             sh = self._sharded()
             rep = [j for j in range(len(grads)) if j not in set(sh)]
             out = self._once([grads[j] for j in rep] + [aux[k] for k in names])
@@ -312,17 +340,22 @@ class Trainer:
             for j, g in zip(rep + sh, out[:len(rep)] + mine):
                 local[j] = g
             sq = global_norm(mine).square().reshape(1)
-            self._collective(dist.all_reduce, sq, group=self.mesh.group(self.mesh.axis))
+            self._collective(dist.all_reduce, sq,
+                             group=self.mesh.group(self.places[sh[0]].axis))
             norm = torch.sqrt(sq[0] + global_norm(out[:len(rep)]).square())
             return local, norm, dict(zip(names, out[len(rep):]))
+        # FSDP: the shards reduce-scattered over the data group (the ranks of
+        # the graph axis beside it hold copies), the rest all-reduced there
         idx = set(self._sharded())
         rep = [j for j in range(len(grads)) if j not in idx]
         sh = sorted(idx)
+        group = self.mesh.group(DATA_AXIS)
         inputs = [flatten([self.places[j].take(grads[j], r) for j in sh])
-                  for r in range(self.world)]
+                  for r in range(self.n_data)]
         mine = torch.empty_like(inputs[0])
-        self._collective(dist.reduce_scatter, mine, inputs)
-        out = self._collective(all_reduce_sum, [grads[j] for j in rep] + [aux[k] for k in names])
+        self._collective(dist.reduce_scatter, mine, inputs, group=group)
+        out = self._collective(all_reduce_sum, [grads[j] for j in rep] + [aux[k] for k in names],
+                               group=group)
         local = list(grads)
         shapes = [torch.empty(self.places[j].shard_shape, device="meta") for j in sh]
         for j, g in zip(sh, unflatten(mine, shapes)):
@@ -330,7 +363,7 @@ class Trainer:
         for j, g in zip(rep, out[:len(rep)]):
             local[j] = g
         sq = torch.sum(mine * mine).reshape(1)
-        self._collective(dist.all_reduce, sq)
+        self._collective(dist.all_reduce, sq, group=group)
         rep_sq = sum((torch.sum(g * g) for g in out[:len(rep)]), torch.zeros((), device=sq.device))
         norm = torch.sqrt(sq[0] + rep_sq)
         return local, norm, dict(zip(names, out[len(rep):]))
@@ -359,6 +392,7 @@ class Trainer:
         if self.mesh is not None:
             self.comm_s = 0.0
             pipeline.reset_stats()
+            collectives.reset_stats()
             params = self.gather(state.params) if self.fsdp else state.params
             micros = self._local(batch, noise)
         elif k == 1:
@@ -382,6 +416,7 @@ class Trainer:
         if self.mesh is not None:
             out = self._reduce(grads, aux)
             self.pipe_stats = dict(pipeline.stats) if self.pp else {}
+            self.model_comm = dict(collectives.stats)
             return out
         return grads, global_norm(grads), aux
 
@@ -448,6 +483,9 @@ class Trainer:
                 self.places = tree_leaves(pipeline.pipe_param_sharding(self.mesh, params))
             elif self.ep:
                 self.places = tree_leaves(ep_param_sharding(self.mesh, params))
+            elif self.tp:
+                self.place_tree = tp_param_sharding(self.mesh, params)
+                self.places = tree_leaves(self.place_tree)
             params, ema = self.shard(params), self.shard(ema)
         return TrainState(params, self.optimizer.init(params), int(step), ema)
 

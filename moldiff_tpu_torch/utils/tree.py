@@ -16,9 +16,12 @@ def tree_leaves(tree: Any) -> List[Any]:
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """fn over the leaves of trees of one structure, in tree_leaves order."""
+    """fn over the leaves of trees of one structure, in tree_leaves order;
+    the result's dicts and lists are of ``tree``'s types (a dict subclass
+    such as models/nn.py ShardedMLP is kept)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+        out = {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+        return out if type(tree) is dict else type(tree)(out)
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)

@@ -17,8 +17,10 @@ utils/flops.py's count beside it; the data axis: the train CLI with
 parallel.num_devices 2 and FSDP starts two gloo processes, which take a
 step and write a sharded checkpoint, read back here; and the pipe axis
 (parallel/pipeline.py): the train CLI with parallel.pipe 2 runs the demo
-denoiser's blocks as two stages in two gloo processes for a step; all in
-a fresh interpreter with those modules blocked."""
+denoiser's blocks as two stages in two gloo processes for a step; the graph
+and model axes: the train CLI with parallel.graph 2, then parallel.model
+2, takes a step in two gloo processes by the plain route; all in a fresh
+interpreter with those modules blocked."""
 import json
 import os
 import subprocess
@@ -267,6 +269,24 @@ try:
     assert s0["loss"] == s1["loss"] and s0["pipe"]["p2p_bytes"] > 0, (s0, s1)
 finally:
     shutil.rmtree(work)
+# the graph and model axes: one step of the demo denoiser with its pair
+# tensors split by receiver over 2 ranks, then with its MLPs split over 2
+from moldiff_tpu_torch.train.settings import TRAIN_V2_CONT_GRAPH2, TRAIN_V2_CONT_TP2
+for settings in (TRAIN_V2_CONT_GRAPH2, TRAIN_V2_CONT_TP2):
+    work = tempfile.mkdtemp()
+    try:
+        cfg = copy.deepcopy(settings)
+        cfg["model"] = copy.deepcopy(ck["config"]["model"])
+        cfg["model"]["denoiser"]["dtype"] = "float32"
+        cfg["dataset"]["root"] = "./data/synthetic"
+        cfg["train"].update(batch_size=2, buckets=[16, 24, 32], val_freq=1, val_batches=1)
+        out = train_cli.run(cfg, device="cpu", logdir=os.path.join(work, "logs"), max_iters=1,
+                            corpus_mols=10, log=lambda m: None)
+        s0, s1 = (r["steps"][0] for r in out["ranks"])
+        assert s0["loss"] == s1["loss"] and s0["model_comm"]["all_reduce_calls"] > 0, (s0, s1)
+        assert sum(s0["launches"].values()) == 0, s0["launches"]
+    finally:
+        shutil.rmtree(work)
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print(json.dumps({"modules": names, "settings": chip_smoke.SAMPLE_SETTINGS,
@@ -299,6 +319,7 @@ def test_port_runs_without_jax_yaml_pandas():
                  "moldiff_tpu_torch.utils.flops", "moldiff_tpu_torch.parallel",
                  "moldiff_tpu_torch.parallel.mesh", "moldiff_tpu_torch.parallel.multihost",
                  "moldiff_tpu_torch.parallel.launch", "moldiff_tpu_torch.parallel.pipeline",
+                 "moldiff_tpu_torch.parallel.collectives",
                  "moldiff_tpu_torch.train.checkpoint_sharded"):
         assert name in out["modules"]
     # chip_smoke's sample settings are the committed YAML config's

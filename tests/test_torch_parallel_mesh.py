@@ -1,7 +1,7 @@
 """moldiff_tpu_torch.parallel.mesh against moldiff_tpu.parallel.mesh:
-make_mesh_from_config over JAX's cases (sizes, the pipe and expert meshes
-and their rank layout, the axes' exclusivity, the divisibility errors, the
-graph and model axes raising, NCCL's one rank per card), fsdp_param_sharding's dimension and per-rank shard shapes leaf by
+make_mesh_from_config over JAX's cases (sizes, the pipe, expert, graph and
+model meshes and their rank layout, the axes' exclusivity, the
+divisibility errors, NCCL's one rank per card), fsdp_param_sharding's dimension and per-rank shard shapes leaf by
 leaf against JAX's on W = 2 and 4 meshes for the flagship and demo
 trees, pad_batch_to_multiple and shard_batch."""
 import jax
@@ -47,23 +47,50 @@ def test_errors_equal_jax(cfg):
 
 @pytest.mark.parametrize("axis", ["graph", "model", "pipe", "expert"])
 def test_axes_not_ported_raise(axis):
-    """graph and model raise NotImplementedError (the next slice); pipe and
-    expert build JAX's mesh: its axes and sizes, and rank d * A + a at JAX's
-    device (d, a), with each axis's group of ranks."""
+    """Every axis builds JAX's mesh: its axes and sizes (a model axis comes
+    with a graph axis of size 1, as make_mesh_3d gives it), and each rank at
+    JAX's device: rank d * A + a on a 2-D mesh, (d * G + g) * M + m on the
+    3-D one, with each axis's line of ranks."""
     cfg = {"num_devices": 4, axis: 2}
-    want = jmesh.make_mesh_from_config(cfg, devices=jax.devices())   # JAX builds it
-    if axis in ("graph", "model"):
-        with pytest.raises(NotImplementedError, match=f"the {axis} axis is not ported"):
-            mesh.make_mesh_from_config(cfg, "cpu")
-        return
+    want = jmesh.make_mesh_from_config(cfg, devices=jax.devices())
     got = mesh.make_mesh_from_config(cfg, "cpu")
     assert got.shape == dict(want.shape) and got.world_size == want.size
-    assert (mesh.pipe_enabled(got), mesh.ep_enabled(got)) == (axis == "pipe", axis == "expert")
+    assert tuple(got.axes) == tuple(want.axis_names)
+    assert (mesh.pipe_enabled(got), mesh.ep_enabled(got), mesh.tp_enabled(got),
+            mesh.graph_enabled(got)) == (axis == "pipe", axis == "expert", axis == "model",
+                                         axis in ("graph", "model"))
     ids = [d.id for d in jax.devices()]
-    for (d, a), dev in np.ndenumerate(want.devices):
+    for coords, dev in np.ndenumerate(want.devices):
         r = got.at(ids.index(dev.id), "cpu")
-        assert (r.data_rank, r.axis_rank) == (d, a)
-        assert (r.group_rank(mesh.DATA_AXIS, 0), r.group_rank(axis, 0)) == (a, 2 * d)
+        assert tuple(r.coord(a) for a in got.axes) == coords
+        if axis in ("pipe", "expert"):
+            d, a = coords
+            assert (r.data_rank, r.axis_rank) == (d, a)
+            assert (r.group_rank(mesh.DATA_AXIS, 0), r.group_rank(axis, 0)) == (a, 2 * d)
+        else:
+            strides = np.cumprod((1,) + want.devices.shape[:0:-1])[::-1]
+            assert r.rank == int(np.dot(coords, strides))
+            for k, a in enumerate(got.axes):
+                line = [int(np.dot(coords[:k] + (c,) + coords[k + 1:], strides))
+                        for c in range(got.size(a))]
+                assert [r.group_rank(a, c) for c in range(got.size(a))] == line
+
+
+@pytest.mark.parametrize("cfg", [{"num_devices": 8, "graph": 2, "model": 2},
+                                 {"num_devices": 8, "graph": 2}, {"num_devices": 8, "model": 4},
+                                 {"num_devices": 2, "graph": 2, "fsdp": True}])
+def test_graph_model_meshes_equal_jax(cfg):
+    """make_mesh_from_config's (data, graph) and (data, graph, model)
+    meshes: JAX's axes, sizes and rank layout; pair_sharding's axes."""
+    want = jmesh.make_mesh_from_config(cfg, devices=jax.devices())
+    got = mesh.make_mesh_from_config(cfg, "cpu")
+    assert tuple(got.axes) == tuple(want.axis_names) and got.shape == dict(want.shape)
+    ids = [d.id for d in jax.devices()]
+    for coords, dev in np.ndenumerate(want.devices):
+        r = got.at(ids.index(dev.id), "cpu")
+        assert tuple(r.coord(a) for a in got.axes) == coords
+    assert (jmesh.pair_sharding(want) is not None) == mesh.graph_enabled(got)
+    assert jmesh.tp_enabled(want) == mesh.tp_enabled(got)
 
 
 def test_nccl_takes_one_rank_per_card(monkeypatch):

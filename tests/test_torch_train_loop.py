@@ -284,9 +284,11 @@ def test_variant_settings_are_their_yaml_plus_one_override(name, path, section, 
                            "train": {"num_microbatches": 2}}),
     ("MOE_V2_EP2", {"parallel": {"num_devices": 2, "expert": 2}}),
     ("MOE_V2_DP2", {"parallel": {"num_devices": 2}}),
+    ("TRAIN_V2_CONT_GRAPH2", {"parallel": {"num_devices": 2, "graph": 2}}),
+    ("TRAIN_V2_CONT_TP2", {"parallel": {"num_devices": 2, "model": 2}}),
 ])
 def test_parallel_settings_are_their_yaml_plus_overrides(name, sections):
-    """The mesh settings chip_smoke.py's phases 22 and 23 run:
+    """The mesh settings chip_smoke.py's phases 22-24 run:
     train_v2_cont.yml (with MOE_V2's expert bank for the MOE_ ones) with
     its parallel section (and train.ckpt_sharded or
     train.num_microbatches) overridden, the rest untouched."""

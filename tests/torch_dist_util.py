@@ -1,5 +1,5 @@
-"""Workers of the multi-process tests of moldiff_tpu_torch's data, pipe and
-expert axes: each rank is a process started by
+"""Workers of the multi-process tests of moldiff_tpu_torch's data, pipe,
+expert, graph and model axes: each rank is a process started by
 moldiff_tpu_torch.parallel.launch.spawn (gloo on the CPU, a FileStore
 rendezvous). This module imports neither JAX nor the JAX package: the
 spawned interpreters import it."""
@@ -10,11 +10,12 @@ import torch
 
 from moldiff_tpu_torch.models.bond_predictor import BondPredictor
 from moldiff_tpu_torch.models.moldiff import MolDiff
-from moldiff_tpu_torch.parallel.mesh import (Mesh, initialize_distributed, make_mesh_expert,
-                                             make_mesh_pipe, shutdown_distributed)
+from moldiff_tpu_torch.parallel.mesh import (Mesh, initialize_distributed, make_mesh_2d,
+                                             make_mesh_3d, make_mesh_expert, make_mesh_pipe,
+                                             shutdown_distributed)
 from moldiff_tpu_torch.train.trainer import Trainer
 from moldiff_tpu_torch.utils.checkpoint import params_to_torch
-from moldiff_tpu_torch.utils.tree import tree_leaves, tree_map
+from moldiff_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 
 def _np(tree):
@@ -169,9 +170,15 @@ def ckpt_worker(rank: int, world: int, init: str, kind: str, model_cfg: dict, kn
 
 def mesh_of(world: int, axes: "dict | None" = None) -> Mesh:
     """The gloo mesh of ``world`` ranks: data alone, or with ``axes``
-    ({"pipe": P} or {"expert": K}) the data axis takes the rest."""
+    ({"pipe": P}, {"expert": K}, {"graph": G} or {"graph": G, "model": M})
+    the data axis takes the rest."""
     if not axes:
         return Mesh(data=world, backend="gloo")
+    if "model" in axes:
+        g, m = axes.get("graph", 1), axes["model"]
+        return make_mesh_3d(world // (g * m), g, m, "cpu", "gloo")
+    if "graph" in axes:
+        return make_mesh_2d(world // axes["graph"], axes["graph"], "cpu", "gloo")
     (axis, size), = axes.items()
     make = make_mesh_pipe if axis == "pipe" else make_mesh_expert
     return make(world // size, size, "cpu", "gloo")
@@ -179,7 +186,8 @@ def mesh_of(world: int, axes: "dict | None" = None) -> Mesh:
 
 def axis_run(rank: int, world: int, kind: str, model_cfg: dict, kn: int, ke: int,
              train_cfg: dict, state: dict, steps: list, axes: "dict | None",
-             ckpt_dir: "str | None" = None, read_dir: "str | None" = None) -> dict:
+             ckpt_dir: "str | None" = None, read_dir: "str | None" = None,
+             fsdp: bool = False, eval_batch=None, grad_check: bool = False) -> dict:
     """One trainer on ``mesh_of(world, axes)`` from ``state`` through
     ``steps`` -> the loss terms and whole state after each step, the shard
     shapes of params, moments and EMA, the step's pipeline transfers. With
@@ -187,12 +195,23 @@ def axis_run(rank: int, world: int, kind: str, model_cfg: dict, kn: int, ke: int
     (``<ckpt_dir>.ckpt``) written after the steps, read back by a new
     trainer, and the last step taken again from both the state and the
     directory. With ``read_dir``: the whole state read from that directory
-    by a new trainer, and its shard shapes."""
+    by a new trainer, and its shard shapes. ``fsdp``: the data axis's
+    sharding; ``eval_batch`` ((batch, noise)): the eval terms on the final
+    params; ``grad_check``: the whole gradient of the first step from
+    ``state``."""
     mesh = mesh_of(world, axes).at(rank, "cpu")
-    trainer = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh)
+    trainer = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh, fsdp=fsdp)
     st = start_state(trainer, state)
-    rec = {"pp": trainer.pp, "ep": trainer.ep}
+    rec = {"pp": trainer.pp, "ep": trainer.ep, "tp": trainer.tp, "graph": trainer.graph,
+           "fsdp": trainer.fsdp}
+    if grad_check:
+        grads = trainer.gradient(st, *steps[0])[0]
+        rec["grads"] = [g.numpy() for g in tree_leaves(trainer.gather(
+            tree_unflatten(st.params, grads)))]
     st, rec["aux"], rec["states"] = run_steps(trainer, st, steps)
+    rec["model_comm"] = dict(trainer.model_comm)
+    if eval_batch is not None:
+        rec["eval"] = {k: float(v) for k, v in trainer.eval_step(st.params, *eval_batch).items()}
     rec["pipe"] = dict(trainer.pipe_stats)
     rec["shapes"] = {name: [tuple(x.shape) for x in tree_leaves(tree)]
                      for name, tree in (("params", st.params), ("mu", st.opt_state.mu),
@@ -201,12 +220,12 @@ def axis_run(rank: int, world: int, kind: str, model_cfg: dict, kn: int, ke: int
         trainer.save_checkpoint_sharded(ckpt_dir, st, {"model": model_cfg})
         trainer.save_checkpoint(ckpt_dir + ".ckpt", st, {"model": model_cfg})
         rec["last"] = run_steps(trainer, st, steps[-1:])[1:]
-        back = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh)
+        back = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh, fsdp=fsdp)
         resumed = back.load_checkpoint(ckpt_dir, "cpu")
         rec["resumed_step"] = resumed.step
         rec["again"] = run_steps(back, resumed, steps[-1:])[1:]
     if read_dir is not None:
-        other = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh)
+        other = Trainer(make_model(kind, model_cfg, kn, ke), train_cfg, mesh=mesh, fsdp=fsdp)
         got = other.load_checkpoint(read_dir, "cpu")
         rec["read"] = whole(other, got)
         rec["read_shapes"] = [tuple(x.shape) for x in tree_leaves(got.params)]
@@ -256,6 +275,41 @@ def pipe_forward_worker(rank: int, world: int, init: str, n_pipe: int, params: d
                 grads = torch.autograd.grad(sum(x.sum() for x in res), leaves)
                 rec["grads"] = [g.numpy() for g in grads]
             out.append(rec)
+        return out
+    finally:
+        shutdown_distributed()
+
+
+def graph_forward_worker(rank: int, world: int, init: str, n_graph: int, params: dict,
+                         static_cfg: dict, cases: list) -> list:
+    """node_edge_net by the row-split route on ``mesh_of(world, {"graph":
+    n_graph})``: per case (inputs, output weights) -> this rank's outputs
+    on its data shard's rows, and the gradients of the sum of its outputs
+    times the weights with respect to the whole block leaves and to its
+    rows of the inputs h_node, pos, h_edge."""
+    from moldiff_tpu_torch.models.denoiser import denoiser_static_config, node_edge_net
+    from moldiff_tpu_torch.parallel.mesh import pair_sharding
+
+    torch.set_num_threads(1)
+    initialize_distributed(init, world, rank, backend="gloo")
+    try:
+        mesh = mesh_of(world, {"graph": n_graph}).at(rank, "cpu")
+        ps = pair_sharding(mesh)
+        static = denoiser_static_config(**static_cfg)
+        out = []
+        for inputs, weights in cases:
+            tree = params_to_torch(params, "cpu")
+            leaves = [x.requires_grad_(True) for x in tree_leaves(tree)]
+            b = inputs[0].shape[0] // mesh.data
+            rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+            x = [torch.tensor(v[rows]) for v in inputs]
+            ins = [t.requires_grad_(True) for t in x[:3]]
+            res = node_edge_net(tree, static, *ins, *x[3:], pair_sharding=ps)
+            loss = sum((r * torch.tensor(w[rows])).sum() for r, w in zip(res, weights))
+            grads = torch.autograd.grad(loss, leaves + ins)
+            out.append({"out": [r.detach().numpy() for r in res],
+                        "grads": [g.numpy() for g in grads[:len(leaves)]],
+                        "input_grads": [g.numpy() for g in grads[len(leaves):]]})
         return out
     finally:
         shutdown_distributed()
