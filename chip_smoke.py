@@ -89,7 +89,8 @@ Phases, each asserting and none catching a failure:
      tile-boundary fault (no race detector runs on the card machine);
  15. the sampler's modes: run() with the unguided settings and, in turn,
      num_steps 100 (s100); num_steps 100 with pos_sampler ddim, eta 0
-     (ddim_s100); commit both at T = 1000 (commit_both); use_ema with
+     (ddim_s100); commit both at T = 1000, classified by a pool of
+     POOL_WORKERS spawned processes (commit_both); use_ema with
      num_steps 100 (ema_s100); save_traj_prob 1.0 with num_steps 100
      (traj_s100); each until MODE_NUM_MOLS = 8 finished at batch 16. Each
      run's launches of rows 1, 4 and 8 are launches per call x 6 blocks x S
@@ -224,15 +225,31 @@ Phases, each asserting and none catching a failure:
      with TRAIN_V2_CONT_GRAPH2 (the pair tensors split by receiver over 2
      ranks) and TRAIN_V2_CONT_TP2 (the MLPs split over 2 ranks), 4 steps
      each from flagship_v2 at batch 128, and TRAIN_BONDPRED_V2 on graph 2
-     one step from bondpred_40k, in one process group of 2; one step on
-     graph 2 x model 2 (4 ranks) at batch 32; each against the same steps
-     at world size 1 on the plain route (make_mesh_2d(1, 1)): every loss
-     within GRAPH_LOSS_RTOL, GRAPH2's and TP2's params after step 1 within
-     2x the one-ulp witness, no kernel launched on any rank, the replicas'
-     params bit-equal; the kernel route's step-1 loss printed beside the
-     plain route's. It prints the seconds a step, the collectives' ms and
-     bytes a step by kind, the peak memory a rank against world 1's, and
-     the card's name and power limit.
+     one step from bondpred_40k, in one process group of 2; in one process
+     group of 4 ranks, one step each at batch 32: graph 2 x model 2, MOE_V2
+     on graph 2 x model 2 from flagship_v2 upcycled (as phase 23 (d)) with
+     world 1's expert choices replayed, and TRAIN_BONDPRED_V2 with FSDP on
+     data 2 x pipe 2 (the pipe ranks replicas, no pipeline) from
+     bondpred_40k; each against the same steps at world size 1 on the
+     plain route (make_mesh_2d(1, 1); the FSDP predictor against world 1
+     on the kernel route): every plain-route loss within GRAPH_LOSS_RTOL,
+     the FSDP predictor's under phase 23's rule, every run's params after
+     step 1 within 2x the one-ulp witness, no kernel launched on any rank
+     of the plain route and the predictor's per-step counts on every FSDP
+     rank, the replicas' params bit-equal; the kernel route's step-1 loss
+     printed beside the plain route's. It prints the seconds a step, the
+     collectives' ms and bytes a step by kind, the peak memory a rank
+     against world 1's, and the card's name and power limit.
+ 25. the host classification pool and the guidance-scale sweep: 64
+     molecules of a 100-step commit-both chain of flagship_v2 (batch 64)
+     classified serially and through a pool of POOL_WORKERS spawned
+     processes (min(8, CPUs)), twice: the entries equal in order; the
+     molecules a second both ways and the pool's start-up seconds printed
+     beside the CPU count; the sweep (python -m
+     moldiff_tpu_torch.sample.sweep) through its main() on flagship_v2 and
+     bondpred_v2 at one scale (1e-4), 100-step guided chains at batch 16
+     until 8 finished, with the pool: its JSON holds the JAX script's keys
+     and its launches are phase 8's per step.
 --gate NAME runs one sampling gate instead of the phases (after 1 and 2):
 the settings of a committed YAML with named overrides (GATES; a CPU test
 holds each equal to its YAML plus its overrides): s100, ddim_s100,
@@ -507,6 +524,9 @@ def with_sample(settings: dict, top: "dict | None" = None, **sample) -> dict:
     return out
 
 
+# host classification workers (sample/classify.py): as many as the machine
+# has cores, at most the 8 of JAX's soak runs (scripts/run_r5_soaks.py:35)
+POOL_WORKERS = min(8, os.cpu_count() or 1)
 # phase 15: the sampler's modes through run(), each the unguided settings
 # with these sample settings, MODE_NUM_MOLS finished at batch MODE_BATCH,
 # and its floor on the rate over every molecule classified (the module
@@ -514,7 +534,7 @@ def with_sample(settings: dict, top: "dict | None" = None, **sample) -> dict:
 MODE_RUNS = {
     "s100": ({"num_steps": 100}, 0.25),
     "ddim_s100": ({"num_steps": 100, "pos_sampler": "ddim", "eta": 0.0}, 0.125),
-    "commit_both": ({"commit": "both"}, 0.125),
+    "commit_both": ({"commit": "both", "recon_workers": POOL_WORKERS}, 0.125),
     "ema_s100": ({"use_ema": True, "num_steps": 100}, 0.125),
     "traj_s100": ({"save_traj_prob": 1.0, "num_steps": 100}, 0.25),
 }
@@ -1585,6 +1605,7 @@ def check_modes_run(cli, results: dict, blocks: int) -> dict:
         say(f"mode {tag} {overrides}: {summary['chains']} chains x {steps} steps, launches "
             f"{counts}, expected {expected}, {time.time() - t0:.1f} s")
         assert counts == expected, (tag, counts, expected)
+        assert summary["recon_workers"] == overrides.get("recon_workers", 0), summary
         assert summary["num_finished"] >= 1 and summary["num_classified"] >= MODE_BATCH, summary
         assert summary["success_rate_classified"] >= floor, (tag, floor, summary)
         report(f"mode {tag}", summary, steps)
@@ -2864,14 +2885,14 @@ def _axis_losses(name: str, out: dict, ref: dict) -> list:
     return rels
 
 
-def _axis_launches(name: str, out: dict, per_step: dict) -> list:
-    """Every rank's launches in each step equal ``per_step`` -> each rank's
-    counts over the run."""
+def _axis_launches(name: str, out: dict, per_step: dict, settings: dict = TRAIN_SETTINGS) -> list:
+    """Every rank's launches in each step equal ``per_step`` and its terms
+    are ``settings``' model's -> each rank's counts over the run."""
     counts = []
     for r, rank in enumerate(out["ranks"]):
         for st in rank["steps"]:
             assert st["launches"] == per_step, (name, r, st["it"], st["launches"], per_step)
-            check_step_terms(st, TRAIN_SETTINGS)
+            check_step_terms(st, settings)
         counts.append({k: v * len(rank["steps"]) for k, v in per_step.items()})
     return counts
 
@@ -3195,10 +3216,13 @@ def check_pipe_expert_axes(corpus: dict, results: dict, device) -> list:
 # process group: TRAIN_V2_CONT_GRAPH2 (the pair tensors split by receiver
 # over 2 ranks) and TRAIN_V2_CONT_TP2 (the MLPs split over 2 ranks) for
 # AXIS_STEPS steps from flagship_v2, and one step of TRAIN_BONDPRED_V2 on
-# graph 2 from bondpred_40k; then one step of MESH3D (graph 2 x model 2, 4
-# ranks) at batch MESH3D_BATCH. Each is held against the same steps at
-# world size 1 on the plain route (make_mesh_2d(1, 1), as JAX runs it) in
-# this call: every loss within GRAPH_LOSS_RTOL; the gradient norm before
+# graph 2 from bondpred_40k; then in one process group of 4 ranks one step
+# each at batch MESH3D_BATCH of MESH3D (graph 2 x model 2), of MOE_V2 on that
+# mesh (world 1's expert choices replayed) and of TRAIN_BONDPRED_V2 with FSDP
+# on data 2 x pipe 2 (held to world 1 on the kernel route by phase 23's
+# rules). The others are held against the same steps at world size 1 on
+# the plain route (make_mesh_2d(1, 1), as JAX runs it) in this call: every
+# loss within GRAPH_LOSS_RTOL; the gradient norm before
 # clipping (a backward that sums over graph as well as data scales it by the
 # graph size, which Adam's first step all but hides in the params) of step 1,
 # from the same params and batch, within GRAPH_NORM_RTOL_1, one bf16 unit
@@ -3230,24 +3254,31 @@ def _plain_run_local(config: dict, device, mesh, log, bond: bool = False, **kwar
 
 
 def _axes_run_local(config: dict, device, mesh, log, runs: list, **kwargs) -> dict:
-    """One rank of cli.run_ranks: per (name, settings, resume, steps, bond)
-    of ``runs`` the train CLI's (bond_cli's) rank body on the mesh of
-    ``settings``' parallel section at this rank, in one process group ->
-    {"runs": {name: its summary}}."""
+    """One rank of cli.run_ranks: per (name, settings, resume, steps, bond,
+    pins) of ``runs`` the train CLI's (bond_cli's) rank body on the mesh of
+    ``settings``' parallel section at this rank, in one process group, with
+    the expert choices of ``pins`` (a path, or None) replayed (RouteReplay)
+    -> {"runs": {name: its summary}}."""
+    import torch
+
     from moldiff_tpu_torch.parallel.mesh import make_mesh_from_config
     from moldiff_tpu_torch.train import bond_cli
     from moldiff_tpu_torch.train import cli as train_cli
     from moldiff_tpu_torch.utils.checkpoint import load_checkpoint_numpy
 
     out = {}
-    for name, settings, resume, steps, bond in runs:
+    for name, settings, resume, steps, bond, pins in runs:
         m = make_mesh_from_config(settings["parallel"], device, mesh.backend).at(mesh.rank, device)
         assert m.world_size == mesh.world_size
         run_local = bond_cli._run_local if bond else train_cli._run_local
         start = int(load_checkpoint_numpy(resume)["step"])
-        out[name] = _summary(run_local(copy_settings(settings, ckpt_freq=1), device, m, log,
-                                       **dict(kwargs, name=name, resume=resume,
-                                              max_iters=start + steps)))
+        with (RouteReplay(torch.load(pins), m.data_rank) if pins
+              else contextlib.nullcontext()) as replay:
+            out[name] = _summary(run_local(copy_settings(settings, ckpt_freq=1), device, m, log,
+                                           **dict(kwargs, name=name, resume=resume,
+                                                  max_iters=start + steps)))
+        if pins:
+            out[name]["route_flips"] = replay.flips
     return {"runs": out}
 
 
@@ -3273,18 +3304,24 @@ def check_graph_model_axes(corpus: dict, results: dict, device) -> list:
     train CLI's rank body, AXIS_STEPS steps each from flagship_v2 at batch
     128, and GRAPH2_BOND one step from bondpred_40k, the 2 ranks on the one
     card over gloo in one process group, params checked equal over the
-    replicas after each step; (b) MESH3D (data 1, graph 2, model 2) one
-    step at batch MESH3D_BATCH through run(), 4 ranks; (c) each against the
-    same steps at world size 1 on the plain route, and the plain route's
-    step-1 loss against the kernel route's (one step of phase 10's
-    settings). Every step of every rank launches no kernel. -> the launch
-    counts of the runs."""
+    replicas after each step; (b) in one process group of 4 ranks, one step
+    each at batch MESH3D_BATCH: MESH3D (data 1, graph 2, model 2), MOE_V2
+    on that mesh from flagship_v2 upcycled (upcycled_checkpoint) with world
+    1's expert choices replayed, and TRAIN_BONDPRED_V2 with FSDP on data 2
+    x pipe 2 (the pipe ranks replicas) from bondpred_40k; (c) each against
+    the same steps at world size 1 (on the plain route, the predictor's
+    FSDP run on the kernel route under phase 23's rules), and the plain
+    route's step-1 loss against the kernel route's (one step of phase
+    10's settings). Every step of every rank on the plain route launches
+    no kernel; the FSDP predictor's launch its per-step counts. -> the
+    launch counts of the runs."""
     import torch
 
     from moldiff_tpu_torch.ops import kernels
     from moldiff_tpu_torch.parallel.mesh import make_mesh_2d
-    from moldiff_tpu_torch.train.settings import (TRAIN_BONDPRED_V2, TRAIN_V2_CONT_GRAPH2,
-                                                  TRAIN_V2_CONT_TP2)
+    from moldiff_tpu_torch.train import bond_cli
+    from moldiff_tpu_torch.train.settings import (MOE_V2, TRAIN_BONDPRED_V2,
+                                                  TRAIN_V2_CONT_GRAPH2, TRAIN_V2_CONT_TP2)
 
     t_phase = time.time()
     zero = {k: 0 for k in train_launches(TRAIN_SETTINGS, results)}
@@ -3292,6 +3329,11 @@ def check_graph_model_axes(corpus: dict, results: dict, device) -> list:
     bond_graph2["parallel"] = {"num_devices": 2, "graph": 2}
     mesh3d = copy_settings(TRAIN_SETTINGS, batch_size=MESH3D_BATCH)
     mesh3d["parallel"] = {"num_devices": 4, "graph": 2, "model": 2}
+    moe3d = copy_settings(MOE_V2, batch_size=MESH3D_BATCH)
+    moe3d["parallel"] = dict(mesh3d["parallel"])
+    bond_fsdp = copy_settings(TRAIN_BONDPRED_V2, batch_size=MESH3D_BATCH)
+    bond_fsdp["parallel"] = {"num_devices": 4, "pipe": 2, "fsdp": True}
+    bond_step = train_launches(TRAIN_BONDPRED_V2, results)
     paths = []
 
     def world_one(settings, name, resume, steps, **kw):
@@ -3316,26 +3358,47 @@ def check_graph_model_axes(corpus: dict, results: dict, device) -> list:
                       1, build=_plain_run_local, bond=True)
     one3d = world_one(mesh3d | {"parallel": {}}, "mesh3d_plain_world1", CHECKPOINT, 1,
                       build=_plain_run_local)
+    # MoE on the plain route at world 1 from flagship_v2 upcycled, its expert
+    # choices recorded for the 4 ranks to replay (the router's argmax is
+    # discontinuous: phase 23)
+    moe_ckpt = upcycled_checkpoint(device)
+    with RoutePins(10 ** 9) as pins:
+        moe1 = world_one(moe3d | {"parallel": {}}, "moe_mesh3d_plain_world1", moe_ckpt, 1,
+                         build=_plain_run_local)
+    recorded = [[c.cpu() for c in entry] for entry in pins.recorded]
+    pins_path = os.path.join("outputs_torch", "chip_smoke", "moe_mesh3d_world1_routes.pt")
+    torch.save(recorded, pins_path)
+    t0 = time.time()
+    bond_fsdp1 = world_one(bond_fsdp | {"parallel": {}}, "bond_fsdp_world1", BOND_PREDICTOR_40K,
+                           1, build=bond_cli._run_local)
+    wall_bond1 = time.time() - t0
+    assert paths[-1] == bond_step, (paths[-1], bond_step)
 
     # (a) GRAPH2, TP2 and the predictor on graph 2, one process group
     t0 = time.time()
-    runs = [("graph2", TRAIN_V2_CONT_GRAPH2, CHECKPOINT, AXIS_STEPS, False),
-            ("tp2", TRAIN_V2_CONT_TP2, CHECKPOINT, AXIS_STEPS, False),
-            ("bond_graph2", bond_graph2, BOND_PREDICTOR_40K, 1, True)]
+    runs = [("graph2", TRAIN_V2_CONT_GRAPH2, CHECKPOINT, AXIS_STEPS, False, None),
+            ("tp2", TRAIN_V2_CONT_TP2, CHECKPOINT, AXIS_STEPS, False, None),
+            ("bond_graph2", bond_graph2, BOND_PREDICTOR_40K, 1, True, None)]
     both = _axis_run(TRAIN_V2_CONT_GRAPH2, corpus, device, "axes", CHECKPOINT, AXIS_STEPS,
                      backend="gloo", check_replicas=True, build=_axes_run_local, runs=runs)
     wall_two = time.time() - t0
     outs = {name: dict(both["runs"][name], ranks=[r["runs"][name] for r in both["ranks"]])
             for name, *_ in runs}
-    # (b) graph 2 x model 2, four ranks
+    # (b) graph 2 x model 2 (dense and MoE) and the FSDP predictor beside a
+    # pipe, four ranks in one process group
     t0 = time.time()
-    outs["mesh3d"] = _axis_run(mesh3d, corpus, device, "mesh3d", CHECKPOINT, 1, backend="gloo",
-                               check_replicas=True)
+    runs4 = [("mesh3d", mesh3d, CHECKPOINT, 1, False, None),
+             ("moe_mesh3d", moe3d, moe_ckpt, 1, False, pins_path),
+             ("bond_fsdp_pipe", bond_fsdp, BOND_PREDICTOR_40K, 1, True, None)]
+    four = _axis_run(mesh3d, corpus, device, "four", CHECKPOINT, 1, backend="gloo",
+                     check_replicas=True, build=_axes_run_local, runs=runs4)
     wall_3d = time.time() - t0
+    outs.update({name: dict(four["runs"][name], ranks=[r["runs"][name] for r in four["ranks"]])
+                 for name, *_ in runs4})
 
     rels, norm_rels = {}, {}
     for name, ref in (("graph2", plain), ("tp2", plain), ("bond_graph2", bond1),
-                      ("mesh3d", one3d)):
+                      ("mesh3d", one3d), ("moe_mesh3d", moe1)):
         out = outs[name]
         settings = TRAIN_BONDPRED_V2 if name.startswith("bond") else TRAIN_SETTINGS
         for r, rank in enumerate(out["ranks"]):
@@ -3357,22 +3420,45 @@ def check_graph_model_axes(corpus: dict, results: dict, device) -> list:
         assert max(rels[name]) <= GRAPH_LOSS_RTOL, (name, rels[name])
         assert norm_rels[name][0] <= GRAPH_NORM_RTOL_1, (name, norm_rels[name])
         assert max(norm_rels[name]) <= GRAPH_NORM_RTOL, (name, norm_rels[name])
+    moe_out = outs["moe_mesh3d"]
+    for r, rank in enumerate(moe_out["ranks"]):
+        assert all(st["loss_moe"] > 0 for st in rank["steps"]), r
+        assert len(rank["route_flips"]) == len(recorded), (r, len(rank["route_flips"]))
+    moe_flips = [sum(fl[j] for fl in moe_out["ranks"][0]["route_flips"])
+                 for j in range(len(recorded[0]))]
+    say(f"  moe_mesh3d: the free choices (first, second) that differ from world 1's replayed "
+        f"ones, rank 0, over {sum(int(c[0].numel()) for c in recorded)} tokens x MoE calls: "
+        f"{moe_flips}")
+    # the FSDP predictor beside a pipe: the kernel route, phase 23's rules
+    bond_out = outs["bond_fsdp_pipe"]
+    paths += _axis_launches("bond FSDP beside pipe", bond_out, bond_step, TRAIN_BONDPRED_V2)
+    for r, rank in enumerate(bond_out["ranks"]):
+        assert all(st["replicas_equal"] for st in rank["steps"]), r
+    rels["bond_fsdp_pipe"] = _axis_losses("bond FSDP beside pipe", bond_out, bond_fsdp1)
 
-    # each run's params after step 1 against its world-1 plain run's,
-    # within the one-ulp witness of that run's settings
+    # each run's params after step 1 against its world-1 run's, within the
+    # one-ulp witness of that run's settings (MoE's recomputed on world 1's
+    # expert choices)
     wit = {}
-    for ref_name, ref, settings, ckpt, names in (
-            ("world 1 plain", plain, TRAIN_SETTINGS, CHECKPOINT, ("graph2", "tp2")),
+    plain_mesh = make_mesh_2d(1, 1, device)
+    for ref_name, ref, settings, ckpt, names, mesh, replay in (
+            ("world 1 plain", plain, TRAIN_SETTINGS, CHECKPOINT, ("graph2", "tp2"), plain_mesh,
+             None),
             ("world 1 plain predictor", bond1, bond_graph2 | {"parallel": {}},
-             BOND_PREDICTOR_40K, ("bond_graph2",)),
-            ("world 1 plain B=32", one3d, mesh3d | {"parallel": {}}, CHECKPOINT, ("mesh3d",))):
-        p1, witness = step1_witness(settings, corpus, device, mesh=make_mesh_2d(1, 1, device),
-                                    checkpoint=ckpt)
+             BOND_PREDICTOR_40K, ("bond_graph2",), plain_mesh, None),
+            ("world 1 plain B=32", one3d, mesh3d | {"parallel": {}}, CHECKPOINT, ("mesh3d",),
+             plain_mesh, None),
+            ("world 1 plain MoE B=32", moe1, moe3d | {"parallel": {}}, moe_ckpt,
+             ("moe_mesh3d",), plain_mesh, recorded),
+            ("world 1 predictor B=32", bond_fsdp1, bond_fsdp | {"parallel": {}},
+             BOND_PREDICTOR_40K, ("bond_fsdp_pipe",), None, None)):
+        with (RouteReplay(replay, 0) if replay else contextlib.nullcontext()):
+            p1, witness = step1_witness(settings, corpus, device, mesh=mesh, checkpoint=ckpt)
         for name in names:
             wit[name] = check_step1_witness(name.upper(), _params_after(outs[name]), p1, witness)
         check_step1_witness(f"{ref_name} (run() against its recomputation)", _params_after(ref),
                             p1, witness)
-    comm = {name: _comm(outs[name]) for name in ("graph2", "tp2", "mesh3d")}
+    comm = {name: _comm(outs[name]) for name in ("graph2", "tp2", "mesh3d", "moe_mesh3d")}
     for name, per_rank in comm.items():
         for r, c in enumerate(per_rank):
             say(f"  {name} rank {r}: {c['s_per_step']:.4f} s/step; collectives a step: "
@@ -3381,22 +3467,138 @@ def check_graph_model_axes(corpus: dict, results: dict, device) -> list:
                             for k in ("all_gather", "reduce_scatter", "all_reduce"))
                 + f", the trainer's {1e3 * c['trainer_s']:.1f} ms; peak {c['peak_gb']:.2f} GB")
     peak1 = max(st.get("peak_bytes", 0) for st in plain["steps"]) / 1e9
+    step_s = lambda out: [rank["steps"][0]["s"] for rank in out["ranks"]]
     summary = {
         "world1_plain_s_per_step": _mean_later(plain, lambda st: st["s"]),
         "world1_plain_peak_gb": peak1,
         "world1_kernel_step1_loss": k1, "world1_plain_step1_loss": p1_loss,
         "loss_rel": rels, "grad_norm_rel": norm_rels, "step1_params": wit, "comm": comm,
         "peak_gb_over_world1": {name: max(c["peak_gb"] for c in per_rank) / max(peak1, 1e-9)
-                                for name, per_rank in comm.items() if name != "mesh3d"},
-        "walls_s": {"plain_world1": wall_plain, "graph2_tp2_bond": wall_two, "mesh3d": wall_3d},
+                                for name, per_rank in comm.items() if "mesh3d" not in name},
+        "mesh3d_s": step_s(outs["mesh3d"]), "moe_mesh3d_s": step_s(moe_out),
+        "moe_world1_plain_s": moe1["steps"][0]["s"], "dense_world1_plain_b32_s":
+        one3d["steps"][0]["s"], "moe_mesh3d_flips_rank0": moe_flips,
+        "bond_fsdp_pipe_s": step_s(bond_out), "bond_fsdp_pipe_comm_s":
+        [rank["steps"][0]["comm_s"] for rank in bond_out["ranks"]],
+        "bond_world1_s": bond_fsdp1["steps"][0]["s"],
+        "walls_s": {"plain_world1": wall_plain, "graph2_tp2_bond": wall_two,
+                    "four_ranks": wall_3d, "bond_world1": wall_bond1},
         "card": nvidia_smi()}
     say(f"graph/model axes: GRAPH2 {comm['graph2'][0]['s_per_step']:.4f} s/step, TP2 "
         f"{comm['tp2'][0]['s_per_step']:.4f}, world 1 plain {summary['world1_plain_s_per_step']:.4f}"
         f"; peak a rank GRAPH2 {summary['peak_gb_over_world1']['graph2']:.2f}x, TP2 "
         f"{summary['peak_gb_over_world1']['tp2']:.2f}x world 1's {peak1:.2f} GB")
+    say(f"graph 2 x model 2 at B={MESH3D_BATCH}, rank 0's step: dense {summary['mesh3d_s'][0]:.4f} "
+        f"s, MoE {summary['moe_mesh3d_s'][0]:.4f} s (world 1 plain: dense "
+        f"{summary['dense_world1_plain_b32_s']:.4f}, MoE {summary['moe_world1_plain_s']:.4f}); "
+        f"the predictor with FSDP beside pipe {summary['bond_fsdp_pipe_s'][0]:.4f} s "
+        f"(collectives {1e3 * summary['bond_fsdp_pipe_comm_s'][0]:.1f} ms) against world 1's "
+        f"{summary['bond_world1_s']:.4f} s")
     say(f"phase 24 (graph and model axes): {time.time() - t_phase:.1f} s")
     say(json.dumps({"graph_model_axes": summary}))
     return paths
+
+
+# phase 25: one POOL_STEPS-step commit-both chain of flagship_v2 at batch
+# POOL_BATCH (two chains: one a bucket), classified serially and through a
+# pool of POOL_WORKERS spawned processes, twice (the first pass pays the
+# workers' start-up); the guidance-scale sweep's main() on flagship_v2 and
+# bondpred_v2 with SWEEP_ARGS, its JSON holding SWEEP_KEYS
+POOL_BATCH = 64
+POOL_STEPS = 100
+SWEEP_ARGS = ("--scales", "1e-4", "--skip_unguided", "--num_steps", "100", "--num_mols", "8",
+              "--batch_size", "16")
+SWEEP_KEYS = ("bp_ckpt", "ckpt", "ckpt_step", "mode", "num_mols", "num_steps", "runs", "seed")
+
+
+def check_pool_and_sweep(cli, results: dict, dn_blocks: int, bp_blocks: int, device) -> list:
+    """Phase 25: (a) POOL_BATCH molecules of a POOL_STEPS-step commit-both
+    chain of flagship_v2 (MolSampler.sample_sizes; each forward kernel's
+    launches per call x blocks x steps x chains), classified serially, then
+    through a pool of POOL_WORKERS twice: every pass's entries (pool,
+    reason, SMILES, stage) equal in order; molecules a second each way and
+    the pool's start-up seconds (its first pass less its second) printed;
+    (b) the sweep's main() with SWEEP_ARGS and the pool: the JSON it writes
+    is its return value and holds SWEEP_KEYS, one run at the one scale
+    that stopped where generate() stops, its interval around its rate;
+    the launches are a guided step's (phase 8's rule) x steps. -> the launch counts of (a) and (b)."""
+    import numpy as np
+    import torch
+
+    from moldiff_tpu_torch.ops import kernels
+    from moldiff_tpu_torch.sample import classify, sweep
+
+    t_phase = time.time()
+    scfg = with_sample(SAMPLE_SETTINGS, commit="both", num_steps=POOL_STEPS)["sample"]
+    sampler, params = cli.build_sampler(CHECKPOINT, scfg, device, batch_size=POOL_BATCH)
+    seed = int(scfg["seed"])
+    kernels.reset_launch_counts()
+    decoded = sampler.sample_sizes(params, sampler.draw_sizes(POOL_BATCH,
+                                                              np.random.default_rng(seed)),
+                                   torch.Generator(device=device).manual_seed(seed))
+    counts = dict(kernels.launch_counts)
+    expected = forward_expected(results, dn_blocks * POOL_STEPS * sampler.chains)
+    assert counts == expected, (counts, expected)
+    key = lambda e: (e["pool"], e.get("reason"), e.get("smiles"), e.get("stage"))
+    t0 = time.perf_counter()
+    serial = classify.classify_batch(decoded, sampler.add_edge, None, sampler.sanitize_mode)
+    serial_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    workers = classify.make_classify_pool(POOL_WORKERS)
+    try:
+        cold = classify.classify_batch(decoded, sampler.add_edge, workers, sampler.sanitize_mode)
+        cold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        warm = classify.classify_batch(decoded, sampler.add_edge, workers, sampler.sanitize_mode)
+        warm_s = time.perf_counter() - t0
+    finally:
+        workers.shutdown()
+    assert [key(e) for e in cold] == [key(e) for e in serial] == [key(e) for e in warm]
+    n = len(decoded)
+    pool = {"molecules": n, "chains": sampler.chains, "finished": sum(e["pool"] == "finished"
+                                                                      for e in serial),
+            "workers": POOL_WORKERS, "cpus": os.cpu_count(), "serial_s": serial_s,
+            "pooled_cold_s": cold_s, "pooled_warm_s": warm_s,
+            "serial_mols_per_s": n / serial_s, "pooled_mols_per_s": n / warm_s,
+            "startup_s": cold_s - warm_s}
+    say(f"pool: {n} molecules of a {POOL_STEPS}-step commit-both chain ({pool['finished']} "
+        f"finished): serial {serial_s:.3f} s ({pool['serial_mols_per_s']:.2f} mols/s, "
+        f"{1e3 * serial_s / n:.1f} ms a molecule); {POOL_WORKERS} workers ({os.cpu_count()} "
+        f"CPUs) first pass {cold_s:.3f} s, second {warm_s:.3f} s ({pool['pooled_mols_per_s']:.2f}"
+        f" mols/s, {serial_s / warm_s:.2f}x serial); start-up {pool['startup_s']:.3f} s; the "
+        "entries of all three passes equal in order")
+
+    # (b) the sweep through its entry point
+    out_path = os.path.join("outputs_torch", "chip_smoke", "sweep_flagship_v2.json")
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    res = sweep.main(["--ckpt", CHECKPOINT, "--bp_ckpt", BOND_PREDICTOR, *SWEEP_ARGS,
+                      "--recon_workers", str(POOL_WORKERS), "--out", out_path],
+                     log=lambda m: say(f"  {m}"))
+    sweep_s = time.time() - t0
+    s_counts = dict(kernels.launch_counts)
+    per_step = guided_expected(results, dn_blocks, bp_blocks, 1)
+    steps = s_counts["pos_update"] // per_step["pos_update"]
+    assert steps > 0 and steps % POOL_STEPS == 0, (s_counts, per_step)
+    assert s_counts == guided_expected(results, dn_blocks, bp_blocks, steps), s_counts
+    with open(out_path) as f:
+        on_disk = json.load(f)
+    assert on_disk == json.loads(json.dumps(res)), "the sweep's JSON is not its result"
+    assert tuple(sorted(on_disk)) == SWEEP_KEYS, sorted(on_disk)
+    assert list(on_disk["runs"]) == ["uncertainty@0.0001"], list(on_disk["runs"])
+    run = on_disk["runs"]["uncertainty@0.0001"]
+    lo, hi = run["ci95"]
+    # generate() stops at num_mols finished or past 3 x num_mols failed
+    assert run["finished"] == 8 or run["failed"] > 24, run
+    assert lo <= run["success"] <= hi, run
+    summary = {"pool": pool, "sweep": {"wall_s": sweep_s, "chains": steps // POOL_STEPS,
+                                       "run": run}, "card": nvidia_smi()}
+    say(f"sweep: {steps // POOL_STEPS} guided chains of {POOL_STEPS} steps at batch 16, success "
+        f"{run['success']:.4f} [{lo:.4f}, {hi:.4f}] ({run['finished']} finished, "
+        f"{run['failed']} failed: {run['failure_modes']}), {sweep_s:.1f} s")
+    say(f"phase 25 (classification pool and sweep): {time.time() - t_phase:.1f} s")
+    say(json.dumps({"pool_and_sweep": summary}))
+    return [counts, s_counts]
 
 
 def copy_settings(settings: dict, **train) -> dict:
@@ -3960,9 +4162,13 @@ def main() -> None:
     # over gloo), against world size 1 on the plain route
     graph_counts = check_graph_model_axes(corpus, results, device)
 
+    # 25. the host classification pool (serial against pooled on one
+    # chain's molecules) and the guidance-scale sweep's entry point
+    pool_counts = check_pool_and_sweep(cli, results, dn_blocks, bp_blocks, device)
+
     main_paths = (counts, g_counts, t_counts, f_counts, fb_counts, e_counts, m_counts, s_counts,
                   b_counts, x_counts, a_counts, v_counts, r_counts, rr_counts, *variant_counts,
-                  *data_counts, *axis_counts, *graph_counts)
+                  *data_counts, *axis_counts, *graph_counts, *pool_counts)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": sum(c[name] for c in main_paths),

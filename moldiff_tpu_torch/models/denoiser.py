@@ -76,7 +76,12 @@ graph rank, and the trainer sums only over ``data``: all-reducing the
 gradients over ``graph`` as well would count the replicated work (the
 embedders, the decoders, the loss) G times. With a model axis the MLPs
 split over it (models/nn.py ShardedMLP) run as Megatron's pair inside
-this route.
+this route. Under ``moe`` the NodeBlock's expert bank (models/moe.py) runs
+on the replicated node features, every node on every graph rank (the
+capacity from the real N, not the padded rows), its experts' MLPs split
+over model as the dense MLPs are; the router stays replicated. Its
+load-balance loss is replicated work too, and passes ``collectives.once``
+so that the graph axis's gradient sums count it once.
 """
 from __future__ import annotations
 
@@ -442,12 +447,19 @@ def _node_out(p, x_rows, aggr):
     return linear(p["out"], torch.relu(out))
 
 
-def _node_block_rows(p, ps, x, edge_attr, node_time, pair_mask, n_loc: int):
+def _node_block_rows(p, ps, x, edge_attr, node_time, pair_mask, n_loc: int, node_mask=None,
+                     moe_cfg=None):
     """NodeBlock's plain route for this rank's rows: ``x`` [B, N, Dn]
     (passed ``copy_to``), ``edge_attr`` and ``pair_mask`` the rank's rows
-    -> its rows of the update."""
-    aggr = _node_aggr(p, x, edge_attr, node_time, pair_mask, ps.model)
-    return _node_out(p, _own_rows(ps, x, n_loc), aggr)
+    -> its rows of the update, and under ``moe_cfg`` the expert bank's
+    load-balance loss. The bank runs on every node (replicated over graph,
+    its capacity from the real N), its experts' MLPs split over model."""
+    h_node = moe_aux = None
+    if moe_cfg is not None:
+        h_node, moe_aux = moe_mlp(p["node_net"], x, node_mask, moe_cfg, tp=ps.model)
+    aggr = _node_aggr(p, x, edge_attr, node_time, pair_mask, ps.model, h_node=h_node)
+    out = _node_out(p, _own_rows(ps, x, n_loc), aggr)
+    return out if moe_cfg is None else (out, moe_aux)
 
 
 def _edge_block_rows(p, ps, h_bond, x, bond_time, pair_mask, n_loc: int):
@@ -494,9 +506,10 @@ def _pos_update_rows(p, ps, x, h_edge, rel_vec, distance, edge_time, pair_mask, 
 
 
 def _block_rows(blk, static, ps, h_node, pos_node, h_edge, node_time, edge_time, pair_mask,
-                n_loc: int, dist0=None) -> tuple:
+                n_loc: int, dist0=None, node_mask=None) -> tuple:
     """One block (denoiser.py:481-597) on this rank's rows of the edge
-    features -> (h_node, pos_node: replicated; h_edge: the rank's rows)."""
+    features -> (h_node, pos_node: replicated; h_edge: the rank's rows;
+    the block's load-balance loss or None)."""
     graph = ps.graph
     n = h_node.shape[1]
     if static["update_pos"] or dist0 is None:
@@ -511,7 +524,12 @@ def _block_rows(blk, static, ps, h_node, pos_node, h_edge, node_time, edge_time,
                                 (h_edge.shape[-1], h_dist.shape[-1]))
     else:
         h_edge_i = linear(blk["edge_emb"], h_dist)
-    delta = _node_block_rows(blk["node_block"], ps, x, h_edge_i, node_time, pair_mask, n_loc)
+    moe_cfg = static.get("moe")
+    delta = _node_block_rows(blk["node_block"], ps, x, h_edge_i, node_time, pair_mask, n_loc,
+                             node_mask, moe_cfg)
+    moe_aux = None
+    if moe_cfg is not None:
+        delta, moe_aux = delta
     delta = collectives.gather(graph, delta, 1)[:, :n]
     if static["update_edge"]:
         h_edge_i = h_edge_i + _edge_block_rows(blk["edge_block"], ps, h_edge_i, x, edge_time,
@@ -522,7 +540,7 @@ def _block_rows(blk, static, ps, h_node, pos_node, h_edge, node_time, edge_time,
         d_pos = _pos_update_rows(blk["pos_block"], ps, x, h_edge_i, rel_vec, distance,
                                  edge_time, pair_mask, n_loc)
         pos_node = pos_node + collectives.gather(graph, d_pos, 1)[:, :n]
-    return h_node, pos_node, h_edge_i
+    return h_node, pos_node, h_edge_i, moe_aux
 
 
 def node_edge_net_sharded(params, static, h_node, pos_node, h_edge, node_time, edge_time,
@@ -530,12 +548,14 @@ def node_edge_net_sharded(params, static, h_node, pos_node, h_edge, node_time, e
     """:func:`node_edge_net` by JAX's plain route with the pair tensors'
     receiver axis split over the graph axis of ``pair_sharding`` (and the
     split MLPs over its model axis), as the module docstring sets out ->
-    (h_node, pos_node, h_edge), all replicated. Every rank of the graph
-    and model axes passes the same (replicated) inputs and its shards of
-    ``params``."""
-    if static.get("moe") is not None:
-        raise NotImplementedError(
-            "a MoE denoiser beside a graph or model axis is not ported (ROADMAP.md)")
+    (h_node, pos_node, h_edge), all replicated, and under ``moe`` the
+    blocks' mean load-balance loss. Every rank of the graph and model axes
+    passes the same (replicated) inputs and its shards of ``params``.
+
+    The loss is replicated work whose gradient every graph rank would
+    carry whole into the ``copy_to`` all-reduces of the router and the
+    node features: it passes ``collectives.once``, so the graph sums count
+    it once."""
     ps, graph = pair_sharding, pair_sharding.graph
     dt, in_dtype = compute_dtype(static), h_node.dtype
     n = h_node.shape[1]
@@ -551,8 +571,14 @@ def node_edge_net_sharded(params, static, h_node, pos_node, h_edge, node_time, e
     if not static["update_pos"]:
         pos = collectives.copy_to(graph, pos_node)
         dist0 = dist_features(pos, static, dt, _own_rows(ps, pos, n_loc))
+    auxes = []
     for blk in blocks:
-        h_node, pos_node, h_edge = _block_rows(blk, static, ps, h_node, pos_node, h_edge,
-                                               node_time, edge_time, pm_rows, n_loc, dist0)
+        h_node, pos_node, h_edge, moe_aux = _block_rows(
+            blk, static, ps, h_node, pos_node, h_edge, node_time, edge_time, pm_rows, n_loc,
+            dist0, node_mask)
+        auxes.append(moe_aux)
     h_edge = collectives.gather(graph, h_edge, 1)[:, :n]
-    return h_node.to(in_dtype), pos_node, h_edge.to(in_dtype)
+    out = (h_node.to(in_dtype), pos_node, h_edge.to(in_dtype))
+    if static.get("moe") is not None:
+        return out + (collectives.once(graph, torch.stack(auxes).mean()),)
+    return out

@@ -145,10 +145,11 @@ def gates(probs: torch.Tensor, mask: torch.Tensor,
     return sels, out
 
 
-def _expert_mlp(experts: dict, x: torch.Tensor) -> torch.Tensor:
+def _expert_mlp(experts: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """The E expert MLPs on their own slots: x [E, C, D] -> [E, C, dout]
-    (``jax.vmap(mlp)`` over the leading axis)."""
-    return mlp(tree_map(lambda w: w[:, None] if w.dim() == 2 else w, experts), x)
+    (``jax.vmap(mlp)`` over the leading axis). ``tp``: the model axis
+    their hidden width is split over (``experts`` a ShardedMLP)."""
+    return mlp(tree_map(lambda w: w[:, None] if w.dim() == 2 else w, experts), x, tp)
 
 
 def _global_counts(sels: List[torch.Tensor], mask: torch.Tensor,
@@ -170,7 +171,7 @@ def _global_counts(sels: List[torch.Tensor], mask: torch.Tensor,
     return lower[:-1].reshape(shape), total[:-1].reshape(shape), total[-1]
 
 
-def moe_mlp(p: dict, x: torch.Tensor, node_mask: torch.Tensor, cfg: dict):
+def moe_mlp(p: dict, x: torch.Tensor, node_mask: torch.Tensor, cfg: dict, tp=None):
     """Routed expert MLP (moe.py:71-140). x [B, N, D] in the compute dtype,
     node_mask [B, N] (1 = real atom) -> (y [B, N, dout], aux).
 
@@ -181,7 +182,9 @@ def moe_mlp(p: dict, x: torch.Tensor, node_mask: torch.Tensor, cfg: dict):
     ``cfg["comm"]`` (a :class:`MoEComm`, optional): this rank's place on a
     data and an expert axis, as the module docstring says; ``aux`` is then
     this rank's share of the global loss, and ``p["experts"]`` holds this
-    rank's experts."""
+    rank's experts. ``tp``: the model axis (parallel/collectives.py Axis)
+    that the experts' hidden width is split over, as any MLP's
+    (models/nn.py ShardedMLP; the router stays replicated)."""
     b, n, d = x.shape
     s = b * n
     comm = cfg.get("comm")
@@ -225,7 +228,7 @@ def moe_mlp(p: dict, x: torch.Tensor, node_mask: torch.Tensor, cfg: dict):
         dispatch, combine = dispatch[:, experts], combine[:, experts]
         tokens = _ToExperts.apply(tokens, comm.expert_group)
     expert_in = torch.einsum("sec,sd->ecd", dispatch.to(dt), tokens)
-    expert_out = _expert_mlp(p["experts"], expert_in)
+    expert_out = _expert_mlp(p["experts"], expert_in, tp)
     if experts is None:
         y = torch.einsum("sec,ech->sh", combine.to(dt), expert_out)
     else:

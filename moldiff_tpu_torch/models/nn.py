@@ -89,12 +89,14 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def linear_parts(p: dict, parts, sizes) -> torch.Tensor:
     """Linear over the implicit ``concat(parts, -1)`` without building it:
-    ``concat(parts) @ W == sum_i parts[i] @ W[rows_i]`` (nn.py:39-70)."""
+    ``concat(parts) @ W == sum_i parts[i] @ W[rows_i]`` (nn.py:39-70). A
+    ``w`` with leading axes (an expert bank's ``[E, din, dout]``) splits its
+    second-to-last one."""
     w = p["w"]
-    assert sum(sizes) == w.shape[0], (sizes, tuple(w.shape))
+    assert sum(sizes) == w.shape[-2], (sizes, tuple(w.shape))
     y, off = None, 0
     for x, sz in zip(parts, sizes):
-        term = x @ w[off:off + sz]
+        term = x @ w[..., off:off + sz, :]
         y = term if y is None else y + term
         off += sz
     if "b" in p:

@@ -26,7 +26,11 @@ The conjugate pairs, by what a tensor is on the axis's ranks:
 - :func:`scatter` -- a replicated tensor cut to the rank's slice for split
   work: slice forward, all-gather backward;
 - :func:`reduce_scatter` -- partial sums of which each rank needs its
-  slice: reduce-scatter forward, all-gather backward.
+  slice: reduce-scatter forward, all-gather backward;
+- :func:`once` -- a replicated value computed from tensors that passed
+  :func:`copy_to`, whose gradient every rank holds whole: identity
+  forward; backward the gradient on the axis's rank 0 and zero elsewhere,
+  so that the all-reduces of :func:`copy_to` count it once.
 
 Gathers and scatters split ``dim`` into ``size`` equal parts, rank r
 holding part r. On an axis of one rank every function is the identity.
@@ -202,6 +206,17 @@ class _ReduceScatter(torch.autograd.Function):
         return None, _all_gather(ctx.ax, g, ctx.dim), None
 
 
+class _Once(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, x):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g if ctx.ax.rank == 0 else torch.zeros_like(g)
+
+
 def copy_to(ax: Optional[Axis], *xs: torch.Tensor):
     """``xs`` unchanged; their gradients all-reduced over the axis, one
     flat buffer for all of them. One tensor in, one out."""
@@ -233,3 +248,7 @@ def scatter(ax: Optional[Axis], x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def reduce_scatter(ax: Optional[Axis], x: torch.Tensor, dim: int) -> torch.Tensor:
     return x if ax is None or ax.size == 1 else _ReduceScatter.apply(ax, x, dim)
+
+
+def once(ax: Optional[Axis], x: torch.Tensor) -> torch.Tensor:
+    return x if ax is None or ax.size == 1 else _Once.apply(ax, x)

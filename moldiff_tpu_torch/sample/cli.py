@@ -5,17 +5,19 @@ config names one (scripts/sample_drug3d.py).
       [--device cuda|cpu] [--outdir outputs_torch] [--num_mols N] [--batch_size B] \
       [--use_ema] [--num_steps S] [--commit none|nodes|edges|both] [--add_edge MODE] \
       [--sanitize_mode reference|repo] [--edge_guidance W] [--edge_guidance_tmax T] \
-      [--run_name NAME]
+      [--recon_workers K] [--run_name NAME]
   python -m moldiff_tpu_torch.sample --config configs/sample/sample_flagship_v2_guided.yml
 
 The model configs come from the checkpoints. The config's top-level
 ``bond_predictor`` names the predictor's checkpoint; ``sample.guidance``
 ([mode, scale]), ``guidance_interval``, ``edge_guidance[_tmax]``,
 ``add_edge``, ``num_steps`` (a respaced chain), ``num_steps_gamma``,
-``pos_sampler`` (ddpm or ddim), ``eta``, ``use_ema`` and ``save_traj_prob``
-follow the JAX CLI (scripts/sample_drug3d.py), whose single-process flags
-override them. Writes SMILES.txt, one SDF per finished molecule under SDF/
-(and ``traj_<k>.sdf``, one entry per state, for each molecule that kept its
+``pos_sampler`` (ddpm or ddim), ``eta``, ``use_ema``, ``save_traj_prob`` and
+``recon_workers`` (host classification over that many spawned processes;
+each process of a multi-process run has its own) follow the JAX CLI
+(scripts/sample_drug3d.py), whose single-process flags override them.
+Writes SMILES.txt, one SDF per finished molecule under SDF/ (and
+``traj_<k>.sdf``, one entry per state, for each molecule that kept its
 trajectory), samples_all.pkl (every classified molecule, the JAX CLI's
 layout) and summary.json (success rate with its Wilson interval,
 throughput, the chain's settings, accept stages, failure reasons, aromatic
@@ -153,7 +155,8 @@ def build_sampler(checkpoint: str, sample_cfg: dict, device: torch.device,
         num_steps=int(sample_cfg.get("num_steps") or 0) or None,
         pos_sampler=str(sample_cfg.get("pos_sampler") or "ddpm"),
         eta=float(sample_cfg.get("eta") or 0.0),
-        respace_gamma=float(sample_cfg.get("num_steps_gamma") or 1.0), **kw)
+        respace_gamma=float(sample_cfg.get("num_steps_gamma") or 1.0),
+        recon_workers=int(sample_cfg.get("recon_workers") or 0), **kw)
     return sampler, ckpt["params"]
 
 
@@ -280,6 +283,7 @@ def _run(config: dict, device: torch.device, outdir: str, num_mols: Optional[int
         "edge_guidance": sampler.edge_guidance,
         "edge_guidance_tmax": sampler.edge_guidance_tmax,
         "add_edge": sampler.add_edge,
+        "recon_workers": sampler.recon_workers,
         "accept_stage_counts": dict(Counter(e.get("stage") or "unknown"
                                             for e in pool["finished"])),
         "failure_reason_counts": dict(Counter(e["reason"] for e in pool["failed"])),
@@ -343,6 +347,9 @@ def main(argv=None) -> dict:
                     help="weight of the bond predictor's log-probs in the edge v0 prediction")
     ap.add_argument("--edge_guidance_tmax", type=int, default=None,
                     help="edge guidance only at original timesteps below this")
+    ap.add_argument("--recon_workers", type=int, default=None,
+                    help="host classification worker processes (0 or 1: serial; default: "
+                         "sample.recon_workers or 0)")
     ap.add_argument("--run_name", default=None,
                     help="output directory name (default: config name + time; required to "
                          "line up the shard directories of a multi-process run)")
@@ -368,7 +375,7 @@ def main(argv=None) -> dict:
     if args.use_ema:
         sample["use_ema"] = True
     for key in ("num_steps", "add_edge", "sanitize_mode", "commit", "edge_guidance",
-                "edge_guidance_tmax"):
+                "edge_guidance_tmax", "recon_workers"):
         if getattr(args, key) is not None:
             sample[key] = getattr(args, key)
     tag = os.path.splitext(os.path.basename(args.config))[0]

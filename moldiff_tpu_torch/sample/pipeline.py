@@ -14,8 +14,11 @@ the trajectories of a Bernoulli share of the finished molecules.
 
 Failed molecules (reconstruction error or disconnected SMILES) are kept in
 the ``failed`` pool, and generation stops once failures exceed
-``max_failures_factor`` times the requested count. Classification runs in
-this process, one molecule after another.
+``max_failures_factor`` times the requested count. With ``recon_workers``
+above 1 each ``generate`` call classifies every batch through a pool of
+that many spawned processes (sample/classify.py), opened at the start of
+the call and shut down at its end; 0, 1 or None classify in this process.
+The pooled entries are the serial ones, in order.
 """
 from __future__ import annotations
 
@@ -26,14 +29,11 @@ import time
 import numpy as np
 import torch
 
-from ..chem.bond_perception import mol_from_positions, mol_from_positions_ctd
-from ..chem.mol import MolError
-from ..chem.sanitize import reconstruct_from_generated, sanitize
-from ..chem.smiles import mol_to_smiles
 from ..data.batching import (DEFAULT_BUCKETS, node_mask_from_counts, split_trajectories,
                              unpad_arrays)
 from ..data.featurize import GEOM_DRUG_SIZE_MEAN, GEOM_DRUG_SIZE_STD, MolFeaturizer
 from ..models.moldiff import COMMIT_MODES, POS_SAMPLERS
+from .classify import classify_batch, classify_decoded, make_classify_pool
 
 
 ADD_EDGE_MODES = (None, "distance", "edm", "connect")
@@ -50,7 +50,7 @@ class MolSampler:
                  guidance_interval: int = 1, edge_guidance: float = 0.0,
                  edge_guidance_tmax: Optional[int] = None, add_edge: Optional[str] = None,
                  num_steps: Optional[int] = None, pos_sampler: str = "ddpm", eta: float = 0.0,
-                 respace_gamma: float = 1.0):
+                 respace_gamma: float = 1.0, recon_workers: Optional[int] = 0):
         if (guidance is not None or edge_guidance > 0) and bond_predictor is None:
             raise ValueError("guidance and edge_guidance require a bond_predictor")
         if add_edge not in ADD_EDGE_MODES:
@@ -82,6 +82,9 @@ class MolSampler:
         self.pos_sampler = pos_sampler
         self.eta = float(eta)
         self.respace_gamma = float(respace_gamma)
+        # host classification workers: 0, 1 or None classify serially
+        # (pipeline.py:109-115)
+        self.recon_workers = int(recon_workers or 0)
         self.chains = 0        # reverse chains run so far
         self.chain_s = 0.0     # wall time of those chains, device work included
 
@@ -172,6 +175,16 @@ class MolSampler:
         molecules' trajectories."""
         rng = rng or np.random.default_rng(0)
         batch_graphs = batch_graphs or self.batch_size
+        workers = make_classify_pool(self.recon_workers)
+        try:
+            return self._generate_loop(params, num_mols, generator, rng, max_failures_factor,
+                                       batch_graphs, logger, traj_prob, workers)
+        finally:
+            if workers is not None:
+                workers.shutdown(cancel_futures=True)
+
+    def _generate_loop(self, params, num_mols, generator, rng, max_failures_factor,
+                       batch_graphs, logger, traj_prob, workers) -> Dict[str, list]:
         save_traj = traj_prob > 0.0
         pool = {"finished": [], "failed": []}
         while len(pool["finished"]) < num_mols:
@@ -184,8 +197,11 @@ class MolSampler:
                 decoded, refs = self.sample_sizes(params, sizes, generator, save_traj=True)
             else:
                 decoded, refs = self.sample_sizes(params, sizes, generator), None
-            entries = [classify_decoded(d, add_edge=self.add_edge,
-                                        sanitize_mode=self.sanitize_mode) for d in decoded]
+            if workers is None:
+                entries = [classify_decoded(d, add_edge=self.add_edge,
+                                            sanitize_mode=self.sanitize_mode) for d in decoded]
+            else:
+                entries = classify_batch(decoded, self.add_edge, workers, self.sanitize_mode)
             if save_traj:
                 keep = [(e, ref) for e, ref in zip(entries, refs)
                         if e["pool"] == "finished" and rng.random() < traj_prob]
@@ -224,41 +240,3 @@ class TrajectoryBatch:
         for i, tr in zip(idxs, split_trajectories(sub, self.counts[idxs])):
             self.fetched[i] = {"node": eye_n[tr["node"]], "pos": tr["pos"],
                                "halfedge": eye_e[tr["halfedge"]]}
-
-
-def classify_decoded(decoded: dict, add_edge: Optional[str] = None,
-                     sanitize_mode: str = "reference") -> dict:
-    """Decoded dict -> pool entry: sanitize cascade + disconnect check
-    (pipeline.py:503-568). ``add_edge``: None reads the model's bonds;
-    'distance' (or 'edm') perceives them from interatomic distances, and
-    'connect' by connect-the-dots with geometric bond orders."""
-    stats: dict = {}
-    try:
-        if add_edge in ("distance", "edm"):
-            # distance bonds carry no aromatic class: sanitize alone, with
-            # the acceptance sanitize_mode sets
-            mol = sanitize(mol_from_positions(decoded["element"], decoded["atom_pos"]),
-                           auto_pyrrole=(sanitize_mode != "reference"))
-            stats["stage"] = "sanitize"
-        elif add_edge == "connect":
-            perceived = mol_from_positions_ctd(decoded["element"], decoded["atom_pos"])
-            bi = np.array([[b.i for b in perceived.bonds], [b.j for b in perceived.bonds]],
-                          dtype=np.int64)
-            bt = np.array([b.order for b in perceived.bonds], dtype=np.int64)
-            mol = reconstruct_from_generated(decoded["element"], decoded["atom_pos"], bi, bt,
-                                             mode=sanitize_mode, stats=stats)
-        else:
-            mol = reconstruct_from_generated(
-                decoded["element"], decoded["atom_pos"], decoded.get("bond_index"),
-                decoded.get("bond_type"), mode=sanitize_mode, stats=stats)
-    except MolError:
-        return {"pool": "failed", "decoded": decoded, "reason": "recon_error"}
-    try:
-        smiles = mol_to_smiles(mol)
-    except Exception:
-        return {"pool": "failed", "decoded": decoded, "reason": "smiles_error"}
-    if "." in smiles:
-        return {"pool": "failed", "decoded": decoded, "reason": "disconnect",
-                "mol": mol, "smiles": smiles, "stage": stats.get("stage")}
-    return {"pool": "finished", "decoded": decoded, "mol": mol,
-            "smiles": smiles, "stage": stats.get("stage")}

@@ -78,7 +78,7 @@ from ..data.loader import BucketedLoader
 from ..models.moldiff import MolDiff, resolve_device
 from ..ops import kernels
 from ..parallel import launch
-from ..parallel.mesh import (DATA_AXIS, GRAPH_AXIS, Mesh, broadcast_leaves,
+from ..parallel.mesh import (DATA_AXIS, GRAPH_AXIS, PIPE_AXIS, Mesh, broadcast_leaves,
                              initialize_distributed, make_mesh_from_config, rank_device,
                              shutdown_distributed)
 from ..utils.config import Config
@@ -139,9 +139,11 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
     the seconds in collectives, on the pipe the pipeline's transfers
     (``pipe``: parallel/pipeline.py stats), on a graph axis the model's own
     collectives (``model_comm``: parallel/collectives.py stats), and with
-    ``check_replicas`` whether the params of every rank of each data group
-    (and graph group) were bit-equal after it), the validation losses, the checkpoints written and the seconds
-    each took (an async one: its snapshot), the step timer's
+    ``check_replicas`` whether the params (FSDP's shards) were bit-equal
+    after it on the ranks that hold the same ones: each data group's
+    without FSDP, each graph group's, and each pipe group's where the pipe
+    runs no pipeline), the validation losses, the checkpoints written and
+    the seconds each took (an async one: its snapshot), the step timer's
     summary, the metrics and event files, and the final state and
     trainer. Log lines go to ``log.txt`` and stderr, and to ``log`` when
     given; ``scalars`` maps a step's terms to the scalars written. On a
@@ -261,12 +263,15 @@ def fit(config: Config, model, featurizer, device: torch.device, resume: Optiona
                     steps[-1]["pipe"] = trainer.pipe_stats
                 if trainer.graph:
                     steps[-1]["model_comm"] = trainer.model_comm
-                if check_replicas and not trainer.fsdp:
-                    # the ranks that hold the same params: along data, and
-                    # along graph where the mesh has one
+                if check_replicas:
+                    # the ranks that hold the same params (or FSDP shards):
+                    # along data (without FSDP), along graph, and along a
+                    # pipe that runs no pipeline
+                    replicas = [a for a in mesh.axes if a == GRAPH_AXIS
+                                or (a == DATA_AXIS and not trainer.fsdp)
+                                or (a == PIPE_AXIS and not trainer.pp)]
                     same = all(broadcast_leaves(state.params, src=mesh.group_rank(axis, 0),
-                                                group=mesh.group(axis))[1]
-                               for axis in (DATA_AXIS, GRAPH_AXIS) if axis in mesh.axes)
+                                                group=mesh.group(axis))[1] for axis in replicas)
                     flag = torch.tensor([0.0 if same else 1.0], device=mesh.comm_device())
                     dist.all_reduce(flag)
                     steps[-1]["replicas_equal"] = float(flag[0]) == 0.0

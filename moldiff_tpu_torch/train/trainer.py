@@ -64,8 +64,12 @@ for its shard), so the gradients are summed over data alone, as on the
 other axes; the clip norm counts each split leaf's squares over the model
 group and each replicated leaf once, as JAX's ``optax.global_norm`` of the
 whole leaves. FSDP is exclusive with model, as in JAX, and allowed beside
-graph (its shards then live on every graph rank of their data
-coordinate, and its collectives run over the data group).
+graph and beside a pipe axis that runs no pipeline (the bond predictor's,
+whose pipe ranks are replicas): its shards then live on every graph or
+pipe rank of their data coordinate, and its collectives run over the data
+group, so no gradient is summed over the axis beside it. Under ``moe`` the
+expert banks run on the replicated nodes, their MLPs split over model like
+the others (models/denoiser.py).
 
 Checkpoints keep the JAX package's pickle layout (trainer.py:372-395):
 ``config``, float32 numpy ``params`` and ``ema_params``, ``step``,
@@ -185,9 +189,6 @@ class Trainer:
             raise ValueError(
                 "fsdp is exclusive with the 'expert' axis: conflicting "
                 "layouts on expert leaves")
-        if self.fsdp and pipe_enabled(self.mesh):
-            raise NotImplementedError("fsdp beside a pipe axis that runs no pipeline (the bond "
-                                      "predictor's) is not ported")
         if self.mesh is not None and self.mesh.axis_size > 1:
             self.mesh.group(DATA_AXIS)   # every rank makes the groups here, in one order
         static = _moe_static(model)

@@ -16,24 +16,22 @@ at float32:
   bond predictor's step on the graph axis;
 - the plain gated route at world 1 (make_mesh_2d(1, 1), no process group)
   against JAX's Trainer on make_mesh_2d(1, 1), with no kernel wrapper
-  called; MoE beside the graph axis refused (the one combination not
-  ported); FSDP beside a pipe axis without a pipeline refused."""
+  called. MoE beside the graph and model axes and FSDP beside a pipe axis
+  without a pipeline: tests/test_torch_moe_axes.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from moldiff_tpu.models.denoiser import init_node_edge_net as j_init_net
 from moldiff_tpu.models.denoiser import node_edge_net as j_node_edge_net
 from moldiff_tpu.parallel import mesh as jmesh
 from moldiff_tpu.train.trainer import Trainer as JTrainer
-from moldiff_tpu_torch.models.moldiff import MolDiff
 from moldiff_tpu_torch.parallel import launch
-from moldiff_tpu_torch.parallel.mesh import make_mesh_2d, make_mesh_pipe
+from moldiff_tpu_torch.parallel.mesh import make_mesh_2d
 from moldiff_tpu_torch.train.trainer import Trainer
 from moldiff_tpu_torch.utils.tree import tree_leaves
-from test_torch_data_parallel import (TYPES, assert_aux_close, assert_state_close, batch,
+from test_torch_data_parallel import (assert_aux_close, assert_state_close, batch,
                                       eval_noise, jax_state, train_cfg)
 from torch_axes_util import (SPAWN_S, T_MAX, NoKernels, background, jax_model, mid_run,
                              model_cfg, noise, padded, run_kwargs, world_one)
@@ -248,29 +246,3 @@ def test_plain_route_world_one_equals_jax(monkeypatch):
         assert float(aux[k]) == pytest.approx(float(v), rel=2e-5, abs=2e-6), k
     got = {"params": np_tree(st.params), "ema": np_tree(st.ema_params)}
     assert_state_close(got, jst, "world 1 plain route")
-
-
-def test_moe_beside_graph_raises_naming_roadmap():
-    """MoE beside a graph or model axis is the one combination not ported:
-    the row-split route raises NotImplementedError naming ROADMAP.md."""
-    cfg = model_cfg()
-    cfg["denoiser"]["moe"] = {"num_experts": 2, "top_k": 1}
-    model = MolDiff(cfg, 8, 6, device="cpu")
-    Trainer(model, train_cfg(), mesh=make_mesh_2d(1, 1, "cpu"))
-    assert model.pair_sharding is not None
-    b = np_batch_to_torch(batch(2, seed=6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.get_loss(model.init_params(torch.Generator().manual_seed(0)), b["node_type"],
-                       b["pos"], b["halfedge_type"], b["node_mask"],
-                       noise("moldiff", jax.random.key(3), 2)[0].loss)
-
-
-def test_fsdp_beside_a_pipe_without_a_pipeline_raises():
-    """FSDP is allowed beside graph, not beside a pipe axis that runs no
-    pipeline (the bond predictor's): the Trainer refuses it before it makes
-    a process group."""
-    kn, ke = TYPES["bond"]
-    model = make_model("bond", model_cfg("bond"), kn, ke)
-    mesh = make_mesh_pipe(2, 2, "cpu", "gloo").at(0, "cpu")
-    with pytest.raises(NotImplementedError, match="pipe axis"):
-        Trainer(model, train_cfg("bond"), mesh=mesh, fsdp=True)

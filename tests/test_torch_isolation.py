@@ -2,7 +2,8 @@
 package, PyYAML, pandas nor ml_dtypes can be imported, as on a machine that
 has only PyTorch and numpy: every module imports, flagship_v2.ckpt loads,
 the demo checkpoint runs MolDiff.forward, one reverse step, one respaced
-DDIM step with commit both, one SamplerService.generate and one training
+DDIM step with commit both, one SamplerService.generate, the sampler's
+pool classified by two spawned workers as serially, and one training
 step (on an in-memory corpus) on the CPU, and the same forward with
 fuse_block and a training step with edge_full; the demo bond predictor
 initialised from scratch takes a training step, and the demo denoiser one
@@ -95,6 +96,15 @@ sampler, sparams = build_sampler("ckpts/demo_synthetic_30k.ckpt",
                                   "size_std": 1.0}, torch.device("cpu"), batch_size=2)
 served = SamplerService(sampler, sparams).generate(1, seed=0)
 assert served["seed"] == 0 and isinstance(served["smiles"], list)
+# the classification pool: two spawned workers give the serial pool
+pools = []
+for workers in (0, 2):
+    sampler.recon_workers = workers
+    pools.append(sampler.generate(sparams, 1, torch.Generator().manual_seed(0),
+                                  rng=np.random.default_rng(0), batch_graphs=2))
+entries = [[(e["pool"], e.get("smiles")) for e in p["finished"] + p["failed"]] for p in pools]
+assert entries[1] == entries[0] and entries[0], entries
+sampler.recon_workers = 0
 
 from moldiff_tpu_torch.data.dataset import make_corpus
 from moldiff_tpu_torch.data.loader import BucketedLoader
@@ -320,7 +330,8 @@ def test_port_runs_without_jax_yaml_pandas():
                  "moldiff_tpu_torch.parallel.mesh", "moldiff_tpu_torch.parallel.multihost",
                  "moldiff_tpu_torch.parallel.launch", "moldiff_tpu_torch.parallel.pipeline",
                  "moldiff_tpu_torch.parallel.collectives",
-                 "moldiff_tpu_torch.train.checkpoint_sharded"):
+                 "moldiff_tpu_torch.train.checkpoint_sharded",
+                 "moldiff_tpu_torch.sample.classify", "moldiff_tpu_torch.sample.sweep"):
         assert name in out["modules"]
     # chip_smoke's sample settings are the committed YAML config's
     with open(os.path.join(REPO, "configs/sample/sample_flagship_v2.yml")) as f:

@@ -38,22 +38,24 @@ def model_cfg(kind: str = "moldiff") -> dict:
                      "diff_bond": dict(sched, init_prob="absorb")}}
 
 
-def jax_model(kind: str = "moldiff"):
+def jax_model(kind: str = "moldiff", cfg: "dict | None" = None):
+    """JAX's model of ``kind`` with :func:`model_cfg` (or ``cfg``)."""
     kn, ke = TYPES[kind]
-    return (JMolDiff if kind == "moldiff" else JBondPredictor)(copy.deepcopy(model_cfg(kind)),
-                                                              kn, ke)
+    return (JMolDiff if kind == "moldiff" else JBondPredictor)(
+        copy.deepcopy(cfg or model_cfg(kind)), kn, ke)
 
 
 def noise(kind: str, key, b_padded: int, accum: int = 1) -> list:
     return step_noise(kind, key, b_padded, accum, T_MAX[kind])
 
 
-def mid_run(kind: str, params: dict, tcfg: dict, b: dict) -> dict:
+def mid_run(kind: str, params: dict, tcfg: dict, b: dict, cfg: "dict | None" = None) -> dict:
     """A state ten steps into a run (tests/test_torch_data_parallel.py's
-    mid_run, for this module's models): adam's count 10, mu 0 and nu 1e-2 x
-    the square of each leaf's gradient scale, EMA a copy of the params."""
+    mid_run, for this module's models, or ``cfg``'s): adam's count 10, mu 0
+    and nu 1e-2 x the square of each leaf's gradient scale, EMA a copy of
+    the params."""
     kn, ke = TYPES[kind]
-    tr = Trainer(make_model(kind, model_cfg(kind), kn, ke), dict(tcfg, grad_accum=1))
+    tr = Trainer(make_model(kind, cfg or model_cfg(kind), kn, ke), dict(tcfg, grad_accum=1))
     st = tr.init_from_params(params_to_torch(params, "cpu"))
     grads, _, _ = tr.gradient(st, np_batch_to_torch(b),
                               noise(kind, jax.random.key(1), len(b["pos"]))[0])
@@ -64,18 +66,20 @@ def mid_run(kind: str, params: dict, tcfg: dict, b: dict) -> dict:
             "ema": params if tcfg.get("ema_decay") else None}
 
 
-def run_kwargs(kind: str, tcfg: dict, state: dict, steps: list, axes: dict, **kw) -> dict:
-    """One run of torch_dist_util.axis_worker."""
+def run_kwargs(kind: str, tcfg: dict, state: dict, steps: list, axes: dict,
+               cfg: "dict | None" = None, **kw) -> dict:
+    """One run of torch_dist_util.axis_worker (the model of :func:`model_cfg`
+    or ``cfg``)."""
     kn, ke = TYPES[kind]
-    return dict(kind=kind, model_cfg=model_cfg(kind), kn=kn, ke=ke, train_cfg=tcfg, state=state,
-                steps=steps, axes=axes, **kw)
+    return dict(kind=kind, model_cfg=cfg or model_cfg(kind), kn=kn, ke=ke, train_cfg=tcfg,
+                state=state, steps=steps, axes=axes, **kw)
 
 
-def world_one(kind: str, tcfg: dict, state: dict, steps: list) -> tuple:
+def world_one(kind: str, tcfg: dict, state: dict, steps: list, cfg: "dict | None" = None) -> tuple:
     """The port's trainer at world 1 on the same steps -> (aux per step,
     whole state per step)."""
     kn, ke = TYPES[kind]
-    tr = Trainer(make_model(kind, model_cfg(kind), kn, ke), tcfg)
+    tr = Trainer(make_model(kind, cfg or model_cfg(kind), kn, ke), tcfg)
     st = start_state(tr, state)
     auxs, states = [], []
     for b, nz in steps:

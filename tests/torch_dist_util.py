@@ -313,3 +313,56 @@ def graph_forward_worker(rank: int, world: int, init: str, n_graph: int, params:
         return out
     finally:
         shutdown_distributed()
+
+
+def tp_forward(rank: int, world: int, axes: dict, params: dict, static_cfg: dict,
+               inputs: list, weights: list) -> dict:
+    """node_edge_net by the row-split route on ``mesh_of(world, axes)`` (a
+    graph and a model axis), each rank holding its tp_param_sharding
+    shards of ``params`` (split MLPs marked, as the trainer holds them) ->
+    this rank's outputs on its data shard's rows (the load-balance loss
+    last under ``moe``), and the gradients of the sum of its outputs times
+    ``weights`` with respect to the whole block leaves (gathered from the
+    shards) and to its rows of h_node, pos, h_edge. ``inputs``: h_node,
+    pos, h_edge, node_time, edge_time, pair_mask, node_mask."""
+    from moldiff_tpu_torch.models.denoiser import denoiser_static_config, node_edge_net
+    from moldiff_tpu_torch.models.nn import mark_tp
+    from moldiff_tpu_torch.parallel.mesh import all_gather_axis, pair_sharding, tp_param_sharding
+
+    mesh = mesh_of(world, axes).at(rank, "cpu")
+    ps = pair_sharding(mesh)
+    static = denoiser_static_config(**static_cfg)
+    whole_tree = params_to_torch(params, "cpu")
+    place_tree = tp_param_sharding(mesh, whole_tree)
+    places = tree_leaves(place_tree)
+    shards = [p.take(x, mesh.coord(p.axis)).requires_grad_(True)
+              for p, x in zip(places, tree_leaves(whole_tree))]
+    tree = mark_tp(tree_unflatten(whole_tree, shards), place_tree)
+    b = inputs[0].shape[0] // mesh.data
+    rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
+    x = [torch.tensor(v[rows]) for v in inputs]
+    ins = [t.requires_grad_(True) for t in x[:3]]
+    res = node_edge_net(tree, static, *ins, *x[3:6], node_mask=x[6], pair_sharding=ps)
+    loss = sum((r * torch.tensor(w[rows] if np.ndim(w) else w)).sum()
+               for r, w in zip(res, weights))
+    grads = torch.autograd.grad(loss, shards + ins)
+    whole_grads = all_gather_axis(mesh, places, list(grads[:len(shards)]))
+    return {"out": [r.detach().numpy() for r in res],
+            "grads": [g.numpy() for g in whole_grads],
+            "input_grads": [g.numpy() for g in grads[len(shards):]],
+            "split": sum(p.dim is not None for p in places)}
+
+
+def forward_and_axis_worker(rank: int, world: int, init: str, forward: "dict | None",
+                            runs: list) -> dict:
+    """:func:`tp_forward` of the kwargs ``forward`` (when given), then
+    :func:`axis_run` of each kwargs dict of ``runs``, in one process group
+    of ``world`` gloo ranks."""
+    torch.set_num_threads(1)
+    initialize_distributed(init, world, rank, backend="gloo")
+    try:
+        out = {"forward": tp_forward(rank, world, **forward) if forward else None}
+        out["runs"] = [axis_run(rank, world, **kw) for kw in runs]
+        return out
+    finally:
+        shutdown_distributed()
